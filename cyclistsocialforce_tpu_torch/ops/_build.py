@@ -1,0 +1,83 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+`library()` compiles every `csrc/*.cu` file into one shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds), under
+`build/kernels/` at the repository root, named by a hash of the sources
+and flags so an unchanged tree never rebuilds. It runs at the first CUDA
+launch, never at import. A missing nvcc or a failed compile raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+# -fmad=false: no contraction of a*b + c into one fused multiply-add, so a
+# kernel rounds each operation as its plain PyTorch version does and the
+# two agree pair by pair, also where the force field is discontinuous
+# (the FOV cone edge, the sign(sin phi) jump) and one rounding step
+# decides which side of it a pair falls on
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib = None
+build_seconds = None   # wall time of this process's compile (None: cached)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels of cyclistsocialforce_tpu_torch need the CUDA toolkit")
+
+
+def _declare(lib):
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.csf_pair_forces_twod.argtypes = [p, p, p, p, p, i, i, i,
+                                         f, f, f, f, f, f, f, i, p]
+    lib.csf_pair_forces_twod.restype = i
+    lib.csf_error_string.argtypes = [i]
+    lib.csf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def library():
+    """The loaded kernel library, compiled first if needed."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
+    sources = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"libcsf_kernels_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc={res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}")
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, out)
+    _lib = _declare(ctypes.CDLL(str(out)))
+    return _lib
+
+
+def error_string(lib, rc: int) -> str:
+    return f"{rc}: {lib.csf_error_string(rc).decode()}"
