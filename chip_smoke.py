@@ -3,25 +3,42 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (a failing phase raises and the
-script exits non-zero):
+It drives three paths, one per pair kernel: the main path through K1
+(`csrc/pair_forces.cu`, unscreened), the same path through K2
+(`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled") and a crowd
+with per-rider field parameters through K3 (`csrc/pair_forces_db.cu`,
+backend "pallas_db"). Phases, each printing one JSON line (a failing phase
+raises and the script exits non-zero):
 
   1. device    the card's name, and its name and power limit as nvidia-smi
                reports them (every time printed below was taken on it);
   2. build     compile the CUDA kernels from the checkout's sources;
-  3. kernel    the pair kernel against its plain PyTorch version on the
-               card, at the main path's shape (100,000 riders padded to
-               782 x 128, block_src = 64, kb = 19), with CUDA-event times;
-  4. audit     no receiver block overflows the neighbor table at t = 0;
-  5. slice     240 steps of Engine.simulate on the card: one pair-kernel
-               launch per step, a finite state, no overflow at t = end,
-               and the best-of-3 wall time per step;
-  6. parity    an 8,192-rider crowd run 45 steps (two table-rebuild
+  3. kernel    K1 in the main path's form against its plain PyTorch
+               version on the card, at the main path's shape (100,000
+               riders padded to 782 x 128, block_src = 64, kb = 19), with
+               CUDA-event times;
+  4. kernel_forms  every other form of K1, K2 and K3 against its plain
+               version at the same shape and with CUDA-event times;
+  5. audit     no receiver block overflows the neighbor table at t = 0;
+  6. slice     240 steps of Engine.simulate on the card: one K1 launch per
+               step, a finite state, no overflow at t = end, and the
+               best-of-3 wall time per step;
+  7. slice_unrolled  the same 240 steps through K2: 240 K2 launches and
+               no K1 launch;
+  8. slice_db  240 steps of 100,000 riders with per-rider f_0 and sigma_0
+               (+-5%) through K3 at block = block_src = 128, kb from the
+               overflow audit plus a margin: 240 K3 launches;
+  9. parity    an 8,192-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
-               state, compared on the final state.
+               state, compared on the final state;
+ 10. parity_db the K3 path against the K1 path (tile screen, block_src =
+               128) on the card, 45 steps of the slice_db crowd; and the
+               K3 path on the card in float32 against the CPU float64
+               plain version on a 4,096-rider crowd.
 
-Then a JSON line with the kernels' launch counts, errors and times, the
+Then a JSON line with the kernels' launch counts (each from its own path,
+with every count set to 0 just before it), errors and times, the
 nvidia-smi line, and last `{"ok": true, "device": {...}}`. Without a CUDA
 device the script exits non-zero before printing any result.
 """
@@ -51,6 +68,13 @@ PARITY_N, PARITY_STEPS = 8192, 45
 PARITY_QUANTILE = 0.999
 PARITY_TOL = {"pos": 1e-3, "psi": 1e-3, "v": 1e-3, "delta": 1e-3}
 PARITY_CAP = {"pos": 1e-2, "psi": 5e-2, "v": 5e-2, "delta": 5e-2}
+# K3 path: source blocks of 128 (K3 needs block_src == block), per-rider
+# f_0 and sigma_0 jittered by +-JITTER (numpy, seeded), kb = the audited
+# maximum of in-range blocks plus KB_MARGIN (tests/test_neighbors.py)
+DB_BLOCK, JITTER, JITTER_SEED, KB_MARGIN = 128, 0.05, 7, 2
+PARITY_DB_N = 4096
+SRC = "cyclistsocialforce_tpu_torch/csrc/"
+TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 
 
 def emit(phase, **kw):
@@ -65,20 +89,45 @@ def nvidia_smi_line():
     return res.stdout.strip().splitlines()[0]
 
 
-def neighbor_config():
+def neighbor_config(**kw):
+    """The main path's NeighborConfig (K1, unscreened), with `kw` changed."""
     from cyclistsocialforce_tpu_torch import NeighborConfig
 
-    return NeighborConfig(cutoff=CUTOFF, block=BLOCK, block_src=BLOCK_SRC,
-                          kb=KB, rebuild_every=REBUILD)
+    cfg = dict(cutoff=CUTOFF, block=BLOCK, block_src=BLOCK_SRC, kb=KB,
+               rebuild_every=REBUILD, screen=False)
+    return NeighborConfig(**{**cfg, **kw})
 
 
-def make_engine():
+def make_engine(params=None, **kw):
     from cyclistsocialforce_tpu_torch import Engine
     from cyclistsocialforce_tpu_torch.models import MODELS
     from cyclistsocialforce_tpu_torch.params import BicycleParams
 
-    return Engine.create(BicycleParams.create(), MODELS["bicycle2d"],
-                         rep_force="twod", neighbors=neighbor_config())
+    return Engine.create(params or BicycleParams.create(),
+                         MODELS["bicycle2d"], rep_force="twod",
+                         neighbors=neighbor_config(**kw))
+
+
+def jittered_params(n, device, dtype):
+    """Shared BicycleParams with per-rider f_0 and sigma_0 [n] on `device`
+    (broadcast by `as_population`, scaled by a seeded numpy draw in
+    1 +- JITTER): the field columns the K3 path reads. The other fields
+    stay shared floats, so the state keeps its dtype."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.params import BicycleParams, as_population
+
+    base = BicycleParams.create()
+    pop = as_population(base, n, device=device)
+    rng = np.random.default_rng(JITTER_SEED)
+
+    def jitter():
+        return torch.as_tensor(1 + JITTER * rng.uniform(-1, 1, n),
+                               device=device)
+
+    return base.replace(f_0=(pop.f_0 * jitter()).to(dtype),
+                        sigma_0=(pop.sigma_0 * jitter()).to(dtype))
 
 
 def audit_overflow(engine, state, tag):
@@ -88,11 +137,12 @@ def audit_overflow(engine, state, tag):
     cache = engine.neighbor_cache(state)
     counts = cache[2].sum(dim=1)
     n_over = int(cache[3].sum())
-    emit("audit", at=tag, max_in_range_blocks=int(counts.max()), kb=KB,
-         overflow_blocks=n_over)
+    kb = engine.neighbors.kb
+    emit("audit", at=tag, max_in_range_blocks=int(counts.max()), kb=kb,
+         block_src=engine.neighbors.block_src, overflow_blocks=n_over)
     if n_over:
         raise AssertionError(f"neighbor table overflow at {tag}: "
-                             f"{n_over} receiver blocks exceed kb={KB}")
+                             f"{n_over} receiver blocks exceed kb={kb}")
     return int(counts.max())
 
 
@@ -115,66 +165,174 @@ def cuda_ms(fn, reps):
     return times[len(times) // 2]
 
 
-def phase_kernel(engine, state):
-    import torch
-
+def sorted_inputs(engine, state):
+    """(nbr, valid, src, recv): the engine's table and its cell-sorted
+    packs, as the sorted-resident step hands them to the pair kernel."""
     from cyclistsocialforce_tpu_torch.engine import permute_state
-    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 
     cache = engine.neighbor_cache(state)
-    sorted_state = permute_state(state, cache[0])
-    src, recv = engine.pack_pair_fields(sorted_state)
-    nbr, valid = cache[1], cache[2]
-    kw = dict(block=BLOCK, block_src=BLOCK_SRC, uniform=engine.uniform_pair,
-              fov=not engine.full_fov)
-    out_k = PF.pair_forces_neighbors(nbr, valid, src, recv, **kw)
-    out_r = PF.pair_forces_neighbors_ref(nbr, valid, src, recv, **kw)
+    src, recv = engine.pack_pair_fields(permute_state(state, cache[0]))
+    return cache[1], cache[2], src, recv
+
+
+def admitted_share(tensors, block_src, strip):
+    """The share of the table's valid (tile, strip) pieces that a distance
+    screen at CUTOFF admits: some pair of the strip lies within it."""
+    import torch
+
+    nbr, valid, src, recv = tensors
+    rows = src.shape[0] // block_src
+    xs = src[:, 0].reshape(rows, block_src)[nbr.long()]      # [B, KB, S]
+    ys = src[:, 1].reshape(rows, block_src)[nbr.long()]
+    xr = recv[0].reshape(nbr.shape[0], 1, 1, BLOCK)
+    yr = recv[1].reshape(nbr.shape[0], 1, 1, BLOCK)
+    dx, dy = xr - xs[..., None], yr - ys[..., None]
+    rho2 = (dx * dx + dy * dy).reshape(*nbr.shape, block_src // strip, -1)
+    admit = (rho2.amin(dim=-1) <= CUTOFF * CUTOFF) & valid[..., None]
+    return float(admit.sum()) / float(valid.sum() * (block_src // strip))
+
+
+def check_form(phase, form, fn, tensors, kw, plain_kw):
+    """Kernel `fn` against its plain version on `tensors` (forms of the
+    plain version in `plain_kw`): assert |diff| <= KERNEL_ATOL +
+    KERNEL_RTOL |plain| everywhere, time both with CUDA events, emit one
+    line; returns {max_abs_err, ms, plain_ms}."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    nbr, valid, src, recv = tensors
+    out_k = fn(*tensors, **kw)
+    out_r = PF.pair_forces_neighbors_ref(*tensors, **plain_kw)
     torch.cuda.synchronize()
     if not torch.isfinite(out_k).all():
-        raise AssertionError("pair kernel: non-finite forces")
+        raise AssertionError(f"{form}: non-finite forces")
     err = (out_k - out_r).abs()
-    bound = KERNEL_ATOL + KERNEL_RTOL * out_r.abs()
-    n_bad = int((err > bound).sum())
+    n_bad = int((err > KERNEL_ATOL + KERNEL_RTOL * out_r.abs()).sum())
     max_abs_err = float(err.max())
-    ms = cuda_ms(lambda: PF.pair_forces_neighbors(nbr, valid, src, recv,
-                                                  **kw), reps=50)
-    plain_ms = cuda_ms(lambda: PF.pair_forces_neighbors_ref(
-        nbr, valid, src, recv, **kw), reps=5)
-    candidates = int(valid.sum()) * BLOCK_SRC * BLOCK / state.n
-    emit("kernel", name="pair_forces_neighbors", shape={
+    ms = cuda_ms(lambda: fn(*tensors, **kw), reps=50)
+    plain_ms = cuda_ms(lambda: PF.pair_forces_neighbors_ref(*tensors,
+                                                            **plain_kw),
+                       reps=5)
+    block_src = plain_kw.get("block_src", BLOCK)
+    extra = {}
+    if plain_kw.get("screen"):
+        strip = plain_kw.get("sub") or block_src
+        extra["screen_admits"] = admitted_share(tensors, block_src, strip)
+    emit(phase, form=form, name=fn.__name__, shape={
         "blocks": nbr.shape[0], "kb": nbr.shape[1], "block": BLOCK,
-        "block_src": BLOCK_SRC, "n_src": src.shape[0]},
-        candidate_pairs_per_agent=candidates, max_abs_err=max_abs_err,
-        max_abs_force=float(out_r.abs().max()), n_over_tolerance=n_bad,
-        atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=ms, plain_ms=plain_ms)
+        "block_src": block_src, "n_src": src.shape[0]},
+        candidate_pairs=int(valid.sum()) * block_src * BLOCK,
+        options={k: v for k, v in plain_kw.items()
+                 if k not in ("block", "uniform")},
+        uniform=plain_kw.get("uniform") is not None, **extra,
+        max_abs_err=max_abs_err, max_abs_force=float(out_r.abs().max()),
+        n_over_tolerance=n_bad, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=ms,
+        plain_ms=plain_ms)
     if n_bad:
-        raise AssertionError(f"pair kernel disagrees with its plain version "
-                             f"on {n_bad} values (max |diff| "
+        raise AssertionError(f"{form}: {fn.__name__} disagrees with its "
+                             f"plain version on {n_bad} values (max |diff| "
                              f"{max_abs_err:.3e})")
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_slice(engine, state):
+def phase_kernel(engine, state):
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    kw = dict(block=BLOCK, block_src=BLOCK_SRC, uniform=engine.uniform_pair,
+              fov=not engine.full_fov)
+    return check_form("kernel", "main", PF.pair_forces_neighbors,
+                      sorted_inputs(engine, state), kw, kw)
+
+
+def phase_kernel_forms(engine, db_engine, state):
+    """Every other single-family form of the three kernels at the main
+    path's shape: K1 and K2 on the main table (block_src 64, kb 19), K3
+    and K1 in K3's form on the K3 path's table (block_src 128). Per-source
+    column forms run on the K3 path's per-rider parameters."""
+    import math
+
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    k1, k2, k3 = (PF.pair_forces_neighbors, PF.pair_forces_neighbors_unrolled,
+                  PF.pair_forces_neighbors_db)
+    full_fov = make_engine(BicycleParams.create(hfov=2 * math.pi))
+    columns = make_engine(db_engine.params)
+    main_t, fov_t, col_t = (sorted_inputs(e, state)
+                            for e in (engine, full_fov, columns))
+    db_t = sorted_inputs(db_engine, state)
+    u = engine.uniform_pair
+    bs64 = dict(block=BLOCK, block_src=BLOCK_SRC)
+    bs128 = dict(block=BLOCK, block_src=DB_BLOCK)
+    screen = dict(screen=True, cutoff=CUTOFF)
+    # name: (kernel, packs, kernel kwargs, plain-version kwargs or None
+    # for the same)
+    forms = {
+        "k1_screen": (k1, main_t, {**bs64, "uniform": u, **screen}, None),
+        "k1_screen_sub32": (k1, main_t,
+                            {**bs64, "uniform": u, **screen, "sub": 32},
+                            None),
+        "k1_fov_off": (k1, fov_t, {**bs64, "uniform": full_fov.uniform_pair,
+                                   "fov": False}, None),
+        "k1_columns": (k1, col_t, {**bs64}, None),
+        "k1_p2r": (k1, main_t, {**bs64, "uniform": u, "priority_p2r": True},
+                   None),
+        "k2_uniform": (k2, main_t, {**bs64, "uniform": u}, None),
+        "k2_columns": (k2, col_t, {**bs64}, None),
+        "k3": (k3, db_t, {"block": BLOCK, "cutoff": CUTOFF},
+               {**bs128, **screen}),
+        "k3_p2r": (k3, db_t, {"block": BLOCK, "cutoff": CUTOFF,
+                              "priority_p2r": True},
+                   {**bs128, **screen, "priority_p2r": True}),
+        # K3's computation through K1, for the time comparison
+        "k1_screen_bs128_columns": (k1, db_t, {**bs128, **screen}, None),
+    }
+    return {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
+            for name, (fn, t, kw, plain) in forms.items()}
+
+
+def phase_db_config(state):
+    """The K3 path's engine: per-rider f_0 and sigma_0 on the card, block =
+    block_src = 128, kb = the in-range maximum at t = 0 (counted with a
+    table of 4 * KB slots, itself overflow-free) plus KB_MARGIN."""
+    import torch
+
+    params = jittered_params(state.n, "cuda", torch.float32)
+    probe = make_engine(params, backend="pallas_db", block_src=DB_BLOCK,
+                        kb=4 * KB, screen=True)
+    most = audit_overflow(probe, state, "db probe t=0")
+    return make_engine(params, backend="pallas_db", block_src=DB_BLOCK,
+                       kb=most + KB_MARGIN, screen=True)
+
+
+def phase_slice(phase, engine, state, kernel):
+    """N_STEPS steps of `engine.simulate`, each through `kernel`: exactly
+    N_STEPS launches of it and none of the other kernels (every count set
+    to 0 just before the run), a finite state, no table overflow at t = 0
+    and t = end, then the best-of-3 wall time per step."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 
+    audit_overflow(engine, state, f"{phase} t=0")
     torch.cuda.synchronize()
-    PF.pair_forces_neighbors.launches = 0
+    PF.reset_launches()
     t0 = time.perf_counter()
     final, _ = engine.simulate(state, N_STEPS, record=False)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = PF.pair_forces_neighbors.launches
+    launches = {fn.__name__: fn.launches for fn in PF.KERNELS}
     finite = bool(torch.isfinite(final.s).all())
-    emit("slice_run", steps=N_STEPS, kernel_launches=launches,
-         finite=finite, first_run_s=first_s)
-    if launches != N_STEPS:
-        raise AssertionError(f"expected {N_STEPS} pair-kernel launches, "
-                             f"counted {launches}")
+    emit(f"{phase}_run", steps=N_STEPS, backend=engine.neighbors.backend,
+         kernel_launches=launches, finite=finite, first_run_s=first_s)
+    want = {fn.__name__: N_STEPS * (fn is kernel) for fn in PF.KERNELS}
+    if launches != want:
+        raise AssertionError(f"{phase}: expected launches {want}, counted "
+                             f"{launches}")
     if not finite:
-        raise AssertionError("non-finite state after the slice")
-    audit_overflow(engine, final, "t=end")
+        raise AssertionError(f"{phase}: non-finite state after the run")
+    audit_overflow(engine, final, f"{phase} t=end")
 
     dts = []
     for _ in range(3):
@@ -184,11 +342,28 @@ def phase_slice(engine, state):
         torch.cuda.synchronize()
         dts.append(time.perf_counter() - t0)
     dt = min(dts)
-    emit("slice", n_agents=N_AGENTS, n_padded=state.n, steps=N_STEPS,
-         ms_per_step=1e3 * dt / N_STEPS,
+    emit(phase, n_agents=N_AGENTS, n_padded=state.n, steps=N_STEPS,
+         backend=engine.neighbors.backend, ms_per_step=1e3 * dt / N_STEPS,
          agent_steps_per_s=N_AGENTS * N_STEPS / dt,
          spread_pct=100.0 * (max(dts) - dt) / dt, runs_s=dts)
-    return launches
+    return launches[kernel.__name__]
+
+
+def compare_runs(phase, engine_a, state_a, engine_b, state_b, **info):
+    """PARITY_STEPS steps of two engine/state pairs, final states held to
+    the two-tier tolerance (`parity_errors`); emits one line."""
+    import torch
+
+    fin_a, _ = engine_a.simulate(state_a, PARITY_STEPS, record=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin_b, _ = engine_b.simulate(state_b, PARITY_STEPS, record=False)
+    torch.cuda.synchronize()
+    errs = parity_errors(fin_a, fin_b)
+    emit(phase, steps=PARITY_STEPS, rebuild_every=REBUILD,
+         second_run_s=time.perf_counter() - t0, **info, **errs)
+    if errs["failed"]:
+        raise AssertionError(f"{phase} failed: {errs['failed']}")
 
 
 def phase_parity():
@@ -202,16 +377,35 @@ def phase_parity():
     st_cpu = build_population(PARITY_N, DENSITY, HIST_LEN, BLOCK,
                               torch.float64, "cpu")
     audit_overflow(engine, st_gpu, "parity t=0")
-    fin_gpu, _ = engine.simulate(st_gpu, PARITY_STEPS, record=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fin_cpu, _ = engine.simulate(st_cpu, PARITY_STEPS, record=False)
-    cpu_s = time.perf_counter() - t0
-    errs = parity_errors(fin_gpu, fin_cpu)
-    emit("parity", n=PARITY_N, steps=PARITY_STEPS, rebuild_every=REBUILD,
-         cpu_float64_s=cpu_s, **errs)
-    if errs["failed"]:
-        raise AssertionError(f"card vs CPU parity failed: {errs['failed']}")
+    compare_runs("parity", engine, st_gpu, engine, st_cpu, n=PARITY_N,
+                 runs="card float32 K1 vs CPU float64 plain")
+
+
+def phase_parity_db(db_engine, state):
+    """The K3 path against K1 in the same screened per-column form on the
+    card (the slice_db crowd), then against the CPU float64 plain version
+    on a PARITY_DB_N-rider crowd."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
+    cfg = db_engine.neighbors
+    k1 = make_engine(db_engine.params, block_src=DB_BLOCK, kb=cfg.kb,
+                     screen=True)
+    compare_runs("parity_db", db_engine, state, k1, state, n=state.n,
+                 runs="card K3 vs card K1 (screen, block_src 128)")
+
+    st_gpu = build_population(PARITY_DB_N, DENSITY, HIST_LEN, BLOCK,
+                              torch.float32, "cuda")
+    st_cpu = build_population(PARITY_DB_N, DENSITY, HIST_LEN, BLOCK,
+                              torch.float64, "cpu")
+    gpu = db_engine.with_params(jittered_params(st_gpu.n, "cuda",
+                                                torch.float32))
+    cpu = db_engine.with_params(jittered_params(st_cpu.n, "cpu",
+                                                torch.float64))
+    audit_overflow(gpu, st_gpu, "parity_db t=0")
+    compare_runs("parity_db", gpu, st_gpu, cpu, st_cpu, n=PARITY_DB_N,
+                 runs="card float32 K3 vs CPU float64 plain")
 
 
 def parity_errors(a, b):
@@ -253,6 +447,7 @@ def main():
         return 1
 
     from cyclistsocialforce_tpu_torch.ops import _build
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
     from cyclistsocialforce_tpu_torch.scenarios import build_population
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -271,16 +466,31 @@ def main():
     engine = make_engine()
     state = build_population(N_AGENTS, DENSITY, HIST_LEN, BLOCK,
                              torch.float32, "cuda")
+    db_engine = phase_db_config(state)
     kernel = phase_kernel(engine, state)
-    audit_overflow(engine, state, "t=0")
-    launches = phase_slice(engine, state)
+    forms = phase_kernel_forms(engine, db_engine, state)
+    launches = {
+        "k1": phase_slice("slice", engine, state, PF.pair_forces_neighbors),
+        "k2": phase_slice("slice_unrolled",
+                          make_engine(backend="pallas_unrolled"), state,
+                          PF.pair_forces_neighbors_unrolled),
+        "k3": phase_slice("slice_db", db_engine, state,
+                          PF.pair_forces_neighbors_db),
+    }
     phase_parity()
+    phase_parity_db(db_engine, state)
 
-    print(json.dumps({"kernels": [{
-        "name": "pair_forces_neighbors", "route": "cuda",
-        "source": "cyclistsocialforce_tpu_torch/csrc/pair_forces.cu",
-        "replaces": "cyclistsocialforce_tpu/ops/pallas_forces.py:75",
-        "launches": launches, **kernel}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "pair_forces_neighbors", "route": "cuda",
+         "source": SRC + "pair_forces.cu", "replaces": TPU + "75",
+         "launches": launches["k1"], **kernel},
+        {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
+         "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",
+         "launches": launches["k2"], **forms["k2_uniform"]},
+        {"name": "pair_forces_neighbors_db", "route": "cuda",
+         "source": SRC + "pair_forces_db.cu", "replaces": TPU + "500",
+         "launches": launches["k3"], **forms["k3"]},
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

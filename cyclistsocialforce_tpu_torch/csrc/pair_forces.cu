@@ -2,9 +2,11 @@
 //
 // Replaces the Pallas TPU kernel cyclistsocialforce_tpu/ops/pallas_forces.py
 // ::_pair_kernel (grid (receiver block, table slot), tile math
-// _tile_forces) for the configuration the simulation's main path runs:
-// shared field parameters baked in as arguments, the FOV cone on, no
-// distance screen, no priority mask, single field family.
+// _tile_forces) in each of its single-family forms: shared field
+// parameters baked in as arguments or read per source row (`uniform`), the
+// FOV cone on or off, the priority-to-the-right mask, and no distance
+// screen, the tile screen or the strip screen (`screen`, `sub`). The
+// per-pair math is csf::pair_accumulate (pair_math.cuh).
 //
 // Design. One CTA per receiver block of 128 agents, one thread per
 // receiver: each receiver is owned by exactly one thread, so the sum needs
@@ -17,37 +19,36 @@
 // memory, and every thread walks its sources, reading each source row as
 // a broadcast, and accumulates (fx, fy) in registers.
 //
+// Distance screen. With `screen`, each strip of `strip` sources (the
+// whole tile, or `sub` rows) is skipped CTA-wide when no receiver of the
+// block lies within the cutoff of any of its sources: every thread takes
+// the minimum of its receiver's rho2 over the strip and __syncthreads_or
+// votes. The minimum covers inactive and pad rows, as the TPU kernel's
+// does, so both skip the same strips.
+//
 // What bounds it. The pair math is ~40 FP32 operations and 6 SFU
 // operations (rsqrt x4, sqrt, exp) per pair, and at the main path's
 // configuration (100k agents, block_src = 64, kb = 19) each agent sees
 // ~875 candidate pairs, i.e. ~8.8e7 pairs per call: FP32 and SFU issue
 // bound. The bytes are small (a 4 KB tile per slot, read from L2).
-//
-// Left for later: multi-stage cp.async / TMA staging so the next tile's
-// copy overlaps this tile's math, and a wider receiver tile per thread
-// (several receivers per thread reuse each shared-memory source read).
 
 #include <cuda_runtime.h>
 
+#include "pair_math.cuh"
+
 namespace {
 
-constexpr int kSrcCols = 16;
-constexpr int kBlock = 128;
+using csf::kBlock;
+using csf::kSrcCols;
 
-// source pack columns
-constexpr int kSX = 0, kSY = 1, kSC = 2, kSS = 3, kF0 = 4;
-
-struct TwodParams {
-  float e0, e1, s0, s1, s2, s3, neg_chf;
-};
-
+template <bool kUniform, bool kFov, bool kP2R, bool kScreen>
 __global__ void __launch_bounds__(kBlock)
 pair_forces_twod_kernel(const int* __restrict__ nbr,
                         const int* __restrict__ count,
                         const float* __restrict__ src,
                         const float* __restrict__ recv,
                         float* __restrict__ out, int kb, int block_src,
-                        TwodParams p) {
+                        int strip, float cutoff2, csf::TwodParams p) {
   extern __shared__ float4 tile4[];
   const float* tile = reinterpret_cast<const float*>(tile4);
 
@@ -55,15 +56,7 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
   const int t = threadIdx.x;
   const int npad = gridDim.x * kBlock;
   const int r = b * kBlock + t;
-
-  const float xr = recv[0 * npad + r];
-  const float yr = recv[1 * npad + r];
-  const float cr = recv[2 * npad + r];
-  const float sr = recv[3 * npad + r];
-  const bool act_r = recv[4 * npad + r] > 0.0f;
-
-  const float vd1h_0 = 0.5f * p.s2;
-  const float vd1h_1 = 0.5f * p.s3;
+  const csf::Receiver rc = csf::load_receiver(recv, npad, r);
 
   float fx = 0.0f, fy = 0.0f;
   const int n_slots = count[b];
@@ -76,54 +69,18 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
     for (int i = t; i < tile_vec; i += kBlock) tile4[i] = g[i];
     __syncthreads();
 
-    for (int j = 0; j < block_src; ++j) {
-      const float* s = tile + j * kSrcCols;
-      const float xs = s[kSX], ys = s[kSY], cs = s[kSC], ss = s[kSS];
-      const float f0 = s[kF0];
-
-      const float dx = xr - xs;
-      const float dy = yr - ys;
-      const float rho2 = dx * dx + dy * dy;
-      const float inv_rho = rsqrtf(fmaxf(rho2, 1e-30f));
-      const float dxn = dx * inv_rho;
-      const float dyn = dy * inv_rho;
-
-      const float sin_rel = ss * cr - cs * sr;
-      const float sin2 = sin_rel * sin_rel;
-      const float vdecay0 = p.s0 + p.s1 * sin2;
-      const float vd1h = vd1h_0 + vd1h_1 * sin2;
-      const float e = p.e0 - p.e1 * sin2;
-
-      const float cosphi = dxn * cs + dyn * ss;
-      const float sinphi = dyn * cs - dxn * ss;
-      // half-angle pieces from one rsqrt of m4 = 4 sin^2(phi/2), taken
-      // from the coordinate difference (1 - cos phi cancels); the floor
-      // keeps the exactly aligned case bounded, interpolating through
-      // the reference's sign(sin phi) jump at phi = 0
-      const float ax = dxn - cs;
-      const float ay = dyn - ss;
-      const float m4 = fmaxf(ax * ax + ay * ay, 4e-12f);
-      const float th = vd1h * rsqrtf(m4);
-      const float sigma = vdecay0 - m4 * th;
-      const float ndsigm = th * sinphi;
-      const float ecos = e * cosphi;
-      const float ec2 = 1.0f - ecos * ecos;
-
-      // sigma <= 0 folds into P = 0 through the 1e-15 clamp
-      const float sig_c = fmaxf(sigma, 1e-15f);
-      const float P =
-          f0 * expf(-sqrtf(rho2 * ec2) * rsqrtf(sig_c * sig_c));
-      const float u = ec2 * sigma;
-      const float v = (e * sinphi) * (ecos * sigma) + ec2 * ndsigm;
-      const float inv_m = rsqrtf(fmaxf(u * u + v * v, 1e-30f));
-
-      // rho2 > 0 excludes self and coincident pairs; the receiver must
-      // see the source inside its half field of view
-      const bool tracked =
-          (rho2 > 0.0f) && (dxn * cr + dyn * sr <= p.neg_chf) && act_r;
-      const float w = tracked ? P * inv_m : 0.0f;
-      fx += w * (u * dxn - v * dyn);
-      fy += w * (u * dyn + v * dxn);
+    for (int j0 = 0; j0 < block_src; j0 += strip) {
+      if constexpr (kScreen) {
+        float rho2_min = INFINITY;
+        for (int j = j0; j < j0 + strip; ++j) {
+          rho2_min = fminf(rho2_min, csf::rho2_of(rc, tile + j * kSrcCols));
+        }
+        if (!__syncthreads_or(rho2_min <= cutoff2)) continue;
+      }
+      for (int j = j0; j < j0 + strip; ++j) {
+        csf::pair_accumulate<kUniform, kFov, kP2R>(tile + j * kSrcCols, rc,
+                                                   p, fx, fy);
+      }
     }
     __syncthreads();
   }
@@ -135,33 +92,57 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
 
 extern "C" {
 
-// Launch on `stream` of CUDA device `device`. nbr [n_blocks, kb] int32 (the first count[b] entries
-// of row b are valid source block indices); src [N_src, 16] float32,
-// 16-byte aligned, N_src a multiple of block_src; recv [8, n_blocks * 128]
-// float32; out [2, n_blocks * 128] float32. Returns cudaGetLastError()
-// after the launch (0 on success).
+// Launch on `stream` of CUDA device `device`. nbr [n_blocks, kb] int32 (the
+// first count[b] entries of row b are valid source block indices); src
+// [N_src, 16] float32, 16-byte aligned, N_src a multiple of block_src; recv
+// [8, n_blocks * 128] float32; out [2, n_blocks * 128] float32. `strip` is
+// the screened source strip (block_src for the tile screen; it must divide
+// block_src), `cutoff2` the squared cutoff the screen compares with; both
+// are ignored without `screen`. e0..chf are the shared field parameters
+// (read only with `uniform`). Returns cudaGetLastError() after the launch
+// (0 on success).
 int csf_pair_forces_twod(const void* nbr, const void* count,
                          const void* src, const void* recv, void* out,
-                         int n_blocks, int kb, int block_src, float e0,
-                         float e1, float s0, float s1, float s2, float s3,
-                         float chf, int device, void* stream) {
+                         int n_blocks, int kb, int block_src, int uniform,
+                         int fov, int p2r, int screen, int strip,
+                         float cutoff2, float e0, float e1, float s0,
+                         float s1, float s2, float s3, float chf, int device,
+                         void* stream) {
   if (n_blocks <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (block_src <= 0 || kBlock % block_src != 0) {
+  if (!screen) strip = block_src;
+  if (block_src <= 0 || kBlock % block_src != 0 || strip <= 0 ||
+      block_src % strip != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  TwodParams p{e0, e1, s0, s1, s2, s3, -chf};
+  const csf::TwodParams p{e0, e1, s0, s1, s2, s3, chf};
   const size_t smem = sizeof(float) * kSrcCols * block_src;
-  pair_forces_twod_kernel<<<n_blocks, kBlock, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(nbr), static_cast<const int*>(count),
-      static_cast<const float*>(src), static_cast<const float*>(recv),
-      static_cast<float*>(out), kb, block_src, p);
+  auto s = static_cast<cudaStream_t>(stream);
+  csf::with_flag(uniform, [&](auto U) {
+    csf::with_flag(fov, [&](auto FV) {
+      csf::with_flag(p2r, [&](auto P2R) {
+        csf::with_flag(screen, [&](auto SCR) {
+          pair_forces_twod_kernel<decltype(U)::value, decltype(FV)::value,
+                                  decltype(P2R)::value, decltype(SCR)::value>
+              <<<n_blocks, kBlock, smem, s>>>(
+                  static_cast<const int*>(nbr),
+                  static_cast<const int*>(count),
+                  static_cast<const float*>(src),
+                  static_cast<const float*>(recv), static_cast<float*>(out),
+                  kb, block_src, strip, cutoff2, p);
+        });
+      });
+    });
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
 const char* csf_error_string(int code) {
+  if (code == csf::kErrSharedMemory) {
+    return "the launch needs more dynamic shared memory than the device's "
+           "opt-in limit per block";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

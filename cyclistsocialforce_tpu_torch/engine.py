@@ -86,6 +86,14 @@ DEST_FORCES = {"straight": dest_force_straight,
                "direct": dest_force_straight}
 
 
+# the pair kernels NeighborConfig.backend selects (the JAX package's names)
+BACKENDS = ("pallas", "pallas_unrolled", "pallas_db")
+# JAX-only backends: the XLA gather path and the Pallas interpreter, whose
+# role the plain version plays in the port
+JAX_ONLY_BACKENDS = ("xla", "interpret", "interpret_unrolled",
+                     "interpret_db")
+
+
 @dataclass(frozen=True)
 class NeighborConfig:
     """Configuration of the block-sparse neighbor force path.
@@ -98,6 +106,17 @@ class NeighborConfig:
         be a multiple of 8).
     kb : capacity of the neighbor-block table (overflow drops the
         farthest blocks and is flagged).
+    backend : the pair kernel on CUDA tensors: "pallas" (K1,
+        `ops.pair_forces.pair_forces_neighbors`), "pallas_unrolled" (K2,
+        every source tile staged up front, never screened) or "pallas_db"
+        (K3, a ring of tiles, always tile-screened at `cutoff`, needs
+        block_src == block). The names are the JAX package's; CPU tensors
+        run each kernel's plain version in the same form.
+    screen : K1 skips every table tile in which no pair lies within
+        `cutoff` (the cutoff without the skin).
+    sub : with `screen`, K1 screens strips of `sub` sources instead of
+        whole tiles (0: whole tiles; else a multiple of 8 dividing
+        block_src).
     rebuild_every : rebuild the sort and table every K steps inside
         `simulate`, with a skin margin on the cutoff covering the
         pairwise drift in between (default 2 * v_max * t_s * K).
@@ -107,16 +126,29 @@ class NeighborConfig:
     block: int = 128
     block_src: int = 0
     kb: int = 16
+    backend: str = "pallas"
     rebuild_every: int = 1
     skin: float | None = None
     v_max: float = 10.0
     t_s: float = 0.01
+    sub: int = 0
+    screen: bool = True
 
     def __post_init__(self):
         bs = int(self.block_src) or int(self.block)
         if int(self.block) % bs != 0 or bs % 8 != 0:
             raise ValueError(f"block_src ({bs}) must divide block "
                              f"({self.block}) and be a multiple of 8")
+        if self.backend not in BACKENDS:
+            hint = (" (the port runs each kernel's plain version on CPU "
+                    "tensors: pick the kernel by name and put the state on "
+                    "the CPU)" if self.backend in JAX_ONLY_BACKENDS else "")
+            raise ValueError(f"backend {self.backend!r} is not one of "
+                             f"{BACKENDS}{hint}")
+        if self.backend == "pallas_db" and bs != int(self.block):
+            raise ValueError("the double-buffered backend does not support "
+                             "block_src != block; use 'pallas'")
+        PF._check_sub(bs, int(self.sub))
         skin = (float(self.skin) if self.skin is not None
                 else 2.0 * self.v_max * self.t_s * int(self.rebuild_every))
         set_ = object.__setattr__
@@ -126,6 +158,8 @@ class NeighborConfig:
         set_(self, "kb", int(self.kb))
         set_(self, "rebuild_every", int(self.rebuild_every))
         set_(self, "skin", skin)
+        set_(self, "sub", int(self.sub))
+        set_(self, "screen", bool(self.screen))
 
 
 def _values(params, field):
@@ -189,17 +223,31 @@ def unsort_forces(out, perm, n):
 
 
 def pair_kernel_dispatch(cfg: NeighborConfig, nbr, valid, src_sorted,
-                         recv_sorted, fov: bool = True, uniform=None):
-    """[2, B*block] sorted forces from cell-sorted packs: the CUDA kernel
-    (float32) for CUDA tensors, the plain version in the packs' dtype for
-    CPU tensors."""
+                         recv_sorted, fov: bool = True, uniform=None,
+                         priority_p2r: bool = False):
+    """[2, B*block] sorted forces from cell-sorted packs through the
+    kernel `cfg.backend` names: the CUDA kernel (float32) for CUDA
+    tensors, its plain version in the packs' dtype for CPU tensors. The
+    screens compare with `cfg.cutoff`, without the skin; K3 always reads
+    the per-source field columns."""
     dtype = src_sorted.dtype
     if src_sorted.is_cuda:
         src_sorted = src_sorted.float()
         recv_sorted = recv_sorted.float()
-    return PF.pair_forces_neighbors(
-        nbr, valid, src_sorted, recv_sorted, block=cfg.block,
-        block_src=cfg.block_src, uniform=uniform, fov=fov).to(dtype)
+    kw = dict(block=cfg.block, fov=fov, priority_p2r=priority_p2r)
+    if cfg.backend == "pallas_unrolled":
+        out = PF.pair_forces_neighbors_unrolled(
+            nbr, valid, src_sorted, recv_sorted, block_src=cfg.block_src,
+            uniform=uniform, **kw)
+    elif cfg.backend == "pallas_db":
+        out = PF.pair_forces_neighbors_db(
+            nbr, valid, src_sorted, recv_sorted, cutoff=cfg.cutoff, **kw)
+    else:
+        out = PF.pair_forces_neighbors(
+            nbr, valid, src_sorted, recv_sorted, block_src=cfg.block_src,
+            uniform=uniform, screen=cfg.screen, sub=cfg.sub,
+            cutoff=cfg.cutoff, **kw)
+    return out.to(dtype)
 
 
 _PER_AGENT_FIELDS = (
@@ -248,7 +296,8 @@ class Engine(nn.Module):
     each step runs."""
 
     def __init__(self, params, model_step, state_widths, dest_force,
-                 neighbors: NeighborConfig, full_fov: bool, uniform_pair):
+                 neighbors: NeighborConfig, full_fov: bool, uniform_pair,
+                 priority_p2r: bool = False):
         super().__init__()
         self.params = params
         self.model_step = model_step
@@ -257,11 +306,17 @@ class Engine(nn.Module):
         self.neighbors = neighbors
         self.full_fov = full_fov
         self.uniform_pair = uniform_pair
+        self.priority_p2r = priority_p2r
 
     @classmethod
     def create(cls, params, model, dest_force=None, rep_force=None,
+               priority_rule: str = "unregulated",
                neighbors: NeighborConfig | None = None):
         """Build an engine from a model module (`models.MODELS`).
+
+        priority_rule "p2r" (priority to the right) masks out every
+        source to the receiver's left in the pair stage; any other value
+        leaves the field unregulated, as in the JAX package.
 
         Only the culled "twod" repulsive field with the straight-line
         destination force is ported: other force names, custom force
@@ -283,7 +338,20 @@ class Engine(nn.Module):
                    state_widths=getattr(model, "STATE_WIDTHS", None),
                    dest_force=DEST_FORCES[dest], neighbors=neighbors,
                    full_fov=_hfov_is_full(params),
-                   uniform_pair=_uniform_pair_params(params))
+                   uniform_pair=_uniform_pair_params(params),
+                   priority_p2r=(priority_rule == "p2r"))
+
+    def with_params(self, params):
+        """Engine with `params` swapped in and the fields derived from
+        them (`full_fov`, `uniform_pair`) recomputed: the kernels take
+        both as compile-time forms, so stale values would apply the old
+        constants or FOV elision to the new parameters."""
+        return type(self)(
+            params=params, model_step=self.model_step,
+            state_widths=self.state_widths, dest_force=self.dest_force,
+            neighbors=self.neighbors, full_fov=_hfov_is_full(params),
+            uniform_pair=_uniform_pair_params(params),
+            priority_p2r=self.priority_p2r)
 
     # ---- one simulation step ----
 
@@ -338,7 +406,8 @@ class Engine(nn.Module):
     def pair_kernel_dispatch(self, nbr, valid, src_sorted, recv_sorted):
         return pair_kernel_dispatch(self.neighbors, nbr, valid, src_sorted,
                                     recv_sorted, fov=not self.full_fov,
-                                    uniform=self.uniform_pair)
+                                    uniform=self.uniform_pair,
+                                    priority_p2r=self.priority_p2r)
 
     def repulsive_sum_neighbors(self, state: AgentState, cache=None,
                                 presorted: bool = False):

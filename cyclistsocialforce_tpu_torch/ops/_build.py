@@ -1,10 +1,13 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-`library()` compiles every `csrc/*.cu` file into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), under
-`build/kernels/` at the repository root, named by a hash of the sources
-and flags so an unchanged tree never rebuilds. It runs at the first CUDA
-launch, never at import. A missing nvcc or a failed compile raises.
+`library()` compiles every `csrc/*.cu` file into an object, one nvcc
+process per source, all started together, and links the objects into
+one shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds), under `build/kernels/` at the repository root. The
+library is named by a hash of the sources, the headers they include
+(`csrc/*.cuh`) and the flags, so an unchanged tree never rebuilds and an
+edited header always does. It runs at the first CUDA launch, never at
+import. A missing nvcc or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # (the FOV cone edge, the sign(sin phi) jump) and one rounding step
 # decides which side of it a pair falls on
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _lib = None
 build_seconds = None   # wall time of this process's compile (None: cached)
@@ -44,12 +47,33 @@ def _nvcc() -> str:
 
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.csf_pair_forces_twod.argtypes = [p, p, p, p, p, i, i, i,
-                                         f, f, f, f, f, f, f, i, p]
-    lib.csf_pair_forces_twod.restype = i
+    field = [f] * 7                     # e_0, e_1, sigma_0..3, cos(hfov/2)
+    lib.csf_pair_forces_twod.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                         i, f, *field, i, p]
+    lib.csf_pair_forces_unrolled.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                             i, *field, i, p]
+    lib.csf_pair_forces_db.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+    for fn in (lib.csf_pair_forces_twod, lib.csf_pair_forces_unrolled,
+               lib.csf_pair_forces_db):
+        fn.restype = i
     lib.csf_error_string.argtypes = [i]
     lib.csf_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds):
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (rc={proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def library():
@@ -59,20 +83,25 @@ def library():
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libcsf_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc={res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                      for src, obj in zip(sources, objs)])
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
         build_seconds = time.perf_counter() - t0
         os.replace(tmp, out)
     _lib = _declare(ctypes.CDLL(str(out)))

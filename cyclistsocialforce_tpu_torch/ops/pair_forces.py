@@ -1,10 +1,21 @@
-"""Block-sparse pairwise repulsive-force sum: the CUDA kernel's wrapper,
-its plain PyTorch version, and the kernel's launch counter.
+"""Block-sparse pairwise repulsive-force sum: the CUDA kernels' wrappers,
+their plain PyTorch version, and the kernels' launch counters.
 
-Port of `cyclistsocialforce_tpu.ops.pallas_forces.pair_forces_neighbors`
-(the Pallas `_pair_kernel` with the tile math `_tile_forces`). Agents are
+Port of the three Pallas kernels of `cyclistsocialforce_tpu.ops.
+pallas_forces`, which share the tile math `_tile_forces`. Agents are
 cell-sorted and blocked (`ops.neighbors`); each receiver block sums the
 BMD2023 "twod" field of the sources in its neighbor-block table.
+
+  pair_forces_neighbors           K1 `_pair_kernel`, `csrc/pair_forces.cu`:
+                                  one source tile at a time, optional
+                                  tile or strip distance screen
+  pair_forces_neighbors_unrolled  K2 `_pair_kernel_unrolled`,
+                                  `csrc/pair_forces_unrolled.cu`: every
+                                  tile staged up front, no screen
+  pair_forces_neighbors_db        K3 `_pair_kernel_db`,
+                                  `csrc/pair_forces_db.cu`: a 4-slot ring
+                                  of 128-row tiles, the tile screen at the
+                                  cutoff, per-source field parameters
 
 Packing layout (built by `engine.Engine.pack_pair_fields`, cell-sorted):
   src_pack  [N_src, 16]: x, y, cos psi, sin psi, f_0 * emit, e_0, e_1,
@@ -14,10 +25,10 @@ Packing layout (built by `engine.Engine.pack_pair_fields`, cell-sorted):
 The emit flag (active AND f_0 > 0) is folded into column 4, so a
 non-emitting source contributes P = 0 with no mask of its own.
 
-`pair_forces_neighbors` runs the CUDA kernel (`csrc/pair_forces.cu`) on
-CUDA tensors and the plain version on CPU tensors; it raises for any
-other input. The kernel serves the configuration the main path runs:
-shared field parameters (`uniform`), the FOV cone on, block = 128.
+Each wrapper runs its CUDA kernel on CUDA tensors and the plain version,
+in the matching form, on CPU tensors; it raises for any other input. The
+mixed-family form (`mixed=True`, the legacy elliptic field selected per
+source row) is not ported and raises everywhere.
 """
 
 from __future__ import annotations
@@ -40,7 +51,14 @@ def _m4_floor(dtype) -> float:
     return _M4_FLOOR_F32 * ratio * ratio
 
 
-def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True):
+def cutoff_squared(cutoff: float) -> float:
+    """The squared cutoff the distance screens compare with, as the JAX
+    package computes it (3e38, a finite float32, for an infinite cutoff)."""
+    return float(cutoff) ** 2 if cutoff != float("inf") else 3.0e38
+
+
+def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True,
+                priority_p2r=False, strip=0, cutoff2=None):
     """Field of sources `src` [..., S, 16] at receivers (xr, yr, cr, sr,
     act_r) [..., 1, R], summed over the sources: (fx, fy) [..., R].
 
@@ -48,7 +66,12 @@ def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True):
     input's dtype: the unit separation vector from one rsqrt, the
     one-rsqrt half-angle form in m4 = |u_rho - u_psi|^2 = 4 sin^2(phi/2),
     which interpolates through the reference's sign(sin phi) jump at
-    phi = 0, and the force direction (u, v) rescaled by sigma^2 sqrt(ec2)."""
+    phi = 0, and the force direction (u, v) rescaled by sigma^2 sqrt(ec2).
+
+    strip > 0 screens the sources in strips of `strip` rows (S a multiple
+    of it): a strip contributes nothing when no pair of it and the
+    receivers lies within rho2 <= cutoff2, the minimum taken over every
+    receiver and source row given, inactive and pad rows included."""
     def sc(c):
         return src[..., c:c + 1]
 
@@ -95,7 +118,14 @@ def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True):
     tracked = rho2 > 0.0
     if fov:
         tracked &= (dxn * cr + dyn * sr) <= chf
+    if priority_p2r:
+        tracked &= (dyn * cr - dxn * sr) >= 0
     tracked &= act_r > 0
+    if strip:
+        *lead, n_src, n_recv = rho2.shape
+        strips = rho2.reshape(*lead, n_src // strip, strip * n_recv)
+        admit = strips.amin(dim=-1, keepdim=True) <= cutoff2
+        tracked &= admit.repeat_interleave(strip, dim=-2)
 
     w = torch.where(tracked, P * inv_m, 0.0)
     fx = torch.sum(w * (u * dxn - v * dyn), dim=-2)
@@ -106,6 +136,9 @@ def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True):
 def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
                               block: int = 128, block_src: int = 0,
                               uniform=None, fov: bool = True,
+                              priority_p2r: bool = False,
+                              screen: bool = False, sub: int = 0,
+                              cutoff: float = float("inf"),
                               chunk: int | None = None):
     """Plain PyTorch version of the block-sparse pair sum.
 
@@ -114,6 +147,13 @@ def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
     recv_pack  : [8, B*block] cell-sorted receiver fields
     uniform    : optional (e_0, e_1, sigma_0..3, cos(hfov/2)) shared
                  field parameters; None reads the per-source columns
+    fov        : the receiver sees a source only inside its half FOV cone
+    priority_p2r : priority to the right, (dyn cr - dxn sr) >= 0
+    screen     : skip each (receiver block, table slot) tile, or with
+                 sub > 0 each strip of `sub` sources of it, in which no
+                 pair lies within `cutoff` (the Pallas kernel's screens)
+    cutoff     : the screens' distance (the engine passes its cutoff
+                 without the skin); ignored without `screen`
     chunk      : receiver blocks evaluated at a time (bounds memory;
                  default 64 on a GPU, 8 on the CPU, whose caches favour
                  the smaller working set)
@@ -123,6 +163,9 @@ def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
     bcount, kb = nbr.shape
     block_src = block_src or block
     _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src)
+    _check_sub(block_src, sub)
+    strip = (sub or block_src) if screen else 0
+    cutoff2 = cutoff_squared(cutoff)
     if chunk is None:
         chunk = 8 if src_pack.device.type == "cpu" else 64
     src_blocks = src_pack.reshape(n_src // block_src, block_src, SRC_COLS)
@@ -136,7 +179,9 @@ def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
         src = src.reshape(hi - lo, kb * block_src, SRC_COLS)
         r = recv[:, lo:hi]
         fx, fy = tile_forces(src, r[0], r[1], r[2], r[3], r[4],
-                             uniform=uniform, fov=fov)
+                             uniform=uniform, fov=fov,
+                             priority_p2r=priority_p2r, strip=strip,
+                             cutoff2=cutoff2)
         out[0, lo:hi] = fx
         out[1, lo:hi] = fy
     return out.reshape(2, bcount * block)
@@ -161,57 +206,62 @@ def _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src):
                          f"{bcount * block}], got {tuple(recv_pack.shape)}")
 
 
-def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
-                          block: int = 128, block_src: int = 0,
-                          uniform=None, fov: bool = True,
-                          priority_p2r: bool = False, mixed: bool = False,
-                          screen: bool = False, sub: int = 0):
-    """Block-sparse pair sum: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. Arguments and result as in
-    `pair_forces_neighbors_ref`.
+def _check_sub(block_src: int, sub: int):
+    """The strip height of the strip screen: 0 (the tile screen), or a
+    positive multiple of 8 that divides block_src (as the JAX package
+    asserts)."""
+    if sub and (sub < 0 or block_src % sub != 0 or sub % 8 != 0):
+        raise ValueError(f"sub ({sub}) must divide block_src ({block_src}) "
+                         f"and be a multiple of 8")
 
-    The kernel takes float32 packs, an int32 table, block = 128, the
-    shared-parameter form (`uniform`) and the FOV cone on. The static
-    variants of the Pallas kernel that the main path does not run
-    (priority_p2r, mixed, screen/sub, fov=False, uniform=None) raise
-    NotImplementedError on CUDA tensors; the plain version serves
-    fov=False and uniform=None."""
-    if priority_p2r or mixed or screen or sub:
+
+def _on_cuda(name, nbr, valid, src_pack, recv_pack, mixed) -> bool:
+    """False for CPU inputs, True for inputs on one CUDA device; raises
+    for the unported mixed form and for anything else."""
+    if mixed:
         raise NotImplementedError(
-            "pair_forces_neighbors: priority_p2r, mixed and screen/sub "
-            "variants are not ported")
-    block_src = block_src or block
-    devices = {t.device.type for t in (nbr, valid, src_pack, recv_pack)}
-    if devices == {"cpu"}:
-        return pair_forces_neighbors_ref(
-            nbr, valid, src_pack, recv_pack, block=block,
-            block_src=block_src, uniform=uniform, fov=fov)
-    if devices != {"cuda"} or len({t.device for t in (
-            nbr, valid, src_pack, recv_pack)}) != 1:
-        raise ValueError("pair_forces_neighbors: all inputs must be on one "
-                         f"CUDA device or all on the CPU, got {devices}")
-    if uniform is None or not fov:
-        raise NotImplementedError(
-            "the CUDA pair kernel serves shared field parameters "
-            "(uniform) with the FOV cone on")
+            f"{name}: the mixed-family form (mixed=True) is not ported")
+    tensors = (nbr, valid, src_pack, recv_pack)
+    devices = {t.device for t in tensors}
+    if {d.type for d in devices} == {"cpu"}:
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: all inputs must be on one CUDA device or "
+                         f"all on the CPU, got {sorted(map(str, devices))}")
+    return True
+
+
+def _check_kernel_inputs(name, nbr, valid, src_pack, recv_pack, block,
+                         block_src):
     _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src)
     if block != 128:
-        raise ValueError(f"the CUDA pair kernel needs block = 128, got "
+        raise ValueError(f"{name}: the CUDA kernel needs block = 128, got "
                          f"{block}")
     if src_pack.dtype != torch.float32 or recv_pack.dtype != torch.float32:
-        raise TypeError("the CUDA pair kernel takes float32 packs")
+        raise TypeError(f"{name}: the CUDA kernel takes float32 packs")
     if nbr.dtype != torch.int32:
-        raise TypeError("the CUDA pair kernel takes an int32 table")
+        raise TypeError(f"{name}: the CUDA kernel takes an int32 table")
     if not (nbr.is_contiguous() and src_pack.is_contiguous()
             and recv_pack.is_contiguous()):
-        raise ValueError("the CUDA pair kernel takes contiguous tensors")
+        raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
     if src_pack.data_ptr() % 16:
-        raise ValueError("the CUDA pair kernel reads src_pack as float4: "
-                         "it must be 16-byte aligned")
+        raise ValueError(f"{name}: the CUDA kernel reads src_pack 16 bytes "
+                         f"at a time: it must be 16-byte aligned")
+
+
+def _field_args(uniform):
+    """(uniform flag, the 7 shared field parameters) for a launcher."""
+    if uniform is None:
+        return 0, (0.0,) * 7
     if len(uniform) != 7:
         raise ValueError("uniform must hold (e_0, e_1, sigma_0..3, "
                          "cos(hfov/2))")
+    return 1, tuple(float(u) for u in uniform)
 
+
+def _launch(name, symbol, nbr, valid, src_pack, recv_pack, block, *args):
+    """Run the C launcher `symbol` on the packs' device and stream; the
+    [2, B*block] float32 output."""
     from cyclistsocialforce_tpu_torch.ops import _build
 
     lib = _build.library()
@@ -219,19 +269,115 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
     count = valid.sum(dim=1, dtype=torch.int32)
     out = torch.empty((2, bcount * block), dtype=torch.float32,
                       device=src_pack.device)
-    e0, e1, s0, s1, s2, s3, chf = (float(u) for u in uniform)
     device = src_pack.device
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.csf_pair_forces_twod(
+    rc = getattr(lib, symbol)(
         nbr.data_ptr(), count.data_ptr(), src_pack.data_ptr(),
-        recv_pack.data_ptr(), out.data_ptr(), bcount, kb, block_src,
-        e0, e1, s0, s1, s2, s3, chf, device.index, stream)
+        recv_pack.data_ptr(), out.data_ptr(), bcount, kb, *args,
+        device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"pair_forces_neighbors: CUDA launch failed "
+        raise RuntimeError(f"{name}: CUDA launch failed "
                            f"({_build.error_string(lib, rc)})")
+    return out
+
+
+def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
+                          block: int = 128, block_src: int = 0,
+                          uniform=None, fov: bool = True,
+                          priority_p2r: bool = False, mixed: bool = False,
+                          screen: bool = False, sub: int = 0,
+                          cutoff: float = float("inf")):
+    """K1: block-sparse pair sum, one source tile at a time. The CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors; arguments
+    and result as in `pair_forces_neighbors_ref`.
+
+    The kernel takes float32 packs, an int32 table and block = 128."""
+    block_src = block_src or block
+    _check_sub(block_src, sub)
+    if not _on_cuda("pair_forces_neighbors", nbr, valid, src_pack,
+                    recv_pack, mixed):
+        return pair_forces_neighbors_ref(
+            nbr, valid, src_pack, recv_pack, block=block,
+            block_src=block_src, uniform=uniform, fov=fov,
+            priority_p2r=priority_p2r, screen=screen, sub=sub,
+            cutoff=cutoff)
+    _check_kernel_inputs("pair_forces_neighbors", nbr, valid, src_pack,
+                         recv_pack, block, block_src)
+    is_uniform, field = _field_args(uniform)
+    out = _launch("pair_forces_neighbors", "csf_pair_forces_twod", nbr,
+                  valid, src_pack, recv_pack, block, block_src, is_uniform,
+                  int(fov), int(priority_p2r), int(screen),
+                  (sub or block_src), cutoff_squared(cutoff), *field)
     pair_forces_neighbors.launches += 1
+    return out
+
+
+def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
+                                   block: int = 128, block_src: int = 0,
+                                   uniform=None, fov: bool = True,
+                                   priority_p2r: bool = False,
+                                   mixed: bool = False):
+    """K2: block-sparse pair sum with every source tile of a receiver
+    block staged before the sum, and no distance screen. The CUDA kernel
+    on CUDA tensors, the plain version (unscreened) on CPU tensors;
+    arguments and result as in `pair_forces_neighbors_ref`.
+
+    The kernel takes float32 packs, an int32 table and block = 128, and
+    needs kb * block_src * 64 bytes of shared memory per block: a launch
+    above the device's opt-in limit raises."""
+    block_src = block_src or block
+    if not _on_cuda("pair_forces_neighbors_unrolled", nbr, valid, src_pack,
+                    recv_pack, mixed):
+        return pair_forces_neighbors_ref(
+            nbr, valid, src_pack, recv_pack, block=block,
+            block_src=block_src, uniform=uniform, fov=fov,
+            priority_p2r=priority_p2r)
+    _check_kernel_inputs("pair_forces_neighbors_unrolled", nbr, valid,
+                         src_pack, recv_pack, block, block_src)
+    is_uniform, field = _field_args(uniform)
+    out = _launch("pair_forces_neighbors_unrolled",
+                  "csf_pair_forces_unrolled", nbr, valid, src_pack,
+                  recv_pack, block, block_src, is_uniform, int(fov),
+                  int(priority_p2r), *field)
+    pair_forces_neighbors_unrolled.launches += 1
+    return out
+
+
+def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
+                             block: int = 128, fov: bool = True,
+                             priority_p2r: bool = False,
+                             mixed: bool = False,
+                             cutoff: float = float("inf")):
+    """K3: block-sparse pair sum through a ring of 128-row source tiles,
+    each skipped when no pair of it lies within `cutoff` (the tile
+    screen, always on), with the field parameters read per source row.
+    Source and receiver blocks are both `block` = 128 agents. The CUDA
+    kernel on CUDA tensors, the plain version (screened, per-source
+    columns) on CPU tensors; result as in `pair_forces_neighbors_ref`."""
+    if not _on_cuda("pair_forces_neighbors_db", nbr, valid, src_pack,
+                    recv_pack, mixed):
+        return pair_forces_neighbors_ref(
+            nbr, valid, src_pack, recv_pack, block=block, block_src=block,
+            fov=fov, priority_p2r=priority_p2r, screen=True, cutoff=cutoff)
+    _check_kernel_inputs("pair_forces_neighbors_db", nbr, valid, src_pack,
+                         recv_pack, block, block)
+    out = _launch("pair_forces_neighbors_db", "csf_pair_forces_db", nbr,
+                  valid, src_pack, recv_pack, block, int(fov),
+                  int(priority_p2r), cutoff_squared(cutoff))
+    pair_forces_neighbors_db.launches += 1
     return out
 
 
 # kernel launches since the last reset (the plain version never counts)
 pair_forces_neighbors.launches = 0
+pair_forces_neighbors_unrolled.launches = 0
+pair_forces_neighbors_db.launches = 0
+
+KERNELS = (pair_forces_neighbors, pair_forces_neighbors_unrolled,
+           pair_forces_neighbors_db)
+
+
+def reset_launches():
+    """Set every kernel's launch counter to 0."""
+    for fn in KERNELS:
+        fn.launches = 0

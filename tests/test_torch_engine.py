@@ -32,7 +32,7 @@ def engines(rebuild_every):
     teng = Engine.create(BicycleParams.create(), MODELS["bicycle2d"],
                          rep_force="twod",
                          neighbors=NeighborConfig(rebuild_every=rebuild_every,
-                                                  **CFG))
+                                                  screen=False, **CFG))
     return jeng, teng
 
 

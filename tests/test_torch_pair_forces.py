@@ -1,7 +1,8 @@
-"""PyTorch port: the pair pack and the block-sparse pair sum
-(`ops/pair_forces.py`) held to the JAX package's Pallas kernel (run in
-interpret mode) and its XLA oracle; the CUDA kernel held to its plain
-version where a card is present.
+"""PyTorch port: the pair pack and the unscreened block-sparse pair sum of
+the main path (`ops/pair_forces.py`, K1) held to the JAX package's Pallas
+kernel (run in interpret mode) and its XLA oracle; the CUDA kernel held to
+its plain version where a card is present. The other forms and kernels
+are tested in test_torch_pair_variants.py.
 
 The JAX package comes in through the `jx` fixture, so the card's tests
 also run where JAX is not installed:
@@ -69,7 +70,8 @@ def crowd(jx, n=1000, side=112.0, seed=0, per_agent=False, hfov=None):
     teng = TE.Engine.create(
         convert.params_from_jax(p), bicycle2d, rep_force="twod",
         neighbors=TE.NeighborConfig(cutoff=50.0, block=BLOCK,
-                                    block_src=BLOCK_SRC, kb=KB))
+                                    block_src=BLOCK_SRC, kb=KB,
+                                    screen=False))
     return st, jeng, teng
 
 
@@ -161,7 +163,8 @@ def port_crowd(n, device, dtype=torch.float32):
     teng = TE.Engine.create(
         BicycleParams.create(), bicycle2d, rep_force="twod",
         neighbors=TE.NeighborConfig(cutoff=50.0, block=BLOCK,
-                                    block_src=BLOCK_SRC, kb=19))
+                                    block_src=BLOCK_SRC, kb=19,
+                                    screen=False))
     return st, teng
 
 
@@ -174,10 +177,15 @@ def test_wrapper_on_cpu_runs_plain_and_rejects_unported_variants():
         PF.pair_forces_neighbors(tn, tv, ts, tr, **kw),
         PF.pair_forces_neighbors_ref(tn, tv, ts, tr, **kw))
     assert PF.pair_forces_neighbors.launches == 0
-    for bad in ({"priority_p2r": True}, {"mixed": True}, {"screen": True},
-                {"sub": 8}):
-        with pytest.raises(NotImplementedError):
-            PF.pair_forces_neighbors(tn, tv, ts, tr, **kw, **bad)
+    # every single-family form runs; only the mixed-family form is unported
+    for form in ({"priority_p2r": True}, {"screen": True},
+                 {"screen": True, "sub": 8}, {"fov": False},
+                 {"uniform": None}):
+        out = PF.pair_forces_neighbors(tn, tv, ts, tr, **{**kw, **form})
+        assert out.shape == tr[:2].shape and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="mixed"):
+        PF.pair_forces_neighbors(tn, tv, ts, tr, **kw, mixed=True)
+    assert PF.pair_forces_neighbors.launches == 0
     with pytest.raises(ValueError):
         PF.pair_forces_neighbors(tn, tv, ts[:100], tr, **kw)
 
@@ -201,9 +209,8 @@ def test_cuda_kernel_matches_plain(cuda_device):
     want = PF.pair_forces_neighbors_ref(tn, tv, ts, tr, **kw)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=2e-4)
     assert want.abs().max() > 1.0
-    with pytest.raises(NotImplementedError):
-        PF.pair_forces_neighbors(tn, tv, ts, tr, block=BLOCK,
-                                 block_src=BLOCK_SRC, uniform=None)
+    with pytest.raises(NotImplementedError, match="mixed"):
+        PF.pair_forces_neighbors(tn, tv, ts, tr, **kw, mixed=True)
     with pytest.raises(ValueError):
         PF.pair_forces_neighbors(tn, tv, ts.cpu(), tr, **kw)
     with pytest.raises(TypeError):

@@ -153,7 +153,7 @@ def test_stop_destinations_scenario_matches_jax():
         jeng, jst)
     teng = TE.Engine.create(convert.params_from_jax(jp), bicycle2d,
                             rep_force="twod",
-                            neighbors=TE.NeighborConfig(**cfg))
+                            neighbors=TE.NeighborConfig(screen=False, **cfg))
     got, _ = teng.simulate(convert.state_from_jax(jst), 2000, record=False)
     np.testing.assert_array_equal(got.znav.numpy(),
                                   [[True, False, False],
