@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-It drives three paths, one per pair kernel: the main path through K1
-(`csrc/pair_forces.cu`, unscreened), the same path through K2
-(`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled") and a crowd
-with per-rider field parameters through K3 (`csrc/pair_forces_db.cu`,
-backend "pallas_db"). Phases, each printing one JSON line (a failing phase
-raises and the script exits non-zero):
+It drives four paths: the main path through K1 (`csrc/pair_forces.cu`,
+twod field, unscreened), the same path through K2
+(`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled"), a crowd with
+per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
+"pallas_db"), and bicycle2d's default legacy field through K1's
+mixed-family form (tile screen, the NeighborConfig default). Phases, each
+printing one JSON line (a failing phase raises and the script exits
+non-zero):
 
   1. device    the card's name, and its name and power limit as nvidia-smi
                reports them (every time printed below was taken on it);
@@ -18,7 +20,11 @@ raises and the script exits non-zero):
                riders padded to 782 x 128, block_src = 64, kb = 19), with
                CUDA-event times;
   4. kernel_forms  every other form of K1, K2 and K3 against its plain
-               version at the same shape and with CUDA-event times;
+               version at the same shape and with CUDA-event times; then
+               the mixed-family forms at the legacy path's shape (cutoff
+               100 m, block_src 64, kb from the audit; K3 at block_src
+               128), on the legacy crowd and on a two-family pack (every
+               other rider a twod row with per-rider columns);
   5. audit     no receiver block overflows the neighbor table at t = 0;
   6. slice     240 steps of Engine.simulate on the card: one K1 launch per
                step, a finite state, no overflow at t = end, and the
@@ -28,19 +34,31 @@ raises and the script exits non-zero):
   8. slice_db  240 steps of 100,000 riders with per-rider f_0 and sigma_0
                (+-5%) through K3 at block = block_src = 128, kb from the
                overflow audit plus a margin: 240 K3 launches;
-  9. parity    an 8,192-rider crowd run 45 steps (two table-rebuild
+  9. slice_legacy  240 steps of the 100,000 riders with bicycle2d's
+               default field, Engine.create(BicycleParams.create(),
+               MODELS["bicycle2d"], neighbors=NeighborConfig(cutoff=100,
+               block=128, block_src=64, kb=<audited max + 2>,
+               rebuild_every=20)): 240 K1 launches, none of K2 or K3;
+ 10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
                state, compared on the final state;
- 10. parity_db the K3 path against the K1 path (tile screen, block_src =
+ 11. parity_db the K3 path against the K1 path (tile screen, block_src =
                128) on the card, 45 steps of the slice_db crowd; and the
                K3 path on the card in float32 against the CPU float64
-               plain version on a 4,096-rider crowd.
+               plain version on a 2,048-rider crowd;
+ 12. parity_legacy  the slice_legacy configuration on a 4,096-rider crowd,
+               45 steps on the card in float32 against the plain version
+               on the CPU in float32 (the two tiers of `parity`) and in
+               float64 (every rider within the cap; the 99.9% tier is
+               reported beside the CPU float32 run's own distance from
+               float64, which fails it alike: see PARITY_LEG_N).
 
-Then a JSON line with the kernels' launch counts (each from its own path,
-with every count set to 0 just before it), errors and times, the
-nvidia-smi line, and last `{"ok": true, "device": {...}}`. Without a CUDA
-device the script exits non-zero before printing any result.
+Then the script's wall time, a JSON line with the kernels' launch counts
+(each from its own path, with every count set to 0 just before it),
+errors, times and bounds, the nvidia-smi line, and last
+`{"ok": true, "device": {...}}`. Without a CUDA device the script exits
+non-zero before printing any result.
 """
 
 import json
@@ -60,11 +78,15 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-4, 2e-4
 # rare agent whose float32 and float64 runs cross a discontinuity of the
 # field (the hard FOV cone edge, the sign(sin phi) jump straight ahead of
 # a source) at different steps drifts further (a CPU float32-vs-float64
-# rehearsal of this crowd: median 2.9e-5 m, 99.9th percentile 2.4e-4 m,
-# one agent of 8192 at 1.3e-3 m). So: at least PARITY_QUANTILE of the
+# rehearsal of an 8,192-rider crowd: median 2.9e-5 m, 99.9th percentile
+# 2.4e-4 m, one agent at 1.3e-3 m). So: at least PARITY_QUANTILE of the
 # agents within PARITY_TOL of each quantity, and every agent within
-# PARITY_CAP.
-PARITY_N, PARITY_STEPS = 8192, 45
+# PARITY_CAP. The crowd is 6,144 riders (8,192 before the legacy path's
+# parity run was added; cut to keep the script near 200 s on the card).
+# Its own CPU float32-vs-float64 rehearsal: max 4.5e-3 m, 2 riders above
+# 1e-3 m/s, inside both tiers (a 4,096-rider draw put one rider past the
+# cap, 1.1e-2 m, and is not used).
+PARITY_N, PARITY_STEPS = 6144, 45
 PARITY_QUANTILE = 0.999
 PARITY_TOL = {"pos": 1e-3, "psi": 1e-3, "v": 1e-3, "delta": 1e-3}
 PARITY_CAP = {"pos": 1e-2, "psi": 5e-2, "v": 5e-2, "delta": 5e-2}
@@ -72,7 +94,32 @@ PARITY_CAP = {"pos": 1e-2, "psi": 5e-2, "v": 5e-2, "delta": 5e-2}
 # f_0 and sigma_0 jittered by +-JITTER (numpy, seeded), kb = the audited
 # maximum of in-range blocks plus KB_MARGIN (tests/test_neighbors.py)
 DB_BLOCK, JITTER, JITTER_SEED, KB_MARGIN = 128, 0.05, 7, 2
-PARITY_DB_N = 4096
+# the K3 path's CPU float64 crowd: 2,048 riders (4,096 before the legacy
+# path's parity run was added; halved to keep the script near 200 s on
+# the card; the plain version in float32 against float64 on this crowd,
+# CPU: max 1.06e-4 m, well inside both tiers)
+PARITY_DB_N = 2048
+# legacy path: bicycle2d's default field, whose slow forward decay wants a
+# ~100 m cutoff (the JAX package's NeighborConfig docstring). Within 100 m
+# many sources sit near a receiver's FOV cone edge, where a source's whole
+# force (up to ~0.1 at 50 m ahead) switches on or off: float32 and float64
+# runs of the same crowd cross those edges at different steps. On the
+# CPU, the plain version in float32 against float64 on the parity_legacy
+# crowd gives exactly the card's distances (max 2.96e-3 m, 5 riders of
+# 4,096 above 1e-3 rad of steer): the 99.9% tier is beyond float32 here,
+# so the card is held to the CPU float32 run under both tiers and to the
+# float64 run under the cap.
+LEG_CUTOFF, PARITY_LEG_N = 100.0, 4096
+# the bound of a call: operations over the H100's FP32 peak, bytes over its
+# memory rate (NVIDIA's data sheet, SXM part at 700 W), the larger of the
+# two. Operations per pair, counted from csrc/pair_math.cuh: every FP32
+# add, subtract, multiply, negation, min/max and comparison and every
+# rsqrtf, sqrtf and expf counts one, as the code is written (per-receiver
+# work excluded). Base forms without the FOV cone and priority to the
+# right; the cone adds 5, priority to the right 4, the mixed form's family
+# test 1.
+PEAK_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+OPS_TWOD, OPS_LEGACY, OPS_FOV, OPS_P2R, OPS_FAMILY = 73, 37, 5, 4, 1
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 
@@ -106,6 +153,21 @@ def make_engine(params=None, **kw):
     return Engine.create(params or BicycleParams.create(),
                          MODELS["bicycle2d"], rep_force="twod",
                          neighbors=neighbor_config(**kw))
+
+
+def make_legacy_engine(params=None, **kw):
+    """bicycle2d with its default field (no rep_force: the model's
+    "legacy") and the NeighborConfig defaults but for the legacy path's
+    cutoff, blocks and rebuild interval, with `kw` changed."""
+    from cyclistsocialforce_tpu_torch import Engine, NeighborConfig
+    from cyclistsocialforce_tpu_torch.models import MODELS
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    cfg = dict(cutoff=LEG_CUTOFF, block=BLOCK, block_src=BLOCK_SRC,
+               rebuild_every=REBUILD)
+    return Engine.create(params or BicycleParams.create(),
+                         MODELS["bicycle2d"],
+                         neighbors=NeighborConfig(**{**cfg, **kw}))
 
 
 def jittered_params(n, device, dtype):
@@ -175,28 +237,60 @@ def sorted_inputs(engine, state):
     return cache[1], cache[2], src, recv
 
 
-def admitted_share(tensors, block_src, strip):
-    """The share of the table's valid (tile, strip) pieces that a distance
-    screen at CUTOFF admits: some pair of the strip lies within it."""
+def work(tensors, plain_kw):
+    """What one call of the form needs: the pairs it evaluates (the valid
+    tiles' pairs, after the screen where one applies: those of the tiles or
+    strips it admits), legacy rows' pairs apart in the mixed form, the
+    operations they take (OPS_*), and the bytes of every input read once
+    and the output written once; with the bound these give."""
     import torch
 
     nbr, valid, src, recv = tensors
-    rows = src.shape[0] // block_src
-    xs = src[:, 0].reshape(rows, block_src)[nbr.long()]      # [B, KB, S]
-    ys = src[:, 1].reshape(rows, block_src)[nbr.long()]
-    xr = recv[0].reshape(nbr.shape[0], 1, 1, BLOCK)
-    yr = recv[1].reshape(nbr.shape[0], 1, 1, BLOCK)
-    dx, dy = xr - xs[..., None], yr - ys[..., None]
-    rho2 = (dx * dx + dy * dy).reshape(*nbr.shape, block_src // strip, -1)
-    admit = (rho2.amin(dim=-1) <= CUTOFF * CUTOFF) & valid[..., None]
-    return float(admit.sum()) / float(valid.sum() * (block_src // strip))
+    block_src = plain_kw.get("block_src", BLOCK)
+    strip = plain_kw.get("sub") or block_src
+    rows, n_strips = src.shape[0] // block_src, block_src // strip
+    idx = nbr.long()
+    admit = valid[..., None].expand(*valid.shape, n_strips)   # [B, KB, ns]
+    if plain_kw.get("screen"):
+        xs = src[:, 0].reshape(rows, block_src)[idx]           # [B, KB, S]
+        ys = src[:, 1].reshape(rows, block_src)[idx]
+        xr = recv[0].reshape(nbr.shape[0], 1, 1, BLOCK)
+        yr = recv[1].reshape(nbr.shape[0], 1, 1, BLOCK)
+        dx, dy = xr - xs[..., None], yr - ys[..., None]
+        rho2 = (dx * dx + dy * dy).reshape(*nbr.shape, n_strips, -1)
+        cutoff = plain_kw["cutoff"]
+        admit = admit & (rho2.amin(dim=-1) <= cutoff * cutoff)
+    pieces = int(admit.sum())
+    pairs = pieces * strip * BLOCK
+    legacy_pairs = 0
+    mixed = bool(plain_kw.get("mixed"))
+    if mixed:
+        fam = (src[:, 13] > 0.5).reshape(rows, block_src)[idx]
+        per_strip = fam.reshape(*nbr.shape, n_strips, strip).sum(dim=-1)
+        legacy_pairs = int((per_strip * admit).sum()) * BLOCK
+    fov = plain_kw.get("fov", True)
+    p2r = plain_kw.get("priority_p2r", False)
+    extra = OPS_FOV * fov + OPS_P2R * p2r + OPS_FAMILY * mixed
+    ops = ((pairs - legacy_pairs) * (OPS_TWOD + extra)
+           + legacy_pairs * (OPS_LEGACY + extra))
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes += 2 * recv.shape[1] * 4
+    op_ms, byte_ms = 1e3 * ops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    out = {"candidate_pairs": int(valid.sum()) * block_src * BLOCK,
+           "pairs": pairs, "legacy_pairs": legacy_pairs, "operations": ops,
+           "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
+           "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+    if plain_kw.get("screen"):
+        out["screen_admits"] = pieces / float(valid.sum() * n_strips)
+    return out
 
 
 def check_form(phase, form, fn, tensors, kw, plain_kw):
     """Kernel `fn` against its plain version on `tensors` (forms of the
     plain version in `plain_kw`): assert |diff| <= KERNEL_ATOL +
-    KERNEL_RTOL |plain| everywhere, time both with CUDA events, emit one
-    line; returns {max_abs_err, ms, plain_ms}."""
+    KERNEL_RTOL |plain| everywhere, time both with CUDA events, count the
+    call's work and bound (`work`), emit one line; returns {max_abs_err,
+    ms, plain_ms, bound_ms, bound_by, library_ms}."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
@@ -214,18 +308,14 @@ def check_form(phase, form, fn, tensors, kw, plain_kw):
     plain_ms = cuda_ms(lambda: PF.pair_forces_neighbors_ref(*tensors,
                                                             **plain_kw),
                        reps=5)
-    block_src = plain_kw.get("block_src", BLOCK)
-    extra = {}
-    if plain_kw.get("screen"):
-        strip = plain_kw.get("sub") or block_src
-        extra["screen_admits"] = admitted_share(tensors, block_src, strip)
+    w = work(tensors, plain_kw)
     emit(phase, form=form, name=fn.__name__, shape={
         "blocks": nbr.shape[0], "kb": nbr.shape[1], "block": BLOCK,
-        "block_src": block_src, "n_src": src.shape[0]},
-        candidate_pairs=int(valid.sum()) * block_src * BLOCK,
+        "block_src": plain_kw.get("block_src", BLOCK),
+        "n_src": src.shape[0]},
         options={k: v for k, v in plain_kw.items()
                  if k not in ("block", "uniform")},
-        uniform=plain_kw.get("uniform") is not None, **extra,
+        uniform=plain_kw.get("uniform") is not None, **w,
         max_abs_err=max_abs_err, max_abs_force=float(out_r.abs().max()),
         n_over_tolerance=n_bad, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=ms,
         plain_ms=plain_ms)
@@ -233,7 +323,10 @@ def check_form(phase, form, fn, tensors, kw, plain_kw):
         raise AssertionError(f"{form}: {fn.__name__} disagrees with its "
                              f"plain version on {n_bad} values (max |diff| "
                              f"{max_abs_err:.3e})")
-    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+    # no single PyTorch call computes a block-sparse pair sum
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+            "library_ms": None}
 
 
 def phase_kernel(engine, state):
@@ -290,6 +383,79 @@ def phase_kernel_forms(engine, db_engine, state):
     }
     return {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
             for name, (fn, t, kw, plain) in forms.items()}
+
+
+def two_family(engine, state):
+    """(nbr, valid, src, recv) of a two-family pack: the legacy `engine`'s
+    table and sorted packs with every other rider (odd uid) a twod row of
+    per-rider columns (the K3 path's jittered f_0 and sigma_0, family
+    0)."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import permute_state
+
+    cache = engine.neighbor_cache(state)
+    st = permute_state(state, cache[0])
+    src_leg, recv = engine.pack_pair_fields(st)
+    params = jittered_params(state.n, "cuda", torch.float32)
+    src_twod, _ = make_engine(params).pack_pair_fields(st)
+    odd = (st.uid % 2 == 1)[:, None]
+    return cache[1], cache[2], torch.where(odd, src_twod, src_leg), recv
+
+
+def phase_mixed_forms(leg, leg_db, state):
+    """The mixed-family forms at the legacy path's shape: K1 unscreened,
+    with the tile screen (the slice_legacy form), the strip screen
+    (sub 32), the FOV cone off and priority to the right, K2, and K3 on
+    the block_src 128 table; then a two-family pack through K1 (tile
+    screen), K2 and K3."""
+    import math
+
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    k1, k2, k3 = (PF.pair_forces_neighbors, PF.pair_forces_neighbors_unrolled,
+                  PF.pair_forces_neighbors_db)
+    full_fov = leg.with_params(BicycleParams.create(hfov=2 * math.pi))
+    leg_t, fov_t, db_t = (sorted_inputs(e, state)
+                          for e in (leg, full_fov, leg_db))
+    two_t, two_db = two_family(leg, state), two_family(leg_db, state)
+    bs64 = dict(block=BLOCK, block_src=BLOCK_SRC, mixed=True)
+    bs128 = dict(block=BLOCK, block_src=DB_BLOCK, mixed=True)
+    screen = dict(screen=True, cutoff=LEG_CUTOFF)
+    k3_kw = {"block": BLOCK, "cutoff": LEG_CUTOFF, "mixed": True}
+    k3_plain = {**bs128, **screen}
+    forms = {
+        "k1_mixed": (k1, leg_t, bs64, None),
+        "k1_mixed_screen": (k1, leg_t, {**bs64, **screen}, None),
+        "k1_mixed_screen_sub32": (k1, leg_t, {**bs64, **screen, "sub": 32},
+                                  None),
+        "k1_mixed_fov_off": (k1, fov_t, {**bs64, "fov": False}, None),
+        "k1_mixed_p2r": (k1, leg_t, {**bs64, "priority_p2r": True}, None),
+        "k2_mixed": (k2, leg_t, bs64, None),
+        "k3_mixed": (k3, db_t, k3_kw, k3_plain),
+        "k1_two_family_screen": (k1, two_t, {**bs64, **screen}, None),
+        "k2_two_family": (k2, two_t, bs64, None),
+        "k3_two_family": (k3, two_db, k3_kw, k3_plain),
+    }
+    return {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
+            for name, (fn, t, kw, plain) in forms.items()}
+
+
+def phase_legacy_config(state):
+    """The legacy path's engines: kb = the in-range maximum at t = 0
+    (counted with a table of 4 * KB slots, itself overflow-free) plus
+    KB_MARGIN, at block_src 64 (K1, K2) and at block_src 128 (K3)."""
+    engines = []
+    for block_src, backend in ((BLOCK_SRC, "pallas"), (DB_BLOCK,
+                                                        "pallas_db")):
+        probe = make_legacy_engine(block_src=block_src, kb=4 * KB)
+        most = audit_overflow(probe, state,
+                              f"legacy probe block_src {block_src} t=0")
+        engines.append(make_legacy_engine(block_src=block_src,
+                                          kb=most + KB_MARGIN,
+                                          backend=backend))
+    return engines
 
 
 def phase_db_config(state):
@@ -408,6 +574,45 @@ def phase_parity_db(db_engine, state):
                  runs="card float32 K3 vs CPU float64 plain")
 
 
+def phase_parity_legacy(engine):
+    """The slice_legacy configuration on a PARITY_LEG_N-rider crowd, 45
+    steps: the card in float32 (K1, mixed form, tile screen) against the
+    plain version on the CPU in float32 (both tiers) and in float64 (the
+    cap), see LEG_CUTOFF."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
+    def run(dtype, device):
+        st = build_population(PARITY_LEG_N, DENSITY, HIST_LEN, BLOCK, dtype,
+                              device)
+        if device == "cuda":
+            audit_overflow(engine, st, "parity_legacy t=0")
+        t0 = time.perf_counter()
+        fin, _ = engine.simulate(st, PARITY_STEPS, record=False)
+        torch.cuda.synchronize()
+        return fin, time.perf_counter() - t0
+
+    card, _ = run(torch.float32, "cuda")
+    cpu32, s32 = run(torch.float32, "cpu")
+    cpu64, s64 = run(torch.float64, "cpu")
+    vs32 = parity_errors(card, cpu32)
+    vs64 = parity_errors(card, cpu64)
+    base = parity_errors(cpu32, cpu64)
+    over_cap = [k for k in vs64["failed"]
+                if k not in vs64["max"] or vs64["max"][k] > PARITY_CAP[k]]
+    info = dict(steps=PARITY_STEPS, rebuild_every=REBUILD, n=PARITY_LEG_N)
+    emit("parity_legacy", runs="card float32 K1 mixed vs CPU float32 "
+         "plain", cpu_run_s=s32, **info, **vs32)
+    emit("parity_legacy", runs="card float32 K1 mixed vs CPU float64 "
+         "plain (enforced: the cap)", cpu_run_s=s64, **info, **vs64,
+         over_cap=over_cap, cpu_float32_vs_float64={
+             k: base[k] for k in ("max", "p99.9", "n_over_tol", "failed")})
+    if vs32["failed"] or over_cap:
+        raise AssertionError(f"parity_legacy failed: float32 "
+                             f"{vs32['failed']}, float64 cap {over_cap}")
+
+
 def parity_errors(a, b):
     """Per-quantity error summary of final states `a` and `b`, and the
     list of checks that failed (see PARITY_TOL)."""
@@ -458,7 +663,7 @@ def main():
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = _build.library()
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds, library=lib._name)
@@ -467,8 +672,10 @@ def main():
     state = build_population(N_AGENTS, DENSITY, HIST_LEN, BLOCK,
                              torch.float32, "cuda")
     db_engine = phase_db_config(state)
+    leg_engine, leg_db_engine = phase_legacy_config(state)
     kernel = phase_kernel(engine, state)
     forms = phase_kernel_forms(engine, db_engine, state)
+    forms.update(phase_mixed_forms(leg_engine, leg_db_engine, state))
     launches = {
         "k1": phase_slice("slice", engine, state, PF.pair_forces_neighbors),
         "k2": phase_slice("slice_unrolled",
@@ -476,20 +683,30 @@ def main():
                           PF.pair_forces_neighbors_unrolled),
         "k3": phase_slice("slice_db", db_engine, state,
                           PF.pair_forces_neighbors_db),
+        "k1_legacy": phase_slice("slice_legacy", leg_engine, state,
+                                 PF.pair_forces_neighbors),
     }
     phase_parity()
     phase_parity_db(db_engine, state)
+    phase_parity_legacy(leg_engine)
+    emit("total", seconds=time.perf_counter() - t_start)
+
+    def mixed(form, launched=None):
+        return {"form": form, "launches": launched, **forms[form]}
 
     print(json.dumps({"kernels": [
         {"name": "pair_forces_neighbors", "route": "cuda",
          "source": SRC + "pair_forces.cu", "replaces": TPU + "75",
-         "launches": launches["k1"], **kernel},
+         "launches": launches["k1"], **kernel,
+         "mixed": mixed("k1_mixed_screen", launches["k1_legacy"])},
         {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
          "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",
-         "launches": launches["k2"], **forms["k2_uniform"]},
+         "launches": launches["k2"], **forms["k2_uniform"],
+         "mixed": mixed("k2_mixed")},
         {"name": "pair_forces_neighbors_db", "route": "cuda",
          "source": SRC + "pair_forces_db.cu", "replaces": TPU + "500",
-         "launches": launches["k3"], **forms["k3"]},
+         "launches": launches["k3"], **forms["k3"],
+         "mixed": mixed("k3_mixed")},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ from cyclistsocialforce_tpu_torch.params import PARAM_CLASSES, to_leaf
 from cyclistsocialforce_tpu_torch.state import AgentState
 
 
-def state_from_jax(st, device="cpu") -> AgentState:
+def state_from_jax(st, device="cuda") -> AgentState:
     """The port's AgentState holding the values of a JAX AgentState (the
     JAX-only `key` field is dropped)."""
     return AgentState(**{
@@ -30,7 +30,7 @@ def state_to_numpy(st: AgentState) -> dict:
             for f in dataclasses.fields(AgentState)}
 
 
-def params_from_jax(p, device="cpu"):
+def params_from_jax(p, device="cuda"):
     """The port's params of the same class and values as a JAX
     `VehicleParams` / `BicycleParams` (no re-validation). Per-agent
     leaves become float64 tensors on `device`."""

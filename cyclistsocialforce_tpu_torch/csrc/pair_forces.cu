@@ -1,12 +1,15 @@
-// Block-sparse pairwise repulsive-force sum of the BMD2023 "twod" field.
+// Block-sparse pairwise repulsive-force sum of the BMD2023 "twod" field or,
+// in the mixed-family form, of each source row's own field (twod or the
+// legacy v0.1 elliptic field).
 //
 // Replaces the Pallas TPU kernel cyclistsocialforce_tpu/ops/pallas_forces.py
 // ::_pair_kernel (grid (receiver block, table slot), tile math
-// _tile_forces) in each of its single-family forms: shared field
-// parameters baked in as arguments or read per source row (`uniform`), the
-// FOV cone on or off, the priority-to-the-right mask, and no distance
-// screen, the tile screen or the strip screen (`screen`, `sub`). The
-// per-pair math is csf::pair_accumulate (pair_math.cuh).
+// _tile_forces) in each of its forms: shared field parameters baked in as
+// arguments or read per source row (`uniform`), the mixed-family form
+// (`mixed`, per-row columns), the FOV cone on or off, the
+// priority-to-the-right mask, and no distance screen, the tile screen or
+// the strip screen (`screen`, `sub`). The per-pair math is
+// csf::pair_accumulate (pair_math.cuh).
 //
 // Design. One CTA per receiver block of 128 agents, one thread per
 // receiver: each receiver is owned by exactly one thread, so the sum needs
@@ -26,11 +29,15 @@
 // votes. The minimum covers inactive and pad rows, as the TPU kernel's
 // does, so both skip the same strips.
 //
-// What bounds it. The pair math is ~40 FP32 operations and 6 SFU
+// What bounds it. The twod pair math is ~70 FP32 operations and 6 SFU
 // operations (rsqrt x4, sqrt, exp) per pair, and at the main path's
 // configuration (100k agents, block_src = 64, kb = 19) each agent sees
 // ~875 candidate pairs, i.e. ~8.8e7 pairs per call: FP32 and SFU issue
-// bound. The bytes are small (a 4 KB tile per slot, read from L2).
+// bound. The bytes are small (a 4 KB tile per slot, read from L2). The
+// legacy field (bicycle2d's default, cutoff ~100 m, kb ~35) sees ~2x the
+// pairs at ~35 FP32 and 2 SFU operations each; its rows take a
+// warp-uniform branch (one source row per step for the whole warp), so a
+// legacy row never pays for the twod chain.
 
 #include <cuda_runtime.h>
 
@@ -41,7 +48,7 @@ namespace {
 using csf::kBlock;
 using csf::kSrcCols;
 
-template <bool kUniform, bool kFov, bool kP2R, bool kScreen>
+template <bool kUniform, bool kFov, bool kP2R, bool kScreen, bool kMixed>
 __global__ void __launch_bounds__(kBlock)
 pair_forces_twod_kernel(const int* __restrict__ nbr,
                         const int* __restrict__ count,
@@ -78,8 +85,8 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
         if (!__syncthreads_or(rho2_min <= cutoff2)) continue;
       }
       for (int j = j0; j < j0 + strip; ++j) {
-        csf::pair_accumulate<kUniform, kFov, kP2R>(tile + j * kSrcCols, rc,
-                                                   p, fx, fy);
+        csf::pair_accumulate<kUniform, kFov, kP2R, kMixed>(
+            tile + j * kSrcCols, rc, p, fx, fy);
       }
     }
     __syncthreads();
@@ -99,12 +106,13 @@ extern "C" {
 // the screened source strip (block_src for the tile screen; it must divide
 // block_src), `cutoff2` the squared cutoff the screen compares with; both
 // are ignored without `screen`. e0..chf are the shared field parameters
-// (read only with `uniform`). Returns cudaGetLastError() after the launch
-// (0 on success).
+// (read only with `uniform`); `mixed` selects each row's family by its
+// column 13 and excludes `uniform`. Returns cudaGetLastError() after the
+// launch (0 on success).
 int csf_pair_forces_twod(const void* nbr, const void* count,
                          const void* src, const void* recv, void* out,
                          int n_blocks, int kb, int block_src, int uniform,
-                         int fov, int p2r, int screen, int strip,
+                         int mixed, int fov, int p2r, int screen, int strip,
                          float cutoff2, float e0, float e1, float s0,
                          float s1, float s2, float s3, float chf, int device,
                          void* stream) {
@@ -113,7 +121,7 @@ int csf_pair_forces_twod(const void* nbr, const void* count,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!screen) strip = block_src;
   if (block_src <= 0 || kBlock % block_src != 0 || strip <= 0 ||
-      block_src % strip != 0) {
+      block_src % strip != 0 || (uniform && mixed)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const csf::TwodParams p{e0, e1, s0, s1, s2, s3, chf};
@@ -123,14 +131,19 @@ int csf_pair_forces_twod(const void* nbr, const void* count,
     csf::with_flag(fov, [&](auto FV) {
       csf::with_flag(p2r, [&](auto P2R) {
         csf::with_flag(screen, [&](auto SCR) {
-          pair_forces_twod_kernel<decltype(U)::value, decltype(FV)::value,
-                                  decltype(P2R)::value, decltype(SCR)::value>
-              <<<n_blocks, kBlock, smem, s>>>(
+          csf::with_flag(mixed, [&](auto M) {
+            if constexpr (!(decltype(U)::value && decltype(M)::value)) {
+              pair_forces_twod_kernel<
+                  decltype(U)::value, decltype(FV)::value,
+                  decltype(P2R)::value, decltype(SCR)::value,
+                  decltype(M)::value><<<n_blocks, kBlock, smem, s>>>(
                   static_cast<const int*>(nbr),
                   static_cast<const int*>(count),
                   static_cast<const float*>(src),
                   static_cast<const float*>(recv), static_cast<float*>(out),
                   kb, block_src, strip, cutoff2, p);
+            }
+          });
         });
       });
     });

@@ -5,9 +5,10 @@
 // ::_pair_kernel_db (one program per receiver block; the neighbor tiles
 // stream through a _DB_DEPTH = 4 slot VMEM ring refilled by async DMA; the
 // tile screen at the cutoff always on; per-source field parameters always,
-// block_src == block), in its single-family forms: FOV cone on or off,
-// priority to the right on or off. The per-pair math is
-// csf::pair_accumulate (pair_math.cuh), shared with pair_forces.cu.
+// block_src == block), in each of its forms: single-family twod or
+// mixed-family (each row's own field, twod or legacy, by its column 13),
+// FOV cone on or off, priority to the right on or off. The per-pair math
+// is csf::pair_accumulate (pair_math.cuh), shared with pair_forces.cu.
 //
 // Design. One CTA of 128 threads per receiver block, one receiver per
 // thread. A 4-slot ring of [128, 16] float32 tiles (8 KB each, 32 KB in
@@ -38,7 +39,7 @@ using csf::kSrcCols;
 constexpr int kDepth = 4;                           // ring slots
 constexpr int kTileVec = kBlock * kSrcCols / 4;     // float4 per tile
 
-template <bool kFov, bool kP2R>
+template <bool kFov, bool kP2R, bool kMixed>
 __global__ void __launch_bounds__(kBlock)
 pair_forces_db_kernel(const int* __restrict__ nbr,
                       const int* __restrict__ count,
@@ -81,8 +82,8 @@ pair_forces_db_kernel(const int* __restrict__ nbr,
     }
     if (__syncthreads_or(rho2_min <= cutoff2)) {
       for (int j = 0; j < kBlock; ++j) {
-        csf::pair_accumulate<false, kFov, kP2R>(tile + j * kSrcCols, rc,
-                                                unused, fx, fy);
+        csf::pair_accumulate<false, kFov, kP2R, kMixed>(tile + j * kSrcCols,
+                                                        rc, unused, fx, fy);
       }
     }
     // refill this slot only after every thread consumed its tile
@@ -101,11 +102,12 @@ extern "C" {
 // first count[b] entries of row b are valid source block indices, blocks
 // of 128 sources); src [N_src, 16] float32, 16-byte aligned, N_src a
 // multiple of 128; recv [8, n_blocks * 128] float32; out [2, n_blocks *
-// 128] float32; cutoff2 the squared cutoff of the tile screen. Returns
-// cudaGetLastError() after the launch (0 on success).
+// 128] float32; cutoff2 the squared cutoff of the tile screen; `mixed`
+// selects each row's family by its column 13. Returns cudaGetLastError()
+// after the launch (0 on success).
 int csf_pair_forces_db(const void* nbr, const void* count, const void* src,
                        const void* recv, void* out, int n_blocks, int kb,
-                       int fov, int p2r, float cutoff2, int device,
+                       int mixed, int fov, int p2r, float cutoff2, int device,
                        void* stream) {
   if (n_blocks <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
@@ -113,12 +115,15 @@ int csf_pair_forces_db(const void* nbr, const void* count, const void* src,
   auto s = static_cast<cudaStream_t>(stream);
   csf::with_flag(fov, [&](auto FV) {
     csf::with_flag(p2r, [&](auto P2R) {
-      pair_forces_db_kernel<decltype(FV)::value, decltype(P2R)::value>
-          <<<n_blocks, kBlock, 0, s>>>(
-              static_cast<const int*>(nbr), static_cast<const int*>(count),
-              static_cast<const float*>(src),
-              static_cast<const float*>(recv), static_cast<float*>(out), kb,
-              cutoff2);
+      csf::with_flag(mixed, [&](auto M) {
+        pair_forces_db_kernel<decltype(FV)::value, decltype(P2R)::value,
+                              decltype(M)::value>
+            <<<n_blocks, kBlock, 0, s>>>(
+                static_cast<const int*>(nbr), static_cast<const int*>(count),
+                static_cast<const float*>(src),
+                static_cast<const float*>(recv), static_cast<float*>(out),
+                kb, cutoff2);
+      });
     });
   });
   return static_cast<int>(cudaGetLastError());

@@ -4,10 +4,11 @@
 // Replaces the Pallas TPU kernel cyclistsocialforce_tpu/ops/pallas_forces.py
 // ::_pair_kernel_unrolled (one program per receiver block; all KB source
 // tile DMAs issued first into a KB-deep VMEM scratch, then a statically
-// unrolled accumulate with no distance screen), in its single-family forms:
-// `uniform` or per-source field parameters, FOV cone on or off, priority to
-// the right on or off. The per-pair math is csf::pair_accumulate
-// (pair_math.cuh), shared with pair_forces.cu.
+// unrolled accumulate with no distance screen), in each of its forms:
+// `uniform` or per-source field parameters, the mixed-family form (each
+// row's own field, twod or legacy, by its column 13), FOV cone on or off,
+// priority to the right on or off. The per-pair math is
+// csf::pair_accumulate (pair_math.cuh), shared with pair_forces.cu.
 //
 // Design. One CTA of 128 threads per receiver block, one receiver per
 // thread. The CTA issues 16-byte cp.async copies of all count[b] valid
@@ -22,7 +23,9 @@
 // pair_forces.cu at the main path's shape, FP32 and SFU issue bound. The
 // large shared-memory footprint allows only two CTAs (8 warps) per SM, so
 // fewer warps hide the latency of each thread's dependent FP32/SFU chain
-// than in pair_forces.cu; what it saves is one barrier per slot.
+// than in pair_forces.cu; what it saves is one barrier per slot. The
+// legacy field's table (kb ~35 at cutoff 100 m) takes 143,360 B: one CTA
+// per SM.
 
 #include <cuda_runtime.h>
 
@@ -33,7 +36,7 @@ namespace {
 using csf::kBlock;
 using csf::kSrcCols;
 
-template <bool kUniform, bool kFov, bool kP2R>
+template <bool kUniform, bool kFov, bool kP2R, bool kMixed>
 __global__ void __launch_bounds__(kBlock)
 pair_forces_unrolled_kernel(const int* __restrict__ nbr,
                             const int* __restrict__ count,
@@ -65,8 +68,8 @@ pair_forces_unrolled_kernel(const int* __restrict__ nbr,
   float fx = 0.0f, fy = 0.0f;
   const int n_src = n_slots * block_src;
   for (int j = 0; j < n_src; ++j) {
-    csf::pair_accumulate<kUniform, kFov, kP2R>(tiles + j * kSrcCols, rc, p,
-                                               fx, fy);
+    csf::pair_accumulate<kUniform, kFov, kP2R, kMixed>(tiles + j * kSrcCols,
+                                                       rc, p, fx, fy);
   }
   out[r] = fx;
   out[npad + r] = fy;
@@ -84,13 +87,15 @@ extern "C" {
 int csf_pair_forces_unrolled(const void* nbr, const void* count,
                              const void* src, const void* recv, void* out,
                              int n_blocks, int kb, int block_src,
-                             int uniform, int fov, int p2r, float e0,
+                             int uniform, int mixed, int fov, int p2r,
+                             float e0,
                              float e1, float s0, float s1, float s2,
                              float s3, float chf, int device, void* stream) {
   if (n_blocks <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (block_src <= 0 || kBlock % block_src != 0 || kb <= 0) {
+  if (block_src <= 0 || kBlock % block_src != 0 || kb <= 0 ||
+      (uniform && mixed)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int optin = 0;
@@ -105,19 +110,23 @@ int csf_pair_forces_unrolled(const void* nbr, const void* count,
   csf::with_flag(uniform, [&](auto U) {
     csf::with_flag(fov, [&](auto FV) {
       csf::with_flag(p2r, [&](auto P2R) {
-        auto kernel =
-            pair_forces_unrolled_kernel<decltype(U)::value,
-                                        decltype(FV)::value,
-                                        decltype(P2R)::value>;
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return;
-        kernel<<<n_blocks, kBlock, smem, s>>>(
-            static_cast<const int*>(nbr), static_cast<const int*>(count),
-            static_cast<const float*>(src), static_cast<const float*>(recv),
-            static_cast<float*>(out), kb, block_src, p);
-        err = cudaGetLastError();
+        csf::with_flag(mixed, [&](auto M) {
+          if constexpr (!(decltype(U)::value && decltype(M)::value)) {
+            auto kernel = pair_forces_unrolled_kernel<
+                decltype(U)::value, decltype(FV)::value,
+                decltype(P2R)::value, decltype(M)::value>;
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (err != cudaSuccess) return;
+            kernel<<<n_blocks, kBlock, smem, s>>>(
+                static_cast<const int*>(nbr), static_cast<const int*>(count),
+                static_cast<const float*>(src),
+                static_cast<const float*>(recv), static_cast<float*>(out), kb,
+                block_src, p);
+            err = cudaGetLastError();
+          }
+        });
       });
     });
   });

@@ -1,19 +1,23 @@
 """The social-force interaction engine of the PyTorch port.
 
-Counterpart of `cyclistsocialforce_tpu.engine` for the culled "twod" main
-path: one agent population on a shared space, advanced step by step --
+Counterpart of `cyclistsocialforce_tpu.engine`: one agent population on a
+shared space, advanced step by step --
 
   1. destination force with the destination-queue and navigation-FSM
-     updates (`dest_force_straight`),
-  2. pairwise repulsive forces over the block-sparse neighbor table
-     (`repulsive_sum_neighbors`, the pair kernel of `ops.pair_forces`),
+     updates (`dest_force_straight`, or `dest_force_hm`),
+  2. pairwise repulsive forces of the "twod" or "legacy" field: dense
+     over all pairs (`Engine.repulsive_sum`, plain PyTorch, as the JAX
+     package computes it outside any Pallas kernel), or culled over the
+     block-sparse neighbor table (`repulsive_sum_neighbors`, the pair
+     kernels of `ops.pair_forces`; the legacy field takes their mixed-
+     family form with every row legacy),
   3. repulsive-force magnitude clamp and summation (`ops.forces`),
   4. one dynamics step of every agent (the model's `step`),
   5. bookkeeping: inactive agents frozen, step counters, position ring.
 
-Every stage is a batched function over the [N] agent axis. The pair stage
-runs its CUDA kernel on CUDA tensors and its plain version on CPU
-tensors: the state's device selects the backend.
+Every stage is a batched function over the [N] agent axis. The culled
+pair stage runs its CUDA kernel on CUDA tensors and its plain version on
+CPU tensors: the state's device selects the backend.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from cyclistsocialforce_tpu_torch.ops import forces as F
 from cyclistsocialforce_tpu_torch.ops import navigation as nav
 from cyclistsocialforce_tpu_torch.ops import neighbors as NB
 from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+from cyclistsocialforce_tpu_torch.params import pair_hi
 from cyclistsocialforce_tpu_torch.state import PSI, V, X, Y, AgentState
 
 
@@ -82,8 +87,74 @@ def dest_force_straight(params, state: AgentState):
     return fx, fy, new_state
 
 
+def _per_agent(value, n: int, like: torch.Tensor):
+    """A shared or per-agent [N] parameter as an [N] tensor of `like`'s
+    dtype and device (per-agent tables in row order, as the dense stage
+    reads them)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=like.dtype, device=like.device).expand(n)
+    return torch.full((n,), float(value), dtype=like.dtype,
+                      device=like.device)
+
+
+def dest_force_hm(params, state: AgentState):
+    """Helbing-Molnar destination force (reference
+    Bicycle.calcDestinationForceHM, vehicle.py:1196-1216): the whole
+    straight-line stage (queue update and navigation FSM), then the
+    current velocity relaxed toward `v_desired_default` along the
+    straight-line direction (acceleration semantics)."""
+    fx, fy, new_state = dest_force_straight(params, state)
+    vdd = _per_agent(params.v_desired_default, state.n, state.s)
+    fx, fy = F.dest_force_hm(fx, fy, state.s[:, V], state.s[:, PSI], vdd)
+    return fx, fy, new_state
+
+
 DEST_FORCES = {"straight": dest_force_straight,
-               "direct": dest_force_straight}
+               "direct": dest_force_straight,
+               "hm": dest_force_hm}
+
+
+def rep_tile_twod(params, src, recv):
+    """[S, R] tile of the BMD2023 2D-model field: [i, j] is the force of
+    source i at receiver j. `src` and `recv` are (x, y, psi, v) bundles;
+    the heading trig stays on the [S] and [R] axes."""
+    xs, ys, psis, _ = src
+    xr, yr, psir = recv[0], recv[1], recv[2]
+    n = xs.shape[0]
+    dx = xr[None, :] - xs[:, None]
+    dy = yr[None, :] - ys[:, None]
+
+    def b(field):
+        return _per_agent(getattr(params, field), n, xs)[:, None]
+
+    return F.rep_force_twod_pair(
+        dx, dy, torch.cos(psis)[:, None], torch.sin(psis)[:, None],
+        torch.cos(psir)[None, :], torch.sin(psir)[None, :],
+        b("f_0"), b("e_0"), b("e_1"), b("sigma_0"), b("sigma_1"),
+        b("sigma_2"), b("sigma_3"))
+
+
+def rep_tile_legacy(params, src, recv):
+    """[S, R] tile of the legacy v0.1 elliptic field, its speed-dependent
+    excentricity terms computed once per source."""
+    xs, ys, psis, vs = src
+    xr, yr = recv[0], recv[1]
+    n = xs.shape[0]
+    dx = xr[None, :] - xs[:, None]
+    dy = yr[None, :] - ys[:, None]
+    e = F.legacy_excentricity(
+        vs.expand(n), _per_agent(pair_hi(params.v_max_riding), n, xs))
+    inv_se = 1.0 / torch.sqrt(1 - e**2)
+    p_decay = _per_agent(params.p_decay, n, xs)
+    p_0 = _per_agent(params.p_0, n, xs)
+    return F.rep_force_legacy_pair(
+        dx, dy, torch.cos(psis)[:, None], torch.sin(psis)[:, None],
+        e[:, None], inv_se[:, None], (1.0 / p_decay)[:, None],
+        (p_0 / p_decay)[:, None])
+
+
+# the named repulsive fields; the name is the engine's pair family
+REP_FORCES = {"twod": rep_tile_twod, "legacy": rep_tile_legacy}
 
 
 # the pair kernels NeighborConfig.backend selects (the JAX package's names)
@@ -100,7 +171,8 @@ class NeighborConfig:
 
     cutoff : interaction radius [m]; the twod field decays as
         exp(-rho/sigma), sigma <= ~5.5 m, so 50-60 m bounds the dropped
-        force near 1e-4.
+        force near 1e-4. The legacy field needs ~100 m: its forward decay
+        is much slower for fast sources.
     block : receivers per block (the CUDA kernel takes 128).
     block_src : sources per block (0: `block`; must divide `block`, and
         be a multiple of 8).
@@ -224,17 +296,20 @@ def unsort_forces(out, perm, n):
 
 def pair_kernel_dispatch(cfg: NeighborConfig, nbr, valid, src_sorted,
                          recv_sorted, fov: bool = True, uniform=None,
-                         priority_p2r: bool = False):
+                         priority_p2r: bool = False, mixed: bool = False):
     """[2, B*block] sorted forces from cell-sorted packs through the
     kernel `cfg.backend` names: the CUDA kernel (float32) for CUDA
     tensors, its plain version in the packs' dtype for CPU tensors. The
     screens compare with `cfg.cutoff`, without the skin; K3 always reads
-    the per-source field columns."""
+    the per-source field columns. `mixed` selects each source row's field
+    family by its column 13 (the legacy field's form); it excludes
+    `uniform`."""
     dtype = src_sorted.dtype
     if src_sorted.is_cuda:
         src_sorted = src_sorted.float()
         recv_sorted = recv_sorted.float()
-    kw = dict(block=cfg.block, fov=fov, priority_p2r=priority_p2r)
+    kw = dict(block=cfg.block, fov=fov, priority_p2r=priority_p2r,
+              mixed=mixed)
     if cfg.backend == "pallas_unrolled":
         out = PF.pair_forces_neighbors_unrolled(
             nbr, valid, src_sorted, recv_sorted, block_src=cfg.block_src,
@@ -288,58 +363,76 @@ def _check_state_widths(widths, state):
 
 
 class Engine(nn.Module):
-    """One shared space with one homogeneous-model agent population,
-    culled "twod" pair field. Build with `Engine.create`.
+    """One shared space with one homogeneous-model agent population and a
+    named repulsive field ("twod" or "legacy"), dense or culled. Build
+    with `Engine.create`.
 
     The engine holds no tensors of its own: parameters shared by the
     population are Python floats, and the state's device decides where
     each step runs."""
 
     def __init__(self, params, model_step, state_widths, dest_force,
-                 neighbors: NeighborConfig, full_fov: bool, uniform_pair,
-                 priority_p2r: bool = False):
+                 rep_force, pair_family: str, neighbors, full_fov: bool,
+                 uniform_pair, priority_p2r: bool = False,
+                 rep_chunk: int | None = None):
         super().__init__()
         self.params = params
         self.model_step = model_step
         self.state_widths = state_widths
         self.dest_force = dest_force
+        self.rep_force = rep_force
+        self.pair_family = pair_family
         self.neighbors = neighbors
         self.full_fov = full_fov
         self.uniform_pair = uniform_pair
         self.priority_p2r = priority_p2r
+        self.rep_chunk = rep_chunk
 
     @classmethod
     def create(cls, params, model, dest_force=None, rep_force=None,
                priority_rule: str = "unregulated",
-               neighbors: NeighborConfig | None = None):
+               rep_chunk: int | None = None,
+               neighbors: NeighborConfig | None = None, rep_reduce=None,
+               combine_forces=None):
         """Build an engine from a model module (`models.MODELS`).
 
-        priority_rule "p2r" (priority to the right) masks out every
-        source to the receiver's left in the pair stage; any other value
-        leaves the field unregulated, as in the JAX package.
+        dest_force, rep_force : registry names (`DEST_FORCES`,
+            `REP_FORCES`); omitted, the model's `DEST_FORCE` /
+            `REP_FORCE` apply (bicycle2d: "straight", "legacy").
+        priority_rule : "p2r" (priority to the right) masks out every
+            source to the receiver's left in the pair stage; any other
+            value leaves the field unregulated, as in the JAX package.
+        rep_chunk : receivers per chunk of the dense pair stage (None: all
+            at once); it must divide N.
+        neighbors : a NeighborConfig selects the culled pair stage; None
+            the dense one.
 
-        Only the culled "twod" repulsive field with the straight-line
-        destination force is ported: other force names, custom force
-        callables and the dense (neighbors=None) pair stage raise."""
+        Custom force callables, `rep_reduce` and `combine_forces` are not
+        ported and raise."""
         dest = dest_force if dest_force is not None else model.DEST_FORCE
         rep = rep_force if rep_force is not None else model.REP_FORCE
-        if dest not in DEST_FORCES:
+        if not isinstance(dest, str) or dest not in DEST_FORCES:
             raise NotImplementedError(
                 f"destination force {dest!r} is not ported (have "
                 f"{sorted(DEST_FORCES)})")
-        if rep != "twod":
+        if not isinstance(rep, str) or rep not in REP_FORCES:
             raise NotImplementedError(
-                f"repulsive force {rep!r} is not ported: pass "
-                f"rep_force='twod'")
-        if neighbors is None:
+                f"repulsive force {rep!r} is not ported (have "
+                f"{sorted(REP_FORCES)})")
+        if (rep_reduce is not None or combine_forces is not None
+                or getattr(model, "REP_REDUCE", None) is not None
+                or getattr(model, "COMBINE_FORCES", None) is not None):
             raise NotImplementedError(
-                "the dense pair stage is not ported: pass a NeighborConfig")
+                "rep_reduce and combine_forces hooks are not ported")
         return cls(params=params, model_step=model.step,
                    state_widths=getattr(model, "STATE_WIDTHS", None),
-                   dest_force=DEST_FORCES[dest], neighbors=neighbors,
+                   dest_force=DEST_FORCES[dest], rep_force=REP_FORCES[rep],
+                   pair_family=rep, neighbors=neighbors,
                    full_fov=_hfov_is_full(params),
-                   uniform_pair=_uniform_pair_params(params),
-                   priority_p2r=(priority_rule == "p2r"))
+                   uniform_pair=(_uniform_pair_params(params)
+                                 if rep == "twod" else None),
+                   priority_p2r=(priority_rule == "p2r"),
+                   rep_chunk=rep_chunk)
 
     def with_params(self, params):
         """Engine with `params` swapped in and the fields derived from
@@ -349,11 +442,44 @@ class Engine(nn.Module):
         return type(self)(
             params=params, model_step=self.model_step,
             state_widths=self.state_widths, dest_force=self.dest_force,
+            rep_force=self.rep_force, pair_family=self.pair_family,
             neighbors=self.neighbors, full_fov=_hfov_is_full(params),
-            uniform_pair=_uniform_pair_params(params),
-            priority_p2r=self.priority_p2r)
+            uniform_pair=(_uniform_pair_params(params)
+                          if self.pair_family == "twod" else None),
+            priority_p2r=self.priority_p2r, rep_chunk=self.rep_chunk)
 
-    # ---- one simulation step ----
+    # ---- the dense pair stage ----
+
+    def repulsive_sum(self, state: AgentState):
+        """Summed repulsive force (fx, fy) [N] on every agent from every
+        other agent: the [N, N] (or, with `rep_chunk`, [N, rep_chunk]
+        receiver-chunk) tiles of the field, masked by
+        `ops.forces.untracked_foes_tile` and summed over the sources."""
+        n = state.n
+        s = state.s
+        src = (s[:, X], s[:, Y], s[:, PSI], s[:, V])
+        idx = torch.arange(n, device=s.device)
+        hfov = _per_agent(self.params.hfov, n, s)
+
+        def recv_tile(ri):
+            recv = (s[ri, X], s[ri, Y], s[ri, PSI], s[ri, V])
+            fpx, fpy = self.rep_force(self.params, src, recv)
+            untracked = F.untracked_foes_tile(
+                src[0], src[1], idx, state.active, hfov, recv[0], recv[1],
+                recv[2], ri, state.active[ri],
+                priority_p2r=self.priority_p2r)
+            return F.sum_sources(fpx, fpy, ~untracked)
+
+        c = self.rep_chunk
+        if c is None or c >= n:
+            return recv_tile(idx)
+        if n % c != 0:
+            raise ValueError(f"rep_chunk={c} must divide N={n}.")
+        parts = [recv_tile(ri) for ri in idx.reshape(n // c, c)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    # ---- the culled pair stage ----
 
     def neighbor_cache(self, state: AgentState):
         return build_neighbor_cache(self.neighbors, state)
@@ -362,29 +488,49 @@ class Engine(nn.Module):
         """(src_pack [npad, 16], recv_pack [8, npad]) in the
         `ops.pair_forces` layout, padded to `npad` agents with inactive
         rows parked at agent 0's position (non-degenerate field
-        parameters, f_0 = 0: they emit nothing)."""
+        parameters, zero amplitude: they emit nothing, and they take the
+        twod branch of the mixed form).
+
+        The legacy field packs every row as a legacy row of the mixed
+        form: columns 4-7 are amp * emit (amp = p_0/p_decay), the
+        excentricity e of the row's speed, 1/sqrt(1 - e^2) and 1/p_decay,
+        column 13 (the family) is 1."""
         n = state.n
         npad = n if npad is None else npad
         s = state.s
         dtype, dev = s.dtype, s.device
 
-        def b(field):
-            v = getattr(self.params, field)
+        def bb(v):
             if isinstance(v, torch.Tensor) and v.ndim >= 1:
                 # per-agent table in original row order: index by uid so
                 # a row's parameters follow it through permutations
                 return v.to(device=dev, dtype=dtype)[state.uid.long()]
             return torch.full((n,), float(v), dtype=dtype, device=dev)
 
+        def b(field):
+            return bb(getattr(self.params, field))
+
         x, y = s[:, X], s[:, Y]
         cpsi, spsi = torch.cos(s[:, PSI]), torch.sin(s[:, PSI])
         act = state.active.to(dtype)
-        f0 = b("f_0")
-        emit = act * (f0 > 0)
         zero = torch.zeros((n,), dtype=dtype, device=dev)
-        src_cols = [x, y, cpsi, spsi, f0 * emit, b("e_0"), b("e_1"),
-                    b("sigma_0"), b("sigma_1"), b("sigma_2"), b("sigma_3"),
-                    torch.cos(b("hfov") / 2), emit, zero, zero, act]
+        chf = torch.cos(b("hfov") / 2)
+        if self.pair_family == "legacy":
+            e = F.legacy_excentricity(s[:, V],
+                                      bb(pair_hi(self.params.v_max_riding)))
+            p_decay = b("p_decay")
+            amp = b("p_0") / p_decay
+            emit = act * (amp > 0)
+            src_cols = [x, y, cpsi, spsi, amp * emit, e,
+                        1.0 / torch.sqrt(1.0 - e * e), 1.0 / p_decay, zero,
+                        zero, zero, chf, emit, torch.ones_like(zero), zero,
+                        act]
+        else:
+            f0 = b("f_0")
+            emit = act * (f0 > 0)
+            src_cols = [x, y, cpsi, spsi, f0 * emit, b("e_0"), b("e_1"),
+                        b("sigma_0"), b("sigma_1"), b("sigma_2"),
+                        b("sigma_3"), chf, emit, zero, zero, act]
         src_pack = torch.stack(src_cols, dim=1)
         recv_pack = torch.stack([x, y, cpsi, spsi, act, zero, zero, zero],
                                 dim=0)
@@ -394,6 +540,7 @@ class Engine(nn.Module):
                                   device=dev)
             src_pad[:, 0] = x[0]
             src_pad[:, 1] = y[0]
+            # row 0's field columns, zero amplitude, family 0
             src_pad[:, 5:11] = src_pack[0, 5:11]
             recv_pad = torch.zeros((PF.RECV_ROWS, pad), dtype=dtype,
                                    device=dev)
@@ -404,10 +551,16 @@ class Engine(nn.Module):
         return src_pack, recv_pack
 
     def pair_kernel_dispatch(self, nbr, valid, src_sorted, recv_sorted):
+        """`pair_kernel_dispatch` in this engine's form: the legacy family
+        through the mixed-family form (every row legacy), which takes no
+        shared constants."""
+        mixed = self.pair_family == "legacy"
         return pair_kernel_dispatch(self.neighbors, nbr, valid, src_sorted,
                                     recv_sorted, fov=not self.full_fov,
-                                    uniform=self.uniform_pair,
-                                    priority_p2r=self.priority_p2r)
+                                    uniform=None if mixed
+                                    else self.uniform_pair,
+                                    priority_p2r=self.priority_p2r,
+                                    mixed=mixed)
 
     def repulsive_sum_neighbors(self, state: AgentState, cache=None,
                                 presorted: bool = False):
@@ -431,6 +584,8 @@ class Engine(nn.Module):
         out = self.pair_kernel_dispatch(nbr, valid, src_sorted, recv_sorted)
         return unsort_forces(out, perm, n)
 
+    # ---- one simulation step ----
+
     def calc_forces(self, state: AgentState, nbr_cache=None,
                     presorted: bool = False):
         """Total social force per agent: (fx, fy, state), the state
@@ -438,8 +593,11 @@ class Engine(nn.Module):
         (reference intersection.py:747-864)."""
         fdx, fdy, state = self.dest_force(self.params, state)
         if state.n > 1:
-            frx, fry = self.repulsive_sum_neighbors(state, nbr_cache,
-                                                    presorted=presorted)
+            if self.neighbors is not None:
+                frx, fry = self.repulsive_sum_neighbors(
+                    state, nbr_cache, presorted=presorted)
+            else:
+                frx, fry = self.repulsive_sum(state)
             return (*F.clamp_add_dest(frx, fry, fdx, fdy), state)
         return fdx, fdy, state
 
@@ -473,12 +631,14 @@ class Engine(nn.Module):
     # ---- step loop ----
 
     def simulate(self, state: AgentState, n_steps: int,
-                 record: bool = True):
-        """Run `n_steps` steps. Returns (final_state, traj), traj the
-        [T, N, 8] recorded states, or None with record=False.
+                 record: bool = True, record_forces: bool = False):
+        """Run `n_steps` steps. Returns (final_state, traj): traj is the
+        [T, N, 8] recorded states, with record_forces the tuple
+        (states, fx, fy) of [T, N, 8], [T, N] and [T, N] (the applied
+        forces), and None with record=False.
 
-        The sort and neighbor table are rebuilt every `rebuild_every`
-        steps, at chunk boundaries; the steps left over
+        With a NeighborConfig the sort and neighbor table are rebuilt every
+        `rebuild_every` steps, at chunk boundaries; the steps left over
         (n_steps % rebuild_every) rebuild every step. Without recording
         and with N a multiple of the block, agent rows live in cell-sorted
         order for each whole chunk (one permutation of the state per
@@ -486,17 +646,26 @@ class Engine(nn.Module):
         the original order is restored at the end."""
         recs = []
 
-        def per_step_rebuild(st, steps):
+        def run(st, steps, cache=None, presorted=False):
             for _ in range(steps):
-                st = self.step_with_forces(st, self.neighbor_cache(st))[0]
+                c = cache
+                if c is None and self.neighbors is not None:
+                    c = self.neighbor_cache(st)
+                st, fx, fy = self.step_with_forces(st, c, presorted)
                 if record:
-                    recs.append(st.s)
+                    recs.append((st.s, fx, fy) if record_forces else st.s)
             return st
 
-        k = self.neighbors.rebuild_every
+        def result(st):
+            if not record:
+                return st, None
+            if record_forces:
+                return st, tuple(torch.stack(r) for r in zip(*recs))
+            return st, torch.stack(recs)
+
+        k = self.neighbors.rebuild_every if self.neighbors is not None else 1
         if k <= 1 or n_steps < k:
-            state = per_step_rebuild(state, n_steps)
-            return state, (torch.stack(recs) if record else None)
+            return result(run(state, n_steps))
 
         n_chunks, rem = divmod(n_steps, k)
         if not record and state.n % self.neighbors.block == 0:
@@ -505,17 +674,9 @@ class Engine(nn.Module):
                 cache = self.neighbor_cache(state)
                 state = permute_state(state, cache[0])
                 ident = ident[cache[0]]
-                for _ in range(k):
-                    state = self.step_with_forces(state, cache,
-                                                  presorted=True)[0]
+                state = run(state, k, cache, presorted=True)
             state = permute_state(state, torch.argsort(ident))
         else:
             for _ in range(n_chunks):
-                cache = self.neighbor_cache(state)
-                for _ in range(k):
-                    state = self.step_with_forces(state, cache)[0]
-                    if record:
-                        recs.append(state.s)
-        state = per_step_rebuild(state, rem)
-        return state, (torch.stack(recs) if record else None)
-
+                state = run(state, k, self.neighbor_cache(state))
+        return result(run(state, rem))

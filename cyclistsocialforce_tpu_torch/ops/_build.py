@@ -49,10 +49,11 @@ def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     field = [f] * 7                     # e_0, e_1, sigma_0..3, cos(hfov/2)
     lib.csf_pair_forces_twod.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                         i, f, *field, i, p]
+                                         i, i, f, *field, i, p]
     lib.csf_pair_forces_unrolled.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                             i, *field, i, p]
-    lib.csf_pair_forces_db.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+                                             i, i, *field, i, p]
+    lib.csf_pair_forces_db.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
+                                       p]
     for fn in (lib.csf_pair_forces_twod, lib.csf_pair_forces_unrolled,
                lib.csf_pair_forces_db):
         fn.restype = i

@@ -4,7 +4,9 @@ their plain PyTorch version, and the kernels' launch counters.
 Port of the three Pallas kernels of `cyclistsocialforce_tpu.ops.
 pallas_forces`, which share the tile math `_tile_forces`. Agents are
 cell-sorted and blocked (`ops.neighbors`); each receiver block sums the
-BMD2023 "twod" field of the sources in its neighbor-block table.
+field of the sources in its neighbor-block table: the BMD2023 "twod"
+field, or with `mixed=True` each source row's own family, twod or the
+legacy v0.1 elliptic field, by its column 13.
 
   pair_forces_neighbors           K1 `_pair_kernel`, `csrc/pair_forces.cu`:
                                   one source tile at a time, optional
@@ -19,16 +21,17 @@ BMD2023 "twod" field of the sources in its neighbor-block table.
 
 Packing layout (built by `engine.Engine.pack_pair_fields`, cell-sorted):
   src_pack  [N_src, 16]: x, y, cos psi, sin psi, f_0 * emit, e_0, e_1,
-                         sigma_0..3, cos(hfov/2), emit, (unused), (unused),
+                         sigma_0..3, cos(hfov/2), emit, family, (unused),
                          receiver activity flag
   recv_pack [8, N]:      x, y, cos psi, sin psi, active, (unused) x 3
-The emit flag (active AND f_0 > 0) is folded into column 4, so a
-non-emitting source contributes P = 0 with no mask of its own.
+The emit flag (active AND amplitude > 0) is folded into column 4, so a
+non-emitting source contributes P = 0 with no mask of its own. The family
+column (read only with `mixed`) is 0 for a twod row and 1 for a legacy
+row, whose columns 4-7 then hold amp * emit (amp = p_0/p_decay), e,
+1/sqrt(1 - e^2) and 1/p_decay, and columns 8-10 are unused.
 
 Each wrapper runs its CUDA kernel on CUDA tensors and the plain version,
-in the matching form, on CPU tensors; it raises for any other input. The
-mixed-family form (`mixed=True`, the legacy elliptic field selected per
-source row) is not ported and raises everywhere.
+in the matching form, on CPU tensors; it raises for any other input.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 
 SRC_COLS = 16
 RECV_ROWS = 8
-_SX, _SY, _SC, _SS, _F0, _E0, _E1, _S0, _S1, _S2, _S3, _CHF, _SACT = range(13)
+_SX, _SY, _SC, _SS, _F0, _E0, _E1, _S0, _S1, _S2, _S3, _CHF, _SACT, \
+    _FAM = range(14)
 _RACT = 15
 
 # half-angle floor m4 >= 4e-12 of the float32 tile (see _tile_forces),
@@ -58,7 +62,7 @@ def cutoff_squared(cutoff: float) -> float:
 
 
 def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True,
-                priority_p2r=False, strip=0, cutoff2=None):
+                priority_p2r=False, strip=0, cutoff2=None, mixed=False):
     """Field of sources `src` [..., S, 16] at receivers (xr, yr, cr, sr,
     act_r) [..., 1, R], summed over the sources: (fx, fy) [..., R].
 
@@ -71,7 +75,16 @@ def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True,
     strip > 0 screens the sources in strips of `strip` rows (S a multiple
     of it): a strip contributes nothing when no pair of it and the
     receivers lies within rho2 <= cutoff2, the minimum taken over every
-    receiver and source row given, inactive and pad rows included."""
+    receiver and source row given, inactive and pad rows included.
+
+    mixed=True selects each source row's family by its column 13, as the
+    Pallas tile does: both fields are evaluated for every pair and the
+    row's own is kept. On legacy rows the twod branch runs with e = 0,
+    sigma = 1 so that it stays finite; the legacy branch keeps the
+    tracked mask (screen admission included) as its weight."""
+    if mixed and uniform is not None:
+        raise ValueError("the mixed-family form reads the field columns: "
+                         "it takes no uniform constants")
     def sc(c):
         return src[..., c:c + 1]
 
@@ -96,6 +109,11 @@ def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True,
         vd1h = sc(_S2) * 0.5 + (sc(_S3) * 0.5) * sin2
         e = sc(_E0) - sc(_E1) * sin2
         chf = -sc(_CHF)
+    if mixed:
+        legacy = sc(_FAM) > 0.5
+        e = torch.where(legacy, 0.0, e)
+        vdecay0 = torch.where(legacy, 1.0, vdecay0)
+        vd1h = torch.where(legacy, 0.0, vd1h)
 
     cosphi = dxn * cs + dyn * ss
     sinphi = dyn * cs - dxn * ss
@@ -128,15 +146,32 @@ def tile_forces(src, xr, yr, cr, sr, act_r, uniform=None, fov=True,
         tracked &= admit.repeat_interleave(strip, dim=-2)
 
     w = torch.where(tracked, P * inv_m, 0.0)
-    fx = torch.sum(w * (u * dxn - v * dyn), dim=-2)
-    fy = torch.sum(w * (u * dyn + v * dxn), dim=-2)
-    return fx, fy
+    fx_pair = w * (u * dxn - v * dyn)
+    fy_pair = w * (u * dyn + v * dxn)
+
+    if mixed:
+        # legacy v0.1 elliptic field (ops.forces.rep_force_legacy_pair in
+        # the Pallas tile's operation order)
+        rho = rho2 * inv_rho
+        e_l, inv_se, inv_pd = sc(_E0), sc(_E1), sc(_S0)
+        u_l = (1 - e_l * cosphi) * inv_se
+        P_l = sc(_F0) * torch.exp(-rho * u_l * inv_pd)
+        frho0 = P_l * u_l
+        fphi0 = P_l * e_l * sinphi * inv_se
+        w_l = tracked.to(src.dtype)
+        fx_pair = torch.where(legacy, w_l * (frho0 * dxn - fphi0 * dyn),
+                              fx_pair)
+        fy_pair = torch.where(legacy, w_l * (frho0 * dyn + fphi0 * dxn),
+                              fy_pair)
+
+    return torch.sum(fx_pair, dim=-2), torch.sum(fy_pair, dim=-2)
 
 
 def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
                               block: int = 128, block_src: int = 0,
                               uniform=None, fov: bool = True,
                               priority_p2r: bool = False,
+                              mixed: bool = False,
                               screen: bool = False, sub: int = 0,
                               cutoff: float = float("inf"),
                               chunk: int | None = None):
@@ -149,6 +184,8 @@ def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
                  field parameters; None reads the per-source columns
     fov        : the receiver sees a source only inside its half FOV cone
     priority_p2r : priority to the right, (dyn cr - dxn sr) >= 0
+    mixed      : each source row's family by its column 13 (twod or
+                 legacy); excludes `uniform`
     screen     : skip each (receiver block, table slot) tile, or with
                  sub > 0 each strip of `sub` sources of it, in which no
                  pair lies within `cutoff` (the Pallas kernel's screens)
@@ -181,7 +218,7 @@ def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
         fx, fy = tile_forces(src, r[0], r[1], r[2], r[3], r[4],
                              uniform=uniform, fov=fov,
                              priority_p2r=priority_p2r, strip=strip,
-                             cutoff2=cutoff2)
+                             cutoff2=cutoff2, mixed=mixed)
         out[0, lo:hi] = fx
         out[1, lo:hi] = fy
     return out.reshape(2, bcount * block)
@@ -215,12 +252,9 @@ def _check_sub(block_src: int, sub: int):
                          f"and be a multiple of 8")
 
 
-def _on_cuda(name, nbr, valid, src_pack, recv_pack, mixed) -> bool:
+def _on_cuda(name, nbr, valid, src_pack, recv_pack) -> bool:
     """False for CPU inputs, True for inputs on one CUDA device; raises
-    for the unported mixed form and for anything else."""
-    if mixed:
-        raise NotImplementedError(
-            f"{name}: the mixed-family form (mixed=True) is not ported")
+    for anything else."""
     tensors = (nbr, valid, src_pack, recv_pack)
     devices = {t.device for t in tensors}
     if {d.type for d in devices} == {"cpu"}:
@@ -249,8 +283,11 @@ def _check_kernel_inputs(name, nbr, valid, src_pack, recv_pack, block,
                          f"at a time: it must be 16-byte aligned")
 
 
-def _field_args(uniform):
+def _field_args(uniform, mixed=False):
     """(uniform flag, the 7 shared field parameters) for a launcher."""
+    if mixed and uniform is not None:
+        raise ValueError("the mixed-family form reads the field columns: "
+                         "it takes no uniform constants")
     if uniform is None:
         return 0, (0.0,) * 7
     if len(uniform) != 7:
@@ -294,19 +331,19 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
     The kernel takes float32 packs, an int32 table and block = 128."""
     block_src = block_src or block
     _check_sub(block_src, sub)
+    is_uniform, field = _field_args(uniform, mixed)
     if not _on_cuda("pair_forces_neighbors", nbr, valid, src_pack,
-                    recv_pack, mixed):
+                    recv_pack):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block,
             block_src=block_src, uniform=uniform, fov=fov,
-            priority_p2r=priority_p2r, screen=screen, sub=sub,
+            priority_p2r=priority_p2r, mixed=mixed, screen=screen, sub=sub,
             cutoff=cutoff)
     _check_kernel_inputs("pair_forces_neighbors", nbr, valid, src_pack,
                          recv_pack, block, block_src)
-    is_uniform, field = _field_args(uniform)
     out = _launch("pair_forces_neighbors", "csf_pair_forces_twod", nbr,
                   valid, src_pack, recv_pack, block, block_src, is_uniform,
-                  int(fov), int(priority_p2r), int(screen),
+                  int(mixed), int(fov), int(priority_p2r), int(screen),
                   (sub or block_src), cutoff_squared(cutoff), *field)
     pair_forces_neighbors.launches += 1
     return out
@@ -326,19 +363,19 @@ def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
     needs kb * block_src * 64 bytes of shared memory per block: a launch
     above the device's opt-in limit raises."""
     block_src = block_src or block
+    is_uniform, field = _field_args(uniform, mixed)
     if not _on_cuda("pair_forces_neighbors_unrolled", nbr, valid, src_pack,
-                    recv_pack, mixed):
+                    recv_pack):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block,
             block_src=block_src, uniform=uniform, fov=fov,
-            priority_p2r=priority_p2r)
+            priority_p2r=priority_p2r, mixed=mixed)
     _check_kernel_inputs("pair_forces_neighbors_unrolled", nbr, valid,
                          src_pack, recv_pack, block, block_src)
-    is_uniform, field = _field_args(uniform)
     out = _launch("pair_forces_neighbors_unrolled",
                   "csf_pair_forces_unrolled", nbr, valid, src_pack,
-                  recv_pack, block, block_src, is_uniform, int(fov),
-                  int(priority_p2r), *field)
+                  recv_pack, block, block_src, is_uniform, int(mixed),
+                  int(fov), int(priority_p2r), *field)
     pair_forces_neighbors_unrolled.launches += 1
     return out
 
@@ -350,19 +387,21 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
                              cutoff: float = float("inf")):
     """K3: block-sparse pair sum through a ring of 128-row source tiles,
     each skipped when no pair of it lies within `cutoff` (the tile
-    screen, always on), with the field parameters read per source row.
-    Source and receiver blocks are both `block` = 128 agents. The CUDA
-    kernel on CUDA tensors, the plain version (screened, per-source
-    columns) on CPU tensors; result as in `pair_forces_neighbors_ref`."""
+    screen, always on), with the field parameters read per source row
+    (with `mixed`, each row's own family). Source and receiver blocks
+    are both `block` = 128 agents. The CUDA kernel on CUDA tensors, the
+    plain version (screened, per-source columns) on CPU tensors; result
+    as in `pair_forces_neighbors_ref`."""
     if not _on_cuda("pair_forces_neighbors_db", nbr, valid, src_pack,
-                    recv_pack, mixed):
+                    recv_pack):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block, block_src=block,
-            fov=fov, priority_p2r=priority_p2r, screen=True, cutoff=cutoff)
+            fov=fov, priority_p2r=priority_p2r, mixed=mixed, screen=True,
+            cutoff=cutoff)
     _check_kernel_inputs("pair_forces_neighbors_db", nbr, valid, src_pack,
                          recv_pack, block, block)
     out = _launch("pair_forces_neighbors_db", "csf_pair_forces_db", nbr,
-                  valid, src_pack, recv_pack, block, int(fov),
+                  valid, src_pack, recv_pack, block, int(mixed), int(fov),
                   int(priority_p2r), cutoff_squared(cutoff))
     pair_forces_neighbors_db.launches += 1
     return out

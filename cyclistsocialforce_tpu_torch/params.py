@@ -255,7 +255,7 @@ def pair_hi(pair):
     return pair[..., 1]
 
 
-def as_population(params, n: int, device="cpu"):
+def as_population(params, n: int, device="cuda"):
     """Broadcast every numeric field to a float64 tensor of shape [n, ...]
     on `device`, so that it can be updated agent by agent."""
     upd = {}

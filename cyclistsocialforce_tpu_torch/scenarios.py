@@ -11,7 +11,7 @@ from cyclistsocialforce_tpu_torch.state import AgentState, make_state
 
 def build_population(n_agents: int, density=None, hist_len: int = 128,
                      pad_to_block=None, dtype=torch.float32,
-                     device="cpu") -> AgentState:
+                     device="cuda") -> AgentState:
     """Random bicycle2d crowd, drawn exactly as the JAX package's
     `__graft_entry__._build` draws it (numpy `default_rng(0)`, the same
     draws in the same order: positions, heading, speed, destinations).

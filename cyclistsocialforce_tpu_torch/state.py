@@ -81,7 +81,7 @@ _DEFAULT_WIDTHS = {"dyn_x": 7, "dyn_gains": 12, "zrid": 2}
 
 def make_state(s0, queue_size: int = 16, hist_len: int = 128,
                v_max_walk=None, dtype=torch.float32, model=None,
-               device="cpu") -> AgentState:
+               device="cuda") -> AgentState:
     """Create an AgentState population from initial states.
 
     s0 : array-like [N, k], k <= 8, initial (x, y, psi, v[, ...]);
@@ -92,6 +92,8 @@ def make_state(s0, queue_size: int = 16, hist_len: int = 128,
         initial speed, otherwise agents start riding.
     model : optional model module; its `STATE_WIDTHS` right-size the
         model-dependent fields (unused ones become zero-width).
+    device : where the state lives (the card unless the caller asks for
+        the CPU).
     """
     widths = dict(_DEFAULT_WIDTHS)
     if model is not None:
@@ -153,3 +155,45 @@ def make_state(s0, queue_size: int = 16, hist_len: int = 128,
         uid=torch.arange(n, dtype=torch.int32, device=device),
     )
 
+
+
+def set_destinations(state: AgentState, agent: int, x, y, stop=None,
+                     reset: bool = False) -> AgentState:
+    """Append (or, with `reset`, reset to) a destination list for one
+    agent (reference Vehicle.setDestinations, vehicle.py:606-647).
+
+    `x`, `y`, `stop` are 1-D sequences; `stop` flags stop destinations
+    (default all 0). Out of place: returns the new state."""
+    def row(v):
+        return torch.atleast_1d(torch.as_tensor(
+            np.asarray(v, dtype=np.float64), dtype=state.s.dtype,
+            device=state.device))
+
+    x, y = row(x), row(y)
+    stop = torch.zeros_like(x) if stop is None else row(stop)
+    new = torch.stack([x, y, stop], dim=1)
+    m = new.shape[0]
+    destqueue = state.destqueue.clone()
+    nq = state.nq.clone()
+
+    if reset:
+        if m > state.queue_size:
+            raise ValueError(f"Destination list ({m}) exceeds queue size "
+                             f"({state.queue_size}).")
+        destqueue[agent] = 0
+        destqueue[agent, :m] = new
+        destpointer = state.destpointer.clone()
+        destpointer[agent] = 0
+        nq[agent] = m
+        dest = state.dest.clone()
+        dest[agent] = new[0]
+        return state.replace(destqueue=destqueue, destpointer=destpointer,
+                             nq=nq, dest=dest)
+
+    start = int(state.nq[agent])
+    if start + m > state.queue_size:
+        raise ValueError(f"Destination queue overflow: {start}+{m} > "
+                         f"{state.queue_size}.")
+    destqueue[agent, start:start + m] = new
+    nq[agent] = start + m
+    return state.replace(destqueue=destqueue, nq=nq)

@@ -18,6 +18,7 @@ from cyclistsocialforce_tpu_torch.params import BicycleParams  # noqa: E402
 
 torch.set_num_threads(1)
 
+DEV = "cpu"   # the port's entry points default to the card
 N, STEPS = 1000, 12
 CFG = dict(cutoff=50.0, block=128, block_src=64, kb=16)
 FIELDS = ("s", "dest", "destpointer", "znav", "i", "pos_hist", "t_glob",
@@ -57,7 +58,7 @@ def test_simulate_matches_jax(pad, rebuild_every):
     rebuild chunks and a 2-step tail with rebuild_every = 5."""
     _, jst = _build(N, dtype=np.float64, density=0.02, hist_len=8,
                     pad_to_block=pad)
-    tst = scenarios.build_population(N, 0.02, 8, pad, torch.float64)
+    tst = scenarios.build_population(N, 0.02, 8, pad, torch.float64, DEV)
     jeng, teng = engines(rebuild_every)
     want, _ = jax.jit(lambda e, s: e.simulate(s, STEPS, record=False))(
         jeng, jst)
@@ -72,7 +73,7 @@ def test_simulate_matches_jax(pad, rebuild_every):
 def test_record_path_equals_sorted_resident_and_jax_traj():
     _, jst = _build(N, dtype=np.float64, density=0.02, hist_len=8,
                     pad_to_block=128)
-    tst = scenarios.build_population(N, 0.02, 8, 128, torch.float64)
+    tst = scenarios.build_population(N, 0.02, 8, 128, torch.float64, DEV)
     jeng, teng = engines(5)
     fin_sr, _ = teng.simulate(tst, STEPS, record=False)
     fin_rec, traj = teng.simulate(tst, STEPS, record=True)
@@ -94,19 +95,28 @@ def test_step_and_state_round_trip():
                     pad_to_block=128)
     jeng, teng = engines(1)
     want = jax.jit(lambda e, s: e.step(s))(jeng, jst)
-    got = teng(convert.state_from_jax(jst))
+    got = teng(convert.state_from_jax(jst, device=DEV))
     assert_close(got, want, atol=1e-12)
 
 
 def test_create_rejects_unported_configurations():
+    """The legacy field (bicycle2d's default) and the dense stage are
+    ported; what is not still raises."""
     p = BicycleParams.create()
     model = MODELS["bicycle2d"]
-    with pytest.raises(NotImplementedError):
-        Engine.create(p, model, neighbors=NeighborConfig())   # legacy field
-    with pytest.raises(NotImplementedError):
-        Engine.create(p, model, rep_force="twod")             # dense stage
+    culled = Engine.create(p, model, neighbors=NeighborConfig())
+    assert culled.pair_family == "legacy" and culled.uniform_pair is None
+    dense = Engine.create(p, model, rep_force="twod")
+    assert dense.neighbors is None and dense.pair_family == "twod"
+    assert dense.uniform_pair is not None
     with pytest.raises(NotImplementedError):
         Engine.create(p, model, rep_force="twod", dest_force="spline",
                       neighbors=NeighborConfig())
+    with pytest.raises(NotImplementedError):
+        Engine.create(p, model, rep_force=lambda *a: None)
+    with pytest.raises(NotImplementedError):
+        Engine.create(p, model, rep_reduce=lambda *a: None)
+    with pytest.raises(NotImplementedError):
+        Engine.create(p, model, combine_forces=lambda *a: None)
     with pytest.raises(ValueError):
         NeighborConfig(block=128, block_src=48)

@@ -27,6 +27,7 @@ from cyclistsocialforce_tpu_torch.scenarios import \
 
 torch.set_num_threads(1)
 
+DEV = "cpu"   # the port's entry points default to the card
 BLOCK, BLOCK_SRC, KB = 128, 64, 16
 
 
@@ -68,7 +69,7 @@ def crowd(jx, n=1000, side=112.0, seed=0, per_agent=False, hfov=None):
     jeng = JE.Engine.create(p, jx.bicycle2d, rep_force="twod",
                             neighbors=cfg)
     teng = TE.Engine.create(
-        convert.params_from_jax(p), bicycle2d, rep_force="twod",
+        convert.params_from_jax(p, device=DEV), bicycle2d, rep_force="twod",
         neighbors=TE.NeighborConfig(cutoff=50.0, block=BLOCK,
                                     block_src=BLOCK_SRC, kb=KB,
                                     screen=False))
@@ -83,7 +84,8 @@ def test_pack_pair_fields_matches_jax(jx, per_agent):
     st, jeng, teng = crowd(jx, per_agent=per_agent)
     npad = 1024
     jsrc, jrecv = jeng.pack_pair_fields(st, npad)
-    tsrc, trecv = teng.pack_pair_fields(convert.state_from_jax(st), npad)
+    tsrc, trecv = teng.pack_pair_fields(convert.state_from_jax(st, DEV),
+                                        npad)
     trig_src, trig_recv = (2, 3, 11), (2, 3)
     for got, want, trig in ((tsrc.numpy(), np.asarray(jsrc), trig_src),
                             (trecv.numpy().T, np.asarray(jrecv).T,
@@ -116,7 +118,7 @@ def test_plain_f32_matches_pallas_kernel_interpret(jx):
     package's own float32 bar (tests/test_neighbors.py)."""
     st, jeng, teng = crowd(jx)
     assert teng.uniform_pair == jeng.uniform_pair
-    tn, tv, ts, tr = sorted_inputs(convert.state_from_jax(st), teng,
+    tn, tv, ts, tr = sorted_inputs(convert.state_from_jax(st, DEV), teng,
                                    torch.float32)
     jn, jv, js, jr = as_jax(jx, (tn, tv, ts, tr))
     want = np.asarray(jx.JPF.pair_forces_neighbors(
@@ -142,7 +144,7 @@ def test_plain_f64_matches_xla_oracle(jx, per_agent, hfov):
     fov = not teng.full_fov
     assert fov == (not jeng.full_fov)
     assert (teng.uniform_pair is None) == per_agent
-    tn, tv, ts, tr = sorted_inputs(convert.state_from_jax(st), teng,
+    tn, tv, ts, tr = sorted_inputs(convert.state_from_jax(st, DEV), teng,
                                    torch.float64)
     jn, jv, js, jr = as_jax(jx, (tn, tv, ts, tr))
     want = np.asarray(jx.JPF.pair_forces_neighbors_xla(
@@ -169,7 +171,7 @@ def port_crowd(n, device, dtype=torch.float32):
 
 
 def test_wrapper_on_cpu_runs_plain_and_rejects_unported_variants():
-    st, teng = port_crowd(256, "cpu")
+    st, teng = port_crowd(256, DEV)
     tn, tv, ts, tr = sorted_inputs(st, teng, torch.float32)
     PF.pair_forces_neighbors.launches = 0
     kw = dict(block=BLOCK, block_src=BLOCK_SRC, uniform=teng.uniform_pair)
@@ -177,13 +179,18 @@ def test_wrapper_on_cpu_runs_plain_and_rejects_unported_variants():
         PF.pair_forces_neighbors(tn, tv, ts, tr, **kw),
         PF.pair_forces_neighbors_ref(tn, tv, ts, tr, **kw))
     assert PF.pair_forces_neighbors.launches == 0
-    # every single-family form runs; only the mixed-family form is unported
+    # every form runs; the mixed-family form on a twod pack (family 0 on
+    # every row) is the per-source-column form, and takes no constants
     for form in ({"priority_p2r": True}, {"screen": True},
                  {"screen": True, "sub": 8}, {"fov": False},
-                 {"uniform": None}):
+                 {"uniform": None}, {"uniform": None, "mixed": True}):
         out = PF.pair_forces_neighbors(tn, tv, ts, tr, **{**kw, **form})
         assert out.shape == tr[:2].shape and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="mixed"):
+    cols = {**kw, "uniform": None}
+    np.testing.assert_array_equal(
+        PF.pair_forces_neighbors(tn, tv, ts, tr, **cols, mixed=True),
+        PF.pair_forces_neighbors(tn, tv, ts, tr, **cols))
+    with pytest.raises(ValueError, match="mixed"):
         PF.pair_forces_neighbors(tn, tv, ts, tr, **kw, mixed=True)
     assert PF.pair_forces_neighbors.launches == 0
     with pytest.raises(ValueError):
@@ -209,7 +216,11 @@ def test_cuda_kernel_matches_plain(cuda_device):
     want = PF.pair_forces_neighbors_ref(tn, tv, ts, tr, **kw)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=2e-4)
     assert want.abs().max() > 1.0
-    with pytest.raises(NotImplementedError, match="mixed"):
+    cols = {**kw, "uniform": None}
+    torch.testing.assert_close(
+        PF.pair_forces_neighbors(tn, tv, ts, tr, **cols, mixed=True),
+        PF.pair_forces_neighbors(tn, tv, ts, tr, **cols), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="mixed"):
         PF.pair_forces_neighbors(tn, tv, ts, tr, **kw, mixed=True)
     with pytest.raises(ValueError):
         PF.pair_forces_neighbors(tn, tv, ts.cpu(), tr, **kw)

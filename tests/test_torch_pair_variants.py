@@ -29,6 +29,7 @@ from cyclistsocialforce_tpu_torch.scenarios import \
 
 torch.set_num_threads(1)
 
+DEV = "cpu"   # the port's entry points default to the card
 BLOCK = 128
 # the JAX package's float32 bar for its Pallas kernels against its float64
 # oracle (tests/test_neighbors.py): |port - JAX| <= ATOL + RTOL |JAX|
@@ -78,7 +79,7 @@ def port_params(population, n, seed=0):
     if population == "uniform":
         return p
     rng = np.random.default_rng(seed)
-    p = as_population(p, n)
+    p = as_population(p, n, device=DEV)
     return p.replace(
         f_0=p.f_0 * torch.as_tensor(1 + 0.05 * rng.uniform(-1, 1, n)),
         sigma_0=p.sigma_0 * torch.as_tensor(1 + 0.05 * rng.uniform(-1, 1, n)))
@@ -176,7 +177,8 @@ def test_default_config_screens_like_jax(jx):
     want = np.stack([np.asarray(f) for f in
                      jeng.repulsive_sum_neighbors(jst)])
 
-    tp, tst = convert.params_from_jax(jp), convert.state_from_jax(jst)
+    tp = convert.params_from_jax(jp, DEV)
+    tst = convert.state_from_jax(jst, DEV)
     teng = TE.Engine.create(tp, bicycle2d, rep_force="twod",
                             neighbors=TE.NeighborConfig(**cfg))
     cache = teng.neighbor_cache(tst)
@@ -217,7 +219,7 @@ def test_plain_f32_matches_pallas_interpret(jx, form):
     against the JAX package's kernel of the same form in interpret mode,
     on the same float32 packs (1,024 riders, 8 receiver blocks)."""
     kernel = FORMS[form][0]
-    eng, tensors, kw = form_inputs(form, 1000, "cpu",
+    eng, tensors, kw = form_inputs(form, 1000, DEV,
                                    SCREEN_CUTOFF[kernel])
     want = np.asarray(jax_form(jx, kernel, tensors, kw))
     PF.reset_launches()
@@ -245,7 +247,7 @@ def test_plain_f32_matches_pallas_interpret(jx, form):
     ("k3_p2r", 1e4)])
 def test_plain_f64_matches_xla_oracle(jx, form, cutoff):
     kernel, block_src, _, opts = FORMS[form]
-    eng, tensors, kw = form_inputs(form, 1000, "cpu", cutoff,
+    eng, tensors, kw = form_inputs(form, 1000, DEV, cutoff,
                                    dtype=torch.float64)
     jn, jv, js, jr = (jx.jnp.asarray(a.numpy()) for a in tensors)
     want = np.asarray(jx.JPF.pair_forces_neighbors_xla(
@@ -296,12 +298,12 @@ def test_simulate_p2r_per_agent_matches_jax(jx, backend):
     want, _ = jax.jit(lambda e, s: e.simulate(s, SLICE_STEPS,
                                               record=False))(jeng, jst)
     teng = TE.Engine.create(
-        convert.params_from_jax(jp), bicycle2d, rep_force="twod",
+        convert.params_from_jax(jp, DEV), bicycle2d, rep_force="twod",
         priority_rule="p2r",
         neighbors=TE.NeighborConfig(backend=backend, rebuild_every=5,
                                     **cfg, **port_cfg))
     assert teng.priority_p2r and teng.uniform_pair is None
-    tst = build_population(SLICE_N, 0.02, 8, BLOCK, torch.float64)
+    tst = build_population(SLICE_N, 0.02, 8, BLOCK, torch.float64, DEV)
     got, _ = teng.simulate(tst, SLICE_STEPS, record=False)
     for f in SLICE_FIELDS:
         g, w = getattr(got, f).numpy(), np.asarray(getattr(want, f))
@@ -332,7 +334,7 @@ def test_with_params_refreshes_derived_fields():
     assert eng2.priority_p2r and eng2.neighbors is eng.neighbors
     assert eng2.params is p2 and eng.params is p
     n = 8
-    p3 = as_population(p, n)
+    p3 = as_population(p, n, DEV)
     p3 = p3.replace(sigma_0=p3.sigma_0 * (1 + 0.1 * torch.arange(n)))
     assert eng.with_params(p3).uniform_pair is None
 
@@ -351,7 +353,7 @@ def test_dispatch_routes_backend_to_its_form(backend, kernel):
     """`pair_kernel_dispatch` calls the wrapper the backend names, in the
     JAX dispatch's form: K1 and K3 screen at the cutoff without the skin,
     K2 never screens, K3 reads the per-source columns."""
-    st = build_population(600, 0.02, 8, BLOCK, torch.float64)
+    st = build_population(600, 0.02, 8, BLOCK, torch.float64, DEV)
     block_src = 128 if backend == "pallas_db" else 64
     cfg = TE.NeighborConfig(cutoff=SCREEN_CUTOFF[kernel], block=BLOCK,
                             block_src=block_src, kb=st.n // block_src,
@@ -371,10 +373,21 @@ def test_dispatch_routes_backend_to_its_form(backend, kernel):
 
 
 def test_wrappers_reject_mixed_and_bad_inputs():
-    _, tensors, kw = form_inputs("k2_uniform", 256, "cpu", 50.0)
-    for fn in PF.KERNELS:
-        with pytest.raises(NotImplementedError, match="mixed"):
-            fn(*tensors, mixed=True)
+    """Every wrapper takes the mixed form (on this twod pack, family 0 on
+    every row, it is the per-column form) but not with shared constants;
+    bad shapes and strips raise."""
+    _, tensors, kw = form_inputs("k2_uniform", 256, DEV, 50.0)
+    _, db_tensors, db_kw = form_inputs("k3", 256, DEV, 50.0)
+    bs = {"block_src": kw["block_src"]}
+    for fn, t, fkw in ((PF.pair_forces_neighbors, tensors, bs),
+                       (PF.pair_forces_neighbors_unrolled, tensors, bs),
+                       (PF.pair_forces_neighbors_db, db_tensors,
+                        {"cutoff": db_kw["cutoff"]})):
+        np.testing.assert_array_equal(fn(*t, **fkw, mixed=True),
+                                      fn(*t, **fkw))
+    for fn in PF.KERNELS[:2]:
+        with pytest.raises(ValueError, match="mixed"):
+            fn(*tensors, mixed=True, uniform=kw["uniform"])
     with pytest.raises(ValueError, match="sub"):
         PF.pair_forces_neighbors(*tensors, **kw, screen=True, sub=24)
     nbr, valid, src, recv = tensors
@@ -418,9 +431,18 @@ def test_cuda_form_matches_plain(cuda_device, form):
 def test_cuda_mixed_and_shared_memory_limit_raise(cuda_device):
     _, tensors, kw = form_inputs("k2_uniform", 20_000, cuda_device, 50.0,
                                  kb=40)
-    for fn in PF.KERNELS:
-        with pytest.raises(NotImplementedError):
-            fn(*tensors, mixed=True)
+    _, db_tensors, db_kw = form_inputs("k3", 20_000, cuda_device, 50.0,
+                                       kb=40)
+    bs = {"block_src": kw["block_src"]}
+    for fn, t, fkw in ((PF.pair_forces_neighbors, tensors, bs),
+                       (PF.pair_forces_neighbors_unrolled, tensors, bs),
+                       (PF.pair_forces_neighbors_db, db_tensors,
+                        {"cutoff": db_kw["cutoff"]})):
+        torch.testing.assert_close(fn(*t, **fkw, mixed=True), fn(*t, **fkw),
+                                   rtol=0, atol=0)
+    for fn in PF.KERNELS[:2]:
+        with pytest.raises(ValueError, match="mixed"):
+            fn(*tensors, mixed=True, uniform=kw["uniform"])
     # 400 slots of 64 rows need 1.6 MB of shared memory: refused
     nbr, valid = (t.repeat(1, 10) for t in tensors[:2])
     with pytest.raises(RuntimeError, match="shared memory"):

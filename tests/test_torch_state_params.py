@@ -21,6 +21,7 @@ from cyclistsocialforce_tpu_torch.state import (AgentState,  # noqa: E402
 
 torch.set_num_threads(1)
 
+DEV = "cpu"   # the port's entry points default to the card
 STATE_FIELDS = [f.name for f in dataclasses.fields(AgentState)]
 
 
@@ -47,14 +48,14 @@ def test_make_state_matches_jax(k, kw):
         jkw["model"] = JMODELS[kw["model"]]
         tkw["model"] = MODELS[kw["model"]]
     want = jax_make_state(s0, dtype=jnp.float64, **jkw)
-    got = make_state(s0, dtype=torch.float64, **tkw)
+    got = make_state(s0, dtype=torch.float64, device=DEV, **tkw)
     assert_state_equal(got, want)
     # the JAX round trip through numpy gives the same tensors
-    assert_state_equal(convert.state_from_jax(want), want)
+    assert_state_equal(convert.state_from_jax(want, DEV), want)
 
 
 def test_state_replace_and_to():
-    st = make_state(np.zeros((3, 4)), dtype=torch.float64)
+    st = make_state(np.zeros((3, 4)), dtype=torch.float64, device=DEV)
     st2 = st.replace(nq=st.nq + 2)
     assert st.nq.tolist() == [1, 1, 1] and st2.nq.tolist() == [3, 3, 3]
     moved = st2.to("cpu")
@@ -84,7 +85,7 @@ def test_params_create_matches_jax(cls, kw):
     want = getattr(JP, cls).create(**kw)
     got = getattr(TP, cls).create(**kw)
     _params_equal(got, want)
-    _params_equal(convert.params_from_jax(want), want)
+    _params_equal(convert.params_from_jax(want, DEV), want)
 
 
 @pytest.mark.parametrize("kw", [{"e_0": 1.5}, {"sigma_3": 6.0},
@@ -100,9 +101,9 @@ def test_params_validation_rejects_like_jax(kw):
 def test_as_population_and_pairs_match_jax():
     n = 5
     want = JP.as_population(JP.BicycleParams.create(), n)
-    got = TP.as_population(TP.BicycleParams.create(), n)
+    got = TP.as_population(TP.BicycleParams.create(), n, DEV)
     _params_equal(got, want)
-    _params_equal(convert.params_from_jax(want), want)
+    _params_equal(convert.params_from_jax(want, DEV), want)
     for f in ("a_max", "a_desired_default", "v_max_riding"):
         np.testing.assert_array_equal(
             TP.pair_lo(getattr(got, f)).numpy(),
@@ -122,7 +123,7 @@ def test_build_population_matches_graft_build(n, density, pad):
     to 1024: the 24 inactive pad rows are covered)."""
     _, want = _build(n, dtype=np.float64, density=density, hist_len=8,
                      pad_to_block=pad)
-    got = scenarios.build_population(n, density, 8, pad, torch.float64)
+    got = scenarios.build_population(n, density, 8, pad, torch.float64, DEV)
     assert_state_equal(got, want)
     if pad:
         assert got.n == 1024 and int(got.active.sum()) == n

@@ -19,6 +19,7 @@ from cyclistsocialforce_tpu_torch.models import bicycle2d  # noqa: E402
 
 torch.set_num_threads(1)
 
+DEV = "cpu"   # the port's entry points default to the card
 ATOL = 1e-12
 
 
@@ -71,8 +72,8 @@ def test_dest_force_straight_fsm_matches_jax(per_agent):
     jp = JP.BicycleParams.create()
     if per_agent:
         jp = JP.as_population(jp, jst.n)
-    tst = convert.state_from_jax(jst)
-    tp = convert.params_from_jax(jp)
+    tst = convert.state_from_jax(jst, DEV)
+    tp = convert.params_from_jax(jp, DEV)
     jfx, jfy, jnew = JE.dest_force_straight(jp, jst)
     tfx, tfy, tnew = TE.dest_force_straight(tp, tst)
     close(tfx, jfx, "fx")
@@ -108,9 +109,9 @@ def test_bicycle2d_step_matches_jax():
     fy[:8] = -s[:8, 3] * np.sin(s[:8, 2])
     jp = JP.BicycleParams.create()
     want = jbike.step(jp, jst, jnp.asarray(fx), jnp.asarray(fy))
-    got = bicycle2d.step(convert.params_from_jax(jp),
-                         convert.state_from_jax(jst), torch.from_numpy(fx),
-                         torch.from_numpy(fy))
+    got = bicycle2d.step(convert.params_from_jax(jp, DEV),
+                         convert.state_from_jax(jst, DEV),
+                         torch.from_numpy(fx), torch.from_numpy(fy))
     for f in ("s", "pid_e", "pid_i"):
         close(getattr(got, f), getattr(want, f), f)
 
@@ -126,10 +127,11 @@ def test_finish_step_matches_jax():
                          znav=~before.znav, destpointer=before.destpointer + 1)
     jeng = JE.Engine.create(JP.BicycleParams.create(), jbike)
     want = jeng.finish_step(before, new)
-    teng = TE.Engine.create(convert.params_from_jax(jeng.params), bicycle2d,
-                            rep_force="twod", neighbors=TE.NeighborConfig())
-    got = teng.finish_step(convert.state_from_jax(before),
-                           convert.state_from_jax(new))
+    teng = TE.Engine.create(convert.params_from_jax(jeng.params, DEV),
+                            bicycle2d, rep_force="twod",
+                            neighbors=TE.NeighborConfig())
+    got = teng.finish_step(convert.state_from_jax(before, DEV),
+                           convert.state_from_jax(new, DEV))
     gotn = convert.state_to_numpy(got)
     for f in gotn:
         close(gotn[f], getattr(want, f), f, atol=0)
@@ -151,10 +153,11 @@ def test_stop_destinations_scenario_matches_jax():
                             neighbors=JE.NeighborConfig(backend="xla", **cfg))
     want, _ = jax.jit(lambda e, s: e.simulate(s, 2000, record=False))(
         jeng, jst)
-    teng = TE.Engine.create(convert.params_from_jax(jp), bicycle2d,
+    teng = TE.Engine.create(convert.params_from_jax(jp, DEV), bicycle2d,
                             rep_force="twod",
                             neighbors=TE.NeighborConfig(screen=False, **cfg))
-    got, _ = teng.simulate(convert.state_from_jax(jst), 2000, record=False)
+    got, _ = teng.simulate(convert.state_from_jax(jst, DEV), 2000,
+                           record=False)
     np.testing.assert_array_equal(got.znav.numpy(),
                                   [[True, False, False],
                                    [False, False, True],
