@@ -24,7 +24,11 @@ non-zero):
                the mixed-family forms at the legacy path's shape (cutoff
                100 m, block_src 64, kb from the audit; K3 at block_src
                128), on the legacy crowd and on a two-family pack (every
-               other rider a twod row with per-rider columns);
+               other rider a twod row with per-rider columns). Two
+               in-call yardsticks, each timed in turns (a, b, b, a): K1's
+               main form against K2's `uniform` form on the same table,
+               and K1's mixed form with the tile screen (slice_legacy's)
+               against K3's mixed form on the legacy crowd;
   5. audit     no receiver block overflows the neighbor table at t = 0;
   6. slice     240 steps of Engine.simulate on the card: one K1 launch per
                step, a finite state, no overflow at t = end, and the
@@ -56,7 +60,8 @@ non-zero):
 
 Then the script's wall time, a JSON line with the kernels' launch counts
 (each from its own path, with every count set to 0 just before it),
-errors, times and bounds, the nvidia-smi line, and last
+errors, times, bounds (with the floor that sets each: FP32, MUFU or
+bytes) and the two yardstick ratios, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -110,16 +115,27 @@ PARITY_DB_N = 2048
 # so the card is held to the CPU float32 run under both tiers and to the
 # float64 run under the cap.
 LEG_CUTOFF, PARITY_LEG_N = 100.0, 4096
-# the bound of a call: operations over the H100's FP32 peak, bytes over its
-# memory rate (NVIDIA's data sheet, SXM part at 700 W), the larger of the
-# two. Operations per pair, counted from csrc/pair_math.cuh: every FP32
-# add, subtract, multiply, negation, min/max and comparison and every
-# rsqrtf, sqrtf and expf counts one, as the code is written (per-receiver
-# work excluded). Base forms without the FOV cone and priority to the
-# right; the cone adds 5, priority to the right 4, the mixed form's family
-# test 1.
+# the bound of a call: the largest of its operations over the H100's FP32
+# peak and bytes over its memory rate (NVIDIA's data sheet, SXM part at
+# 700 W), and its special-function (MUFU) operations over the MUFU rate:
+# 16 results per clock per SM (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0: reciprocal square root,
+# base-2 exponential) x 132 SMs x 1.98 GHz. Operations per pair, counted
+# from the plain version's function (ops/pair_forces.py tile_forces) as
+# written in csrc/pair_math.cuh's pair_accumulate: every FP32 add,
+# subtract, multiply, negation, min/max and comparison and every rsqrtf,
+# sqrtf and expf counts one (per-receiver work excluded). Base forms
+# without the FOV cone and priority to the right; the cone adds 5,
+# priority to the right 4, the mixed form's family test 1. MUFU operations
+# per pair: twod 6 (rsqrt x4, sqrt, exp), legacy 2 (rsqrt, exp). The
+# operation counts stay those of the plain version, so that the bound is
+# the same yardstick for every kernel that computes the function.
 PEAK_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 OPS_TWOD, OPS_LEGACY, OPS_FOV, OPS_P2R, OPS_FAMILY = 73, 37, 5, 4, 1
+OPS_SFU_TWOD, OPS_SFU_LEGACY = 6, 2
+# calls timed in turns (a, b, b, a) for the in-call yardsticks
+YARDSTICK_REPS = 50
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 
@@ -241,8 +257,10 @@ def work(tensors, plain_kw):
     """What one call of the form needs: the pairs it evaluates (the valid
     tiles' pairs, after the screen where one applies: those of the tiles or
     strips it admits), legacy rows' pairs apart in the mixed form, the
-    operations they take (OPS_*), and the bytes of every input read once
-    and the output written once; with the bound these give."""
+    operations and MUFU operations they take (OPS_*), and the bytes of
+    every input read once and the output written once; with the bound
+    these give. `bound_by` says whether operations (FP32 or MUFU, as
+    `floor` names) or bytes set it."""
     import torch
 
     nbr, valid, src, recv = tensors
@@ -273,13 +291,20 @@ def work(tensors, plain_kw):
     extra = OPS_FOV * fov + OPS_P2R * p2r + OPS_FAMILY * mixed
     ops = ((pairs - legacy_pairs) * (OPS_TWOD + extra)
            + legacy_pairs * (OPS_LEGACY + extra))
+    sfu_ops = ((pairs - legacy_pairs) * OPS_SFU_TWOD
+               + legacy_pairs * OPS_SFU_LEGACY)
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     nbytes += 2 * recv.shape[1] * 4
-    op_ms, byte_ms = 1e3 * ops / PEAK_FLOPS, 1e3 * nbytes / PEAK_BYTES_PER_S
+    floors = {"fp32": 1e3 * ops / PEAK_FLOPS,
+              "sfu": 1e3 * sfu_ops / PEAK_SFU_PER_S,
+              "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
+    floor = max(floors, key=floors.get)
     out = {"candidate_pairs": int(valid.sum()) * block_src * BLOCK,
            "pairs": pairs, "legacy_pairs": legacy_pairs, "operations": ops,
-           "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
-           "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+           "sfu_operations": sfu_ops, "bytes": nbytes,
+           "floors_ms": floors, "bound_ms": floors[floor],
+           "bound_by": "bytes" if floor == "bytes" else "operations",
+           "floor": floor}
     if plain_kw.get("screen"):
         out["screen_admits"] = pieces / float(valid.sum() * n_strips)
     return out
@@ -326,7 +351,21 @@ def check_form(phase, form, fn, tensors, kw, plain_kw):
     # no single PyTorch call computes a block-sparse pair sum
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
-            "library_ms": None}
+            "floor": w["floor"], "library_ms": None}
+
+
+def alternate(name_a, fn_a, name_b, fn_b):
+    """In-call yardstick: time a and b in turns (a, b, b, a), each the
+    median of YARDSTICK_REPS CUDA-event-timed calls, and emit a's mean
+    over b's mean. Launch counts are not read here."""
+    times = {name_a: [], name_b: []}
+    for name, fn in ((name_a, fn_a), (name_b, fn_b), (name_b, fn_b),
+                     (name_a, fn_a)):
+        times[name].append(cuda_ms(fn, reps=YARDSTICK_REPS))
+    ratio = sum(times[name_a]) / sum(times[name_b])
+    emit("kernel_forms", yardstick=f"{name_a} / {name_b}", ms=times,
+         ratio=ratio)
+    return ratio
 
 
 def phase_kernel(engine, state):
@@ -381,8 +420,12 @@ def phase_kernel_forms(engine, db_engine, state):
         # K3's computation through K1, for the time comparison
         "k1_screen_bs128_columns": (k1, db_t, {**bs128, **screen}, None),
     }
-    return {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
-            for name, (fn, t, kw, plain) in forms.items()}
+    out = {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
+           for name, (fn, t, kw, plain) in forms.items()}
+    main_kw = {**bs64, "uniform": u, "fov": not engine.full_fov}
+    ratio = alternate("k1 main", lambda: k1(*main_t, **main_kw),
+                      "k2 uniform", lambda: k2(*main_t, **main_kw))
+    return out, ratio
 
 
 def two_family(engine, state):
@@ -438,8 +481,12 @@ def phase_mixed_forms(leg, leg_db, state):
         "k2_two_family": (k2, two_t, bs64, None),
         "k3_two_family": (k3, two_db, k3_kw, k3_plain),
     }
-    return {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
-            for name, (fn, t, kw, plain) in forms.items()}
+    out = {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
+           for name, (fn, t, kw, plain) in forms.items()}
+    k1_kw = {**bs64, **screen}
+    ratio = alternate("k1 mixed tile screen", lambda: k1(*leg_t, **k1_kw),
+                      "k3 mixed", lambda: k3(*db_t, **k3_kw))
+    return out, ratio
 
 
 def phase_legacy_config(state):
@@ -674,8 +721,9 @@ def main():
     db_engine = phase_db_config(state)
     leg_engine, leg_db_engine = phase_legacy_config(state)
     kernel = phase_kernel(engine, state)
-    forms = phase_kernel_forms(engine, db_engine, state)
-    forms.update(phase_mixed_forms(leg_engine, leg_db_engine, state))
+    forms, vs_k2 = phase_kernel_forms(engine, db_engine, state)
+    mixed_forms, vs_k3 = phase_mixed_forms(leg_engine, leg_db_engine, state)
+    forms.update(mixed_forms)
     launches = {
         "k1": phase_slice("slice", engine, state, PF.pair_forces_neighbors),
         "k2": phase_slice("slice_unrolled",
@@ -697,8 +745,9 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "pair_forces_neighbors", "route": "cuda",
          "source": SRC + "pair_forces.cu", "replaces": TPU + "75",
-         "launches": launches["k1"], **kernel,
-         "mixed": mixed("k1_mixed_screen", launches["k1_legacy"])},
+         "launches": launches["k1"], **kernel, "vs_k2_uniform": vs_k2,
+         "mixed": {**mixed("k1_mixed_screen", launches["k1_legacy"]),
+                   "vs_k3_mixed": vs_k3}},
         {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
          "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",
          "launches": launches["k2"], **forms["k2_uniform"],

@@ -23,11 +23,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-# -fmad=false: no contraction of a*b + c into one fused multiply-add, so a
-# kernel rounds each operation as its plain PyTorch version does and the
-# two agree pair by pair, also where the force field is discontinuous
+# -fmad=false: no contraction of a*b + c into one fused multiply-add, so
+# K2 and K3 round each operation as their plain PyTorch version does and
+# agree with it pair by pair, also where the force field is discontinuous
 # (the FOV cone edge, the sign(sin phi) jump) and one rounding step
-# decides which side of it a pair falls on
+# decides which side of it a pair falls on. K1 does not rely on the flag:
+# it rounds that decision chain with __fadd_rn/__fsub_rn/__fmul_rn, which
+# no flag contracts, and fuses explicitly (fmaf) where the field is smooth
+# (csrc/pair_math.cuh)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 

@@ -328,7 +328,14 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
     kernel on CUDA tensors, the plain version on CPU tensors; arguments
     and result as in `pair_forces_neighbors_ref`.
 
-    The kernel takes float32 packs, an int32 table and block = 128."""
+    The kernel takes float32 packs, an int32 table and block = 128. It
+    splits each receiver block's table slots over 8 thread groups (two
+    receivers per thread) and adds the groups' sums in a fixed order, so
+    a call gives the same result every time. It decides every pair (FOV
+    cone, priority to the right, the sign(sin phi) jump) with the plain
+    version's rounding, and evaluates the smooth rest of the field with
+    fused multiply-adds and the GPU's approximate exp2 and rsqrt: within
+    a few float32 ulps of each pair force of the plain version."""
     block_src = block_src or block
     _check_sub(block_src, sub)
     is_uniform, field = _field_args(uniform, mixed)
