@@ -120,20 +120,20 @@ LEG_CUTOFF, PARITY_LEG_N = 100.0, 4096
 # 700 W), and its special-function (MUFU) operations over the MUFU rate:
 # 16 results per clock per SM (CUDA C++ Programming Guide, arithmetic
 # instruction throughput, compute capability 9.0: reciprocal square root,
-# base-2 exponential) x 132 SMs x 1.98 GHz. Operations per pair, counted
-# from the plain version's function (ops/pair_forces.py tile_forces) as
-# written in csrc/pair_math.cuh's pair_accumulate: every FP32 add,
-# subtract, multiply, negation, min/max and comparison and every rsqrtf,
-# sqrtf and expf counts one (per-receiver work excluded). Base forms
-# without the FOV cone and priority to the right; the cone adds 5,
-# priority to the right 4, the mixed form's family test 1. MUFU operations
-# per pair: twod 6 (rsqrt x4, sqrt, exp), legacy 2 (rsqrt, exp). The
-# operation counts stay those of the plain version, so that the bound is
-# the same yardstick for every kernel that computes the function.
+# base-2 exponential) x 132 SMs x 1.98 GHz. FP32 operations per pair,
+# counted from the plain version's function (ops/pair_forces.py
+# tile_forces) as written in csrc/pair_math.cuh's pair_accumulate: every
+# FP32 add, subtract, multiply, negation, min/max and comparison counts
+# one, the MUFU operations (rsqrtf, sqrtf, expf) none (per-receiver work
+# excluded). Base forms without the FOV cone and priority to the right;
+# the cone adds 5, priority to the right 4, the mixed form's family test
+# 1. MUFU operations per pair, the least the field needs: twod 5 (the
+# rsqrts of rho2, m4 and |(u, v)|^2, one rsqrt for the exponent's
+# sqrt(rho2 ec2) / sigma, the exponential), legacy 2 (rsqrt, exp).
 PEAK_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 PEAK_SFU_PER_S = 132 * 16 * 1.98e9
-OPS_TWOD, OPS_LEGACY, OPS_FOV, OPS_P2R, OPS_FAMILY = 73, 37, 5, 4, 1
-OPS_SFU_TWOD, OPS_SFU_LEGACY = 6, 2
+OPS_TWOD, OPS_LEGACY, OPS_FOV, OPS_P2R, OPS_FAMILY = 67, 35, 5, 4, 1
+OPS_SFU_TWOD, OPS_SFU_LEGACY = 5, 2
 # calls timed in turns (a, b, b, a) for the in-call yardsticks
 YARDSTICK_REPS = 50
 SRC = "cyclistsocialforce_tpu_torch/csrc/"

@@ -13,16 +13,16 @@
 //
 // What bounds it. At the main path's configuration (100k agents,
 // block_src = 64, kb = 19) a call evaluates 8.8e7 pairs; the bytes are
-// small (a 4 KB source tile per slot, read from L2). The plain version's
-// twod pair with the FOV cone is 78 FP32 operations and 6 MUFU (special
-// function unit) operations: on an H100 (132 SMs at 1.98 GHz, 128 FP32
-// lanes and 16 MUFU results per clock per SM) 0.10 ms of FP32 and 0.13 ms
-// of MUFU, so the MUFU is the floor. As compiled, a twod pair here is 5
-// MUFU and ~66 instructions in all (FP32, compares, loads, loop), and each
-// SM sub-partition issues one warp instruction per clock: 0.17 ms of
+// small (a 4 KB source tile per slot, read from L2). A twod pair with the
+// FOV cone needs 72 FP32 operations and at least 5 MUFU (special function
+// unit) operations: on an H100 (132 SMs at 1.98 GHz, 128 FP32 lanes and
+// 16 MUFU results per clock per SM) 0.094 ms of FP32 and 0.105 ms of
+// MUFU, so the MUFU is the floor. As compiled, a twod pair here is those
+// 5 MUFU and ~66 instructions in all (FP32, compares, loads, loop), and
+// each SM sub-partition issues one warp instruction per clock: 0.17 ms of
 // issue, above both floors, so instruction issue bounds the kernel. A
 // legacy row (bicycle2d's default field, cutoff ~100 m, kb ~35, ~2x the
-// pairs) takes 2 MUFU and ~37 FP32 operations. The work is a dependent
+// pairs) takes 2 MUFU and ~40 FP32 operations. The work is a dependent
 // chain of FP32 and MUFU operations per pair with no matrix product in
 // it, so the tensor cores do not apply.
 //
@@ -68,36 +68,23 @@
 
 #include "pair_math.cuh"
 
-// The shape of a CTA is a compile-time choice, measured on an H100 with
-// scripts/k1_variants.py (PERF.md); the defines let a build try others:
-// thread groups per receiver block, receivers per thread, and the CTAs an
-// SM must hold at once (__launch_bounds__, which caps the registers: 2
-// CTAs of 512 threads, 64 registers).
-#ifndef CSF_K1_GROUPS
-#define CSF_K1_GROUPS 8
-#endif
-#ifndef CSF_K1_RECV
-#define CSF_K1_RECV 2
-#endif
-#ifndef CSF_K1_MIN_BLOCKS
-#define CSF_K1_MIN_BLOCKS 2
-#endif
-
 namespace {
 
 using csf::kBlock;
 using csf::kSrcCols;
 
-constexpr int kGroups = CSF_K1_GROUPS;
-constexpr int kRecv = CSF_K1_RECV;
-constexpr int kMinBlocks = CSF_K1_MIN_BLOCKS;
+// The shape of a CTA, measured on an H100 (PERF.md): thread groups per
+// receiver block, receivers per thread, and the CTAs an SM must hold at
+// once (__launch_bounds__, which caps the registers: 2 CTAs of 512
+// threads, 64 registers).
+constexpr int kGroups = 8;
+constexpr int kRecv = 2;
+constexpr int kMinBlocks = 2;
 constexpr int kGroupThreads = kBlock / kRecv;
 constexpr int kThreads = kGroups * kGroupThreads;
-constexpr int kUnroll = kRecv == 1 ? 2 : 1;        // source rows per step
 
-static_assert(kBlock % kRecv == 0 && kGroupThreads % 32 == 0,
-              "a group is whole warps");
-static_assert(kGroups >= 1 && kGroups <= 15, "one named barrier per group");
+static_assert(kGroupThreads % 32 == 0, "a group is whole warps");
+static_assert(kGroups <= 15, "one named barrier per group");
 
 // wait for the threads of this thread's group (named barrier `id`)
 __device__ __forceinline__ void group_sync(int id) {
@@ -198,7 +185,9 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
         }
       }
       const float4* const end = tile + (j0 + strip) * 4;
-#pragma unroll kUnroll
+      // one source row per trip (the build measured in PERF.md): the
+      // kRecv receivers are each thread's independent chains
+#pragma unroll 1
       for (const float4* q = tile + j0 * 4; q < end; q += 4) {
         const csf::K1Row row = csf::k1_load_row<kUniform, kMixed>(q);
         csf::k1_pairs<kUniform, kFov, kP2R, kMixed>(row, rc, p, fx, fy);

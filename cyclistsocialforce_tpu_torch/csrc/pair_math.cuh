@@ -16,7 +16,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 
 #include <type_traits>
@@ -201,8 +200,9 @@ __device__ __forceinline__ void pair_accumulate(const float* s,
 // version by a few float32 ulps of each pair force.
 
 // 1/sqrt(x) on the MUFU. For a normal x this is rsqrtf's result (rsqrtf
-// adds only a rescaling of subnormal inputs); every caller clamps x to a
-// normal float first.
+// adds only a rescaling of subnormal inputs); a subnormal x flushes to 0
+// and gives +inf. Callers that need rsqrtf's value clamp x to a normal
+// float first.
 __device__ __forceinline__ float rsqrt_mufu(float x) {
   float y;
   asm("rsqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -325,14 +325,16 @@ __device__ __forceinline__ void k1_twod(const K1Row& s, const Receiver& r,
   const float ecos = e * cosphi;
   const float ec2 = fmaf(-ecos, ecos, kLog2eSq);
   // the exponent sqrt(q) / sig_c, q = rho2 ec2, from one rsqrt as
-  // q rsqrt(q sig_c^2); the clamp to the least normal float makes q = 0
-  // give 0, as the plain version's sqrt(0) does. sigma <= 0 folds into
-  // P = 0 through the 1e-15 clamp.
+  // q rsqrt(q sig_c^2). Where q sig_c^2 is below the least normal float
+  // (with sigma <= 0, clamped to 1e-15, every pair closer than ~1e-4 m)
+  // the MUFU reads it as 0 and the exponent is +inf, so P = 0; the plain
+  // version's float32 P there is 0 too unless the pair is closer than
+  // ~3e-8 m (~1e-12 m with sigma <= 0). q = 0 (0 * inf) gives NaN, which
+  // the fmaxf takes to 0, as the plain version's sqrt(0) does.
   const float sig_c = fmaxf(sigma, 1e-15f);
   const float q = f.rho2 * ec2;
-  const float P =
-      s.b.x * exp2_mufu(-(q * rsqrt_mufu(fmaxf(q * (sig_c * sig_c),
-                                                 FLT_MIN))));
+  const float expo = fmaxf(q * rsqrt_mufu(q * (sig_c * sig_c)), 0.0f);
+  const float P = s.b.x * exp2_mufu(-expo);
   const float u = ec2 * sigma;
   const float v = fmaf(ec2, th * sinphi, (e * sinphi) * (ecos * sigma));
   const float inv_m = rsqrt_mufu(fmaxf(fmaf(u, u, v * v), 1e-30f));

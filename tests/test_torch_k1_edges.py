@@ -4,14 +4,18 @@ step decides a whole pair force: exactly on a receiver's FOV cone edge
 (and up to 3 ulps either side), straight ahead of a source (|sin phi| of
 0 to ~2e-6, the sign(sin phi) jump, with and without the
 priority-to-the-right edge),
-coincident (rho2 = 0), with sigma <= 0, with zero amplitude, at the
-distance screen's cutoff (exactly, and one ulp beyond), and at inactive
-receivers. K1 rounds the operations that decide these (its decision
-chain) as the plain version does and fuses the smooth rest, so every
-force must agree within the kernels' float32 bar in every form.
+coincident (rho2 = 0), with sigma <= 0 (one such pair ~1e-9 m apart
+near the origin, where sigma^2 times the squared distance underflows
+float32), with zero amplitude, at the distance screen's cutoff (exactly,
+and one ulp beyond), and at inactive receivers. K1 rounds the operations
+that decide these (its decision chain) as the plain version does and
+fuses the smooth rest, so every force must agree within the kernels'
+float32 bar in every form. The plain version itself is held to the JAX
+package's Pallas kernel (interpret mode) on the same inputs, so the chain
+JAX -> plain -> K1 is closed on the edges.
 
 The inputs are built with numpy from a seed. The card's tests skip
-without a CUDA device:
+without a CUDA device (and need no JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_k1_edges.py
 """
@@ -48,6 +52,11 @@ LEGACY_E, LEGACY_AMP, LEGACY_INV_PD = 0.6, 2.0, 0.25
 # source kinds, by row index mod 8 (tiles 0-6; tile 7 is the screen edge)
 CONE_LEFT, CONE_RIGHT, AHEAD_P2R_EDGE, AHEAD, COINCIDENT, SIGMA_LE_0, \
     SILENT, NEAR = range(8)
+# the sigma <= 0 row placed 8 ulps (~9.3e-10 m) ahead of its receiver at
+# (2^-10, 2^-10) m, the receiver straight behind it and facing it
+TINY_ROW, TINY_AT = 8 * 20 + SIGMA_LE_0, 2.0 ** -10
+# the kinds whose pair sits on a discontinuity of the field
+EDGE_KINDS = (CONE_LEFT, CONE_RIGHT, AHEAD_P2R_EDGE, AHEAD)
 
 
 def _grid(a):
@@ -155,6 +164,13 @@ def edge_inputs(seed=0, mixed=False):
                 cols[j, 2:] = SIGMA_NEG
             elif kind == SILENT:
                 amp[j] = 0.0
+    # the tiny pair: sigma = -0.3 straight behind the source; its q sigma^2
+    # (~1e-50) underflows float32, the plain version's P is 0
+    rpos[TINY_ROW] = TINY_AT
+    rc[TINY_ROW], rs[TINY_ROW] = 1.0, 0.0
+    spsi[TINY_ROW] = 0.0
+    spos[TINY_ROW] = (np.float32(TINY_AT)
+                      + 8 * np.spacing(np.float32(TINY_AT)), TINY_AT)
     # tile 7: the screen edge, exactly CUTOFF from P, then one ulp beyond
     x_at = np.float32(p_edge[0] + np.float32(CUTOFF))
     spos[448:480] = (x_at, p_edge[1])
@@ -225,6 +241,8 @@ def test_edge_inputs_sit_on_the_edges():
     assert (sinphi[ahead] < 0).any() and (sinphi[ahead] > 0).any()
     assert np.abs(sinphi[ahead]).min() <= 1e-7
     assert np.all(rho2[kind == COINCIDENT] == 0)
+    tiny = rho2[j == TINY_ROW][0]
+    assert 0 < tiny < 1e-18
     dx = recv[0, 448] - src[448:, 0]
     rho2_edge = dx * dx
     assert np.all(rho2_edge[:32] == np.float32(CUTOFF ** 2))
@@ -239,6 +257,14 @@ def test_edge_inputs_sit_on_the_edges():
     fx, fy = PF.tile_forces(s, *rv, uniform=UNIFORM)
     mag = torch.hypot(fx, fy).flatten()
     assert int((mag > 10 * ATOL).sum()) >= 40
+
+    # the tiny pair alone: no force with its own sigma <= 0 columns, a
+    # full one with the shared parameters (sigma > 0 there), so a P taken
+    # as nonzero at sigma <= 0 shows in the sum
+    s = t(src[[TINY_ROW]])[:, None, :]
+    rv = [t(recv[k, [TINY_ROW]])[:, None, None] for k in range(5)]
+    assert torch.hypot(*PF.tile_forces(s, *rv)).item() == 0.0
+    assert torch.hypot(*PF.tile_forces(s, *rv, uniform=UNIFORM)).item() > 1.0
 
     # the plain version on the whole input: inactive receivers get 0, the
     # screens skip the far clusters' tiles
@@ -272,6 +298,73 @@ FORMS = {
     "mixed_screen": (True, {"mixed": True, "screen": True}),
     "mixed_strip": (True, {"mixed": True, "screen": True, "sub": 32}),
 }
+
+
+@pytest.fixture
+def pallas_k1():
+    """The JAX package's K1 (`pair_forces_neighbors`, interpret mode) on
+    numpy inputs, in a form of FORMS."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from cyclistsocialforce_tpu.ops import pallas_forces
+
+    def run(arrays, mixed, opts):
+        jn, jv, js, jr = (jnp.asarray(a) for a in arrays)
+        return np.asarray(pallas_forces.pair_forces_neighbors(
+            jn, jv, js, jr, block=BLOCK, block_src=BLOCK_SRC,
+            interpret=True, cutoff=CUTOFF, mixed=mixed,
+            screen=opts.get("screen", False), sub=opts.get("sub", 0),
+            fov=opts.get("fov", True),
+            priority_p2r=opts.get("priority_p2r", False),
+            uniform=opts.get("uniform")))
+
+    return run
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_decides_edges_as_pallas_interpret(pallas_k1, form, seed):
+    """The port's plain float32 version (its wrapper on CPU tensors) in
+    each form against the JAX package's Pallas kernel of the same form in
+    interpret mode, on the edge inputs. Every force agrees within ATOL +
+    RTOL |JAX| but at the receivers of the pairs placed on the cone edge,
+    on the priority edge or straight ahead: there the two may take that
+    one pair's decision differently, because XLA on the CPU contracts
+    a*b + c*d into fused multiply-adds and rounds rsqrt its own way (not
+    as 1 / sqrt), so a decision value a few ulps from its bound can land
+    on the other side. There they differ by at most that pair's own
+    force, twice (the jump at phi = 0 reverses it). Coincident pairs,
+    sigma <= 0 (the tiny pair too), silent rows, inactive receivers and
+    the screen's cutoff are decided alike."""
+    mixed, opts = FORMS[form]
+    nbr, valid, src, recv, target = edge_inputs(seed, mixed)
+    want = pallas_k1((nbr, valid, src, recv), mixed, opts)
+    kw = dict(block=BLOCK, block_src=BLOCK_SRC, cutoff=CUTOFF, **opts)
+    PF.reset_launches()
+    got = PF.pair_forces_neighbors(*torch_inputs("cpu", mixed, seed), **kw)
+    assert PF.pair_forces_neighbors.launches == 0
+    err = np.abs(got.numpy() - want)
+    tol = ATOL + RTOL * np.abs(want)
+    assert np.abs(want).max() > 1.0
+
+    rows = np.flatnonzero((target >= 0)
+                          & np.isin(np.arange(len(target)) % 8, EDGE_KINDS))
+    edge = np.zeros(recv.shape[1], bool)
+    edge[target[rows]] = True
+    assert np.all(err[:, ~edge] <= tol[:, ~edge])
+
+    # each edge pair's own force with every decision taken to "tracked"
+    t = torch.as_tensor
+    rv = [t(recv[k, target[rows]])[:, None, None] for k in range(4)]
+    fx, fy = PF.tile_forces(t(src[rows])[:, None, :], *rv,
+                            torch.ones_like(rv[0]), fov=False, mixed=mixed,
+                            uniform=opts.get("uniform"))
+    own = torch.hypot(fx, fy).flatten().numpy()
+    r = target[rows]
+    assert np.all(err[:, r] <= tol[:, r] + 2 * own)
+    print(f"{form} seed {seed}: {int((err > tol).any(0).sum())} of "
+          f"{edge.sum()} edge receivers differ, max |diff| {err.max():.3e}")
 
 
 @pytest.fixture
