@@ -24,11 +24,14 @@ non-zero):
                the mixed-family forms at the legacy path's shape (cutoff
                100 m, block_src 64, kb from the audit; K3 at block_src
                128), on the legacy crowd and on a two-family pack (every
-               other rider a twod row with per-rider columns). Two
+               other rider a twod row with per-rider columns). Four
                in-call yardsticks, each timed in turns (a, b, b, a): K1's
                main form against K2's `uniform` form on the same table,
-               and K1's mixed form with the tile screen (slice_legacy's)
-               against K3's mixed form on the legacy crowd;
+               K1 in K3's form (tile screen, columns, block_src 128)
+               against K3 on the same table, K1's mixed form with the
+               tile screen (slice_legacy's) against K3's mixed form on the
+               legacy crowd, and K1's mixed form unscreened against K2's
+               mixed form on the same table;
   5. audit     no receiver block overflows the neighbor table at t = 0;
   6. slice     240 steps of Engine.simulate on the card: one K1 launch per
                step, a finite state, no overflow at t = end, and the
@@ -61,7 +64,8 @@ non-zero):
 Then the script's wall time, a JSON line with the kernels' launch counts
 (each from its own path, with every count set to 0 just before it),
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
-bytes) and the two yardstick ratios, the nvidia-smi line, and last
+bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
+kernel's, same work, same call), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -122,12 +126,13 @@ LEG_CUTOFF, PARITY_LEG_N = 100.0, 4096
 # instruction throughput, compute capability 9.0: reciprocal square root,
 # base-2 exponential) x 132 SMs x 1.98 GHz. FP32 operations per pair,
 # counted from the plain version's function (ops/pair_forces.py
-# tile_forces) as written in csrc/pair_math.cuh's pair_accumulate: every
+# tile_forces), operation by operation as it is written there: every
 # FP32 add, subtract, multiply, negation, min/max and comparison counts
-# one, the MUFU operations (rsqrtf, sqrtf, expf) none (per-receiver work
-# excluded). Base forms without the FOV cone and priority to the right;
-# the cone adds 5, priority to the right 4, the mixed form's family test
-# 1. MUFU operations per pair, the least the field needs: twod 5 (the
+# one, the MUFU operations (rsqrt, sqrt, exp) none (per-receiver work
+# excluded; the kernels' csrc/pair_math.cuh add_pairs fuses some of them
+# into multiply-adds, which the bound does not credit). Base forms
+# without the FOV cone and priority to the right; the cone adds 5,
+# priority to the right 4, the mixed form's family test 1. MUFU operations per pair, the least the field needs: twod 5 (the
 # rsqrts of rho2, m4 and |(u, v)|^2, one rsqrt for the exponent's
 # sqrt(rho2 ec2) / sigma, the exponential), legacy 2 (rsqrt, exp).
 PEAK_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
@@ -423,9 +428,16 @@ def phase_kernel_forms(engine, db_engine, state):
     out = {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
            for name, (fn, t, kw, plain) in forms.items()}
     main_kw = {**bs64, "uniform": u, "fov": not engine.full_fov}
-    ratio = alternate("k1 main", lambda: k1(*main_t, **main_kw),
-                      "k2 uniform", lambda: k2(*main_t, **main_kw))
-    return out, ratio
+    k1_db_kw, k3_kw = forms["k1_screen_bs128_columns"][2], forms["k3"][2]
+    ratios = {
+        "k2_uniform": alternate("k1 main", lambda: k1(*main_t, **main_kw),
+                                "k2 uniform",
+                                lambda: k2(*main_t, **main_kw)),
+        "k3": alternate("k1 screen bs128 columns",
+                        lambda: k1(*db_t, **k1_db_kw),
+                        "k3", lambda: k3(*db_t, **k3_kw)),
+    }
+    return out, ratios
 
 
 def two_family(engine, state):
@@ -484,9 +496,14 @@ def phase_mixed_forms(leg, leg_db, state):
     out = {name: check_form("kernel_forms", name, fn, t, kw, plain or kw)
            for name, (fn, t, kw, plain) in forms.items()}
     k1_kw = {**bs64, **screen}
-    ratio = alternate("k1 mixed tile screen", lambda: k1(*leg_t, **k1_kw),
-                      "k3 mixed", lambda: k3(*db_t, **k3_kw))
-    return out, ratio
+    ratios = {
+        "k3_mixed": alternate("k1 mixed tile screen",
+                              lambda: k1(*leg_t, **k1_kw),
+                              "k3 mixed", lambda: k3(*db_t, **k3_kw)),
+        "k2_mixed": alternate("k1 mixed", lambda: k1(*leg_t, **bs64),
+                              "k2 mixed", lambda: k2(*leg_t, **bs64)),
+    }
+    return out, ratios
 
 
 def phase_legacy_config(state):
@@ -721,9 +738,11 @@ def main():
     db_engine = phase_db_config(state)
     leg_engine, leg_db_engine = phase_legacy_config(state)
     kernel = phase_kernel(engine, state)
-    forms, vs_k2 = phase_kernel_forms(engine, db_engine, state)
-    mixed_forms, vs_k3 = phase_mixed_forms(leg_engine, leg_db_engine, state)
+    forms, vs_k1 = phase_kernel_forms(engine, db_engine, state)
+    mixed_forms, mixed_vs_k1 = phase_mixed_forms(leg_engine, leg_db_engine,
+                                                 state)
     forms.update(mixed_forms)
+    vs_k1.update(mixed_vs_k1)
     launches = {
         "k1": phase_slice("slice", engine, state, PF.pair_forces_neighbors),
         "k2": phase_slice("slice_unrolled",
@@ -742,20 +761,24 @@ def main():
     def mixed(form, launched=None):
         return {"form": form, "launches": launched, **forms[form]}
 
+    # vs_k1: K1's time over the kernel's on the same work in the same call
     print(json.dumps({"kernels": [
         {"name": "pair_forces_neighbors", "route": "cuda",
          "source": SRC + "pair_forces.cu", "replaces": TPU + "75",
-         "launches": launches["k1"], **kernel, "vs_k2_uniform": vs_k2,
+         "launches": launches["k1"], **kernel,
+         "vs_k2_uniform": vs_k1["k2_uniform"],
          "mixed": {**mixed("k1_mixed_screen", launches["k1_legacy"]),
-                   "vs_k3_mixed": vs_k3}},
+                   "vs_k3_mixed": vs_k1["k3_mixed"]}},
         {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
          "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",
          "launches": launches["k2"], **forms["k2_uniform"],
-         "mixed": mixed("k2_mixed")},
+         "vs_k1": vs_k1["k2_uniform"],
+         "mixed": {**mixed("k2_mixed"), "vs_k1": vs_k1["k2_mixed"]}},
         {"name": "pair_forces_neighbors_db", "route": "cuda",
          "source": SRC + "pair_forces_db.cu", "replaces": TPU + "500",
          "launches": launches["k3"], **forms["k3"],
-         "mixed": mixed("k3_mixed")},
+         "vs_k1": vs_k1["k3"],
+         "mixed": {**mixed("k3_mixed"), "vs_k1": vs_k1["k3_mixed"]}},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

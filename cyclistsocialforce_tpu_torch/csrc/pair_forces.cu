@@ -8,8 +8,9 @@
 // arguments or read per source row (`uniform`), the mixed-family form
 // (`mixed`, per-row columns), the FOV cone on or off, the
 // priority-to-the-right mask, and no distance screen, the tile screen or
-// the strip screen (`screen`, `sub`). The per-pair math is csf::k1_pairs
-// (pair_math.cuh).
+// the strip screen (`screen`, `sub`). The per-pair math is csf::add_pairs
+// (pair_math.cuh), the thread groups' shared pieces are in
+// pair_groups.cuh.
 //
 // What bounds it. At the main path's configuration (100k agents,
 // block_src = 64, kb = 19) a call evaluates 8.8e7 pairs; the bytes are
@@ -62,51 +63,30 @@
 // three skip the same strips). The group votes with a barrier reduction
 // (bar.red.or) over its threads, which hold all 128 receivers: first on
 // one probe pair per receiver, which admits most strips at once, then,
-// if no probe was in range, on every pair of the strip.
+// if no probe was in range, on every pair of the strip
+// (csf::group_in_range).
 
 #include <cuda_runtime.h>
 
+#include "pair_groups.cuh"
 #include "pair_math.cuh"
 
 namespace {
 
 using csf::kBlock;
+using csf::kGroupThreads;
+using csf::kRecv;
 using csf::kSrcCols;
 
 // The shape of a CTA, measured on an H100 (PERF.md): thread groups per
-// receiver block, receivers per thread, and the CTAs an SM must hold at
-// once (__launch_bounds__, which caps the registers: 2 CTAs of 512
-// threads, 64 registers).
+// receiver block (of csf::kGroupThreads threads, csf::kRecv receivers per
+// thread) and the CTAs an SM must hold at once (__launch_bounds__, which
+// caps the registers: 2 CTAs of 512 threads, 64 registers).
 constexpr int kGroups = 8;
-constexpr int kRecv = 2;
 constexpr int kMinBlocks = 2;
-constexpr int kGroupThreads = kBlock / kRecv;
 constexpr int kThreads = kGroups * kGroupThreads;
 
-static_assert(kGroupThreads % 32 == 0, "a group is whole warps");
 static_assert(kGroups <= 15, "one named barrier per group");
-
-// wait for the threads of this thread's group (named barrier `id`)
-__device__ __forceinline__ void group_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kGroupThreads)
-               : "memory");
-}
-
-// is `v` true on any thread of this thread's group?
-__device__ __forceinline__ bool group_any(bool v, int id) {
-  int any;
-  asm volatile(
-      "{\n"
-      "  .reg .pred p, q;\n"
-      "  setp.ne.s32 p, %1, 0;\n"
-      "  bar.red.or.pred q, %2, %3, p;\n"
-      "  selp.s32 %0, 1, 0, q;\n"
-      "}\n"
-      : "=r"(any)
-      : "r"(static_cast<int>(v)), "r"(id), "n"(kGroupThreads)
-      : "memory");
-  return any != 0;
-}
 
 // dynamic shared memory of a launch: each group's tile, then the groups'
 // partial sums [kGroups][2][kBlock]
@@ -128,7 +108,7 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
   const int b = blockIdx.x;
   const int g = threadIdx.x / kGroupThreads;
   const int lt = threadIdx.x % kGroupThreads;
-  const int bar = 1 + g;                 // barrier 0 is __syncthreads'
+  const int bar = csf::group_barrier(g);
   const int npad = gridDim.x * kBlock;
   const int n_slots = count[b];
   const int tile_vec = block_src * (kSrcCols / 4);
@@ -149,39 +129,16 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
 
   csf::Receiver rc[kRecv];
   float fx[kRecv], fy[kRecv];
-#pragma unroll
-  for (int i = 0; i < kRecv; ++i) {
-    rc[i] = csf::load_receiver(recv, npad,
-                               b * kBlock + lt + i * kGroupThreads);
-    fx[i] = 0.0f;
-    fy[i] = 0.0f;
-  }
-  const csf::K1Uniform p = csf::k1_uniform(tp);
+  csf::load_receivers(recv, npad, b, lt, rc, fx, fy);
+  const csf::FieldConsts p = csf::field_consts(tp);
 
   for (int k = g; k < n_slots; k += kGroups) {
     csf::cp_async_wait<0>();
-    group_sync(bar);
+    csf::group_sync(bar);
     for (int j0 = 0; j0 < block_src; j0 += strip) {
       if constexpr (kScreen) {
-        // admitted iff some pair lies within the cutoff: first a probe of
-        // one pair per receiver (receiver rr against row rr mod strip),
-        // which settles most strips, then every pair
-        const float4 a = tile[(j0 + lt % strip) * 4];
-        bool near = false;
-#pragma unroll
-        for (int i = 0; i < kRecv; ++i) {
-          near |= csf::k1_rho2(a.x, a.y, rc[i]) <= cutoff2;
-        }
-        if (!group_any(near, bar)) {
-          float rho2_min = INFINITY;
-          for (int j = j0; j < j0 + strip; ++j) {
-            const float4 q = tile[j * 4];
-#pragma unroll
-            for (int i = 0; i < kRecv; ++i) {
-              rho2_min = fminf(rho2_min, csf::k1_rho2(q.x, q.y, rc[i]));
-            }
-          }
-          if (!group_any(rho2_min <= cutoff2, bar)) continue;
+        if (!csf::group_in_range(tile, j0, strip, lt, rc, cutoff2, bar)) {
+          continue;
         }
       }
       const float4* const end = tile + (j0 + strip) * 4;
@@ -189,33 +146,18 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
       // kRecv receivers are each thread's independent chains
 #pragma unroll 1
       for (const float4* q = tile + j0 * 4; q < end; q += 4) {
-        const csf::K1Row row = csf::k1_load_row<kUniform, kMixed>(q);
-        csf::k1_pairs<kUniform, kFov, kP2R, kMixed>(row, rc, p, fx, fy);
+        const csf::SrcRow row = csf::load_row<kUniform, kMixed>(q);
+        csf::add_pairs<kUniform, kFov, kP2R, kMixed>(row, rc, p, fx, fy);
       }
     }
     // the next copy overwrites the tile only after every thread of the
     // group is done with it
-    group_sync(bar);
+    csf::group_sync(bar);
     fill(k + kGroups);
   }
 
-  // the groups' partial sums, added in group order; an inactive receiver
-  // gets 0 (the plain version's mask drops each of its pairs)
-  float* part = reinterpret_cast<float*>(smem4 + kGroups * tile_vec);
-#pragma unroll
-  for (int i = 0; i < kRecv; ++i) {
-    const int rr = lt + i * kGroupThreads;
-    part[(2 * g) * kBlock + rr] = rc[i].act ? fx[i] : 0.0f;
-    part[(2 * g + 1) * kBlock + rr] = rc[i].act ? fy[i] : 0.0f;
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < 2 * kBlock; o += kThreads) {
-    const int c = o / kBlock, rr = o % kBlock;     // c: 0 fx, 1 fy
-    float sum = part[c * kBlock + rr];
-#pragma unroll
-    for (int q = 1; q < kGroups; ++q) sum += part[(2 * q + c) * kBlock + rr];
-    out[c * npad + b * kBlock + rr] = sum;
-  }
+  csf::sum_groups<kGroups>(reinterpret_cast<float*>(smem4 + kGroups * tile_vec),
+                           g, lt, rc, fx, fy, out, npad, b);
 }
 
 }  // namespace
@@ -230,9 +172,8 @@ extern "C" {
 // block_src), `cutoff2` the squared cutoff the screen compares with; both
 // are ignored without `screen`. e0..chf are the shared field parameters
 // (read only with `uniform`); `mixed` selects each row's family by its
-// column 13 and excludes `uniform`. Returns csf::kErrSharedMemory when the
-// launch needs more shared memory than the device's opt-in limit, else
-// cudaGetLastError() after the launch (0 on success).
+// column 13 and excludes `uniform`. Returns cudaGetLastError() after the
+// launch (0 on success).
 int csf_pair_forces_twod(const void* nbr, const void* count,
                          const void* src, const void* recv, void* out,
                          int n_blocks, int kb, int block_src, int uniform,
@@ -248,15 +189,8 @@ int csf_pair_forces_twod(const void* nbr, const void* count,
       block_src % strip != 0 || (uniform && mixed)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // at most 72 KB (block_src = 128), above the 48 KB a kernel gets unasked
   const size_t smem = shared_bytes(block_src);
-  if (smem > 48 * 1024) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                 device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (smem > static_cast<size_t>(optin)) return csf::kErrSharedMemory;
-  }
   const csf::TwodParams p{e0, e1, s0, s1, s2, s3, chf};
   auto s = static_cast<cudaStream_t>(stream);
   csf::with_flag(uniform, [&](auto U) {
@@ -292,10 +226,6 @@ int csf_pair_forces_twod(const void* nbr, const void* count,
 }
 
 const char* csf_error_string(int code) {
-  if (code == csf::kErrSharedMemory) {
-    return "the launch needs more dynamic shared memory than the device's "
-           "opt-in limit per block";
-  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -3,15 +3,16 @@
 // per-pair fields of the Pallas tile math
 // cyclistsocialforce_tpu/ops/pallas_forces.py::_tile_forces (the BMD2023
 // "twod" field and, in the mixed-family form, the legacy v0.1 elliptic
-// field), the compile-time form switch, and the cp.async primitives.
+// field) and the compile-time form switch.
 //
-// Two versions of the per-pair field live here. pair_accumulate and
-// legacy_accumulate (K2, K3) rely on -fmad=false (ops/_build.py): each
-// operation rounds as the plain PyTorch version's elementwise op does, so
-// the two agree pair by pair, also at the field's discontinuities. K1's
-// k1_pairs (below) rounds only the operations that decide on which side of
-// a discontinuity a pair falls as the plain version does, with intrinsics
-// that no flag contracts, and fuses the smooth rest.
+// One version of each field lives here, add_pairs, shared by the three
+// kernels. It is split in two parts. The decision chain rounds each
+// operation as the plain PyTorch version's elementwise op does, with
+// intrinsics that no compiler flag contracts, so a kernel decides every
+// pair on a discontinuity of the field as the plain version does; the
+// smooth rest is fused (see below). The thread-group pieces the kernels
+// share (barriers, the screen vote, the sum of the groups' partial sums,
+// bulk copies) are in pair_groups.cuh.
 
 #pragma once
 
@@ -23,17 +24,13 @@
 namespace csf {
 
 constexpr int kSrcCols = 16;
-constexpr int kBlock = 128;        // receivers per block, one per thread
+constexpr int kBlock = 128;        // receivers per block
 
 // source pack columns
 constexpr int kSX = 0, kSY = 1, kSC = 2, kSS = 3, kF0 = 4, kE0 = 5, kE1 = 6,
               kS0 = 7, kS1 = 8, kS2 = 9, kS3 = 10, kCHF = 11, kFAM = 13;
 // a legacy row of the mixed form reuses columns 4-7
 constexpr int kAmp = kF0, kLegE = kE0, kLegInvSe = kE1, kLegInvPd = kS0;
-
-// returned by a launcher when the dynamic shared memory a launch needs
-// exceeds the device's opt-in limit (see csf_error_string)
-constexpr int kErrSharedMemory = 100000;
 
 // shared field parameters (the `uniform` form); unused otherwise
 struct TwodParams {
@@ -52,148 +49,19 @@ __device__ __forceinline__ Receiver load_receiver(const float* recv,
                   recv[4 * npad + r] > 0.0f};
 }
 
-// squared receiver-source distance in the kernel's operation order
-// (receiver minus source), the quantity the distance screens compare
-__device__ __forceinline__ float rho2_of(const Receiver& r, const float* s) {
-  const float dx = r.x - s[kSX];
-  const float dy = r.y - s[kSY];
-  return dx * dx + dy * dy;
-}
-
-// The pair's geometry in the kernel's operation order: rho^2, 1/rho and
-// the unit separation (dxn, dyn), receiver minus source, and cos/sin of
-// its angle phi in the source's heading frame.
-struct PairFrame {
-  float rho2, inv_rho, dxn, dyn, cosphi, sinphi;
-};
-
-__device__ __forceinline__ PairFrame pair_frame(const float* s,
-                                                const Receiver& r) {
-  const float cs = s[kSC], ss = s[kSS];
-  const float dx = r.x - s[kSX];
-  const float dy = r.y - s[kSY];
-  const float rho2 = dx * dx + dy * dy;
-  const float inv_rho = rsqrtf(fmaxf(rho2, 1e-30f));
-  const float dxn = dx * inv_rho;
-  const float dyn = dy * inv_rho;
-  return PairFrame{rho2, inv_rho, dxn, dyn, dxn * cs + dyn * ss,
-                   dyn * cs - dxn * ss};
-}
-
-// Is the pair tracked: not the self or a coincident pair (rho2 > 0), the
-// receiver active, inside the receiver's half FOV cone of the source's
-// hfov (kFov; neg_chf = -cos(hfov/2)), not to its left (kP2R)?
-template <bool kFov, bool kP2R>
-__device__ __forceinline__ bool pair_tracked(float rho2, float dxn,
-                                             float dyn, const Receiver& r,
-                                             float neg_chf) {
-  bool tracked = (rho2 > 0.0f) && r.act;
-  if constexpr (kFov) {
-    tracked = tracked && (dxn * r.c + dyn * r.s <= neg_chf);
-  }
-  if constexpr (kP2R) {
-    tracked = tracked && (dyn * r.c - dxn * r.s >= 0.0f);
-  }
-  return tracked;
-}
-
-// Add the legacy field of source row `s` (a legacy row of the mixed form)
-// at receiver `r` to (fx, fy), in the Pallas tile's operation order.
-template <bool kFov, bool kP2R>
-__device__ __forceinline__ void legacy_accumulate(const float* s,
-                                                  const Receiver& r,
-                                                  float& fx, float& fy) {
-  const PairFrame f = pair_frame(s, r);
-  const float rho = f.rho2 * f.inv_rho;
-  const float e = s[kLegE], inv_se = s[kLegInvSe];
-  const float u = (1.0f - e * f.cosphi) * inv_se;
-  const float P = s[kAmp] * expf(((-rho) * u) * s[kLegInvPd]);
-  const float frho0 = P * u;
-  const float fphi0 = ((P * e) * f.sinphi) * inv_se;
-  if (pair_tracked<kFov, kP2R>(f.rho2, f.dxn, f.dyn, r, -s[kCHF])) {
-    fx += frho0 * f.dxn - fphi0 * f.dyn;
-    fy += frho0 * f.dyn + fphi0 * f.dxn;
-  }
-}
-
-// Add source row `s`'s field at receiver `r` to (fx, fy).
-//   kUniform: the 7 twod field parameters come from `p`, else from the row;
-//   kFov:     the receiver must see the source inside its half FOV cone;
-//   kP2R:     priority to the right, (dyn cr - dxn sr) >= 0;
-//   kMixed:   the row's family column selects the legacy field (1) or the
-//             twod field from the row's columns (0); excludes kUniform.
-// In the kernels every thread of a warp reads the same source row, so the
-// family branch is warp-uniform: a row evaluates its own field only (the
-// Pallas tile evaluates both on its vector lanes and selects).
-template <bool kUniform, bool kFov, bool kP2R, bool kMixed = false>
-__device__ __forceinline__ void pair_accumulate(const float* s,
-                                                const Receiver& r,
-                                                const TwodParams& p,
-                                                float& fx, float& fy) {
-  static_assert(!(kUniform && kMixed), "the mixed form reads the columns");
-  if constexpr (kMixed) {
-    if (s[kFAM] > 0.5f) {
-      legacy_accumulate<kFov, kP2R>(s, r, fx, fy);
-      return;
-    }
-  }
-  const float cs = s[kSC], ss = s[kSS];
-  const PairFrame f = pair_frame(s, r);
-  const float rho2 = f.rho2, dxn = f.dxn, dyn = f.dyn;
-  const float cosphi = f.cosphi, sinphi = f.sinphi;
-
-  const float sin_rel = ss * r.c - cs * r.s;
-  const float sin2 = sin_rel * sin_rel;
-  float vdecay0, vd1h, e;
-  if constexpr (kUniform) {
-    vdecay0 = p.s0 + p.s1 * sin2;
-    vd1h = 0.5f * p.s2 + (0.5f * p.s3) * sin2;
-    e = p.e0 - p.e1 * sin2;
-  } else {
-    vdecay0 = s[kS0] + s[kS1] * sin2;
-    vd1h = s[kS2] * 0.5f + (s[kS3] * 0.5f) * sin2;
-    e = s[kE0] - s[kE1] * sin2;
-  }
-
-  // half-angle pieces from one rsqrt of m4 = 4 sin^2(phi/2), taken from
-  // the coordinate difference (1 - cos phi cancels); the floor keeps the
-  // exactly aligned case bounded, interpolating through the reference's
-  // sign(sin phi) jump at phi = 0
-  const float ax = dxn - cs;
-  const float ay = dyn - ss;
-  const float m4 = fmaxf(ax * ax + ay * ay, 4e-12f);
-  const float th = vd1h * rsqrtf(m4);
-  const float sigma = vdecay0 - m4 * th;
-  const float ndsigm = th * sinphi;
-  const float ecos = e * cosphi;
-  const float ec2 = 1.0f - ecos * ecos;
-
-  // sigma <= 0 folds into P = 0 through the 1e-15 clamp
-  const float sig_c = fmaxf(sigma, 1e-15f);
-  const float P = s[kF0] * expf(-sqrtf(rho2 * ec2) * rsqrtf(sig_c * sig_c));
-  const float u = ec2 * sigma;
-  const float v = (e * sinphi) * (ecos * sigma) + ec2 * ndsigm;
-  const float inv_m = rsqrtf(fmaxf(u * u + v * v, 1e-30f));
-
-  const float neg_chf = kUniform ? -p.chf : -s[kCHF];
-  const float w =
-      pair_tracked<kFov, kP2R>(rho2, dxn, dyn, r, neg_chf) ? P * inv_m : 0.0f;
-  fx += w * (u * dxn - v * dyn);
-  fy += w * (u * dyn + v * dxn);
-}
-
-// ---- K1 (pair_forces.cu) ---------------------------------------------------
+// ---- the per-pair fields ---------------------------------------------------
 //
-// The same two fields, split in two parts. The decision chain -- dx, dy,
-// rho2, 1/rho, the unit separation (dxn, dyn), the FOV cone and
-// priority-to-the-right comparisons, and for the twod field ax, ay, m4
-// with its floor and sin phi -- decides on which side of a discontinuity
+// The BMD2023 "twod" field and the legacy v0.1 elliptic field, each split
+// in two parts. The decision chain -- dx, dy, rho2, 1/rho, the unit
+// separation (dxn, dyn), the FOV cone and priority-to-the-right
+// comparisons, and for the twod field ax, ay, m4 with its floor and sin
+// phi -- decides on which side of a discontinuity
 // of the field a pair falls: the cone edge, where a whole pair force
 // switches on or off, and the sign(sin phi) jump straight ahead of a
 // source (the sign of the half-angle term th sin phi). It is written with
 // __fadd_rn/__fsub_rn/__fmul_rn, which no flag contracts, in the plain
-// version's order (ops/pair_forces.py tile_forces), so K1 decides every
-// pair as the plain version does. The rest is smooth in those quantities:
+// version's order (ops/pair_forces.py tile_forces), so a kernel decides
+// every pair as the plain version does. The rest is smooth in those quantities:
 // explicit fmaf, the MUFU's approximate exponential and reciprocal square
 // roots, and one rsqrt for the exponent sqrt(rho2 ec2) / sigma where the
 // plain version takes a sqrt and an rsqrt. It differs from the plain
@@ -221,7 +89,7 @@ constexpr float kLog2eSq = 2.08136898100560770f;   // log2(e)^2
 
 // squared receiver-source distance in the decision chain's rounding, the
 // quantity the distance screens compare
-__device__ __forceinline__ float k1_rho2(float sx, float sy,
+__device__ __forceinline__ float rho2_rn(float sx, float sy,
                                          const Receiver& r) {
   const float dx = __fsub_rn(r.x, sx);
   const float dy = __fsub_rn(r.y, sy);
@@ -233,13 +101,13 @@ __device__ __forceinline__ float k1_rho2(float sx, float sy,
 // 0), inside the receiver's half FOV cone (kFov; neg_chf = -cos(hfov/2)),
 // not to its left (kP2R). The receiver's activity applies to its whole
 // sum, once, in the kernel.
-struct K1Frame {
+struct DecisionFrame {
   float rho2, inv_rho, dxn, dyn;
   bool tracked;
 };
 
 template <bool kFov, bool kP2R>
-__device__ __forceinline__ K1Frame k1_frame(float sx, float sy,
+__device__ __forceinline__ DecisionFrame decision_frame(float sx, float sy,
                                             const Receiver& r,
                                             float neg_chf) {
   const float dx = __fsub_rn(r.x, sx);
@@ -257,19 +125,19 @@ __device__ __forceinline__ K1Frame k1_frame(float sx, float sy,
   if constexpr (kP2R) {
     tracked &= __fsub_rn(__fmul_rn(dyn, r.c), __fmul_rn(dxn, r.s)) >= 0.0f;
   }
-  return K1Frame{rho2, inv_rho, dxn, dyn, tracked};
+  return DecisionFrame{rho2, inv_rho, dxn, dyn, tracked};
 }
 
-// a source row as K1 reads it from shared memory: columns 0-3, 4-7, 8-11
+// a source row as a kernel reads it from shared memory: columns 0-3, 4-7, 8-11
 // (16-byte loads) and the family column 13
-struct K1Row {
+struct SrcRow {
   float4 a, b, c;
   float fam;
 };
 
 template <bool kUniform, bool kMixed>
-__device__ __forceinline__ K1Row k1_load_row(const float4* row) {
-  K1Row s;
+__device__ __forceinline__ SrcRow load_row(const float4* row) {
+  SrcRow s;
   s.a = row[0];
   s.b = row[1];
   s.c = kUniform ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : row[2];
@@ -278,20 +146,20 @@ __device__ __forceinline__ K1Row k1_load_row(const float4* row) {
 }
 
 // the shared field parameters (`uniform`) in the form the pair loop uses
-// (e_0 and e_1 times log2(e), see k1_twod)
-struct K1Uniform {
+// (e_0 and e_1 times log2(e), see twod_pair)
+struct FieldConsts {
   float s0, s1, hs2, hs3, e0, e1, neg_chf;
 };
 
-__device__ __forceinline__ K1Uniform k1_uniform(const TwodParams& p) {
-  return K1Uniform{p.s0,          p.s1,          0.5f * p.s2, 0.5f * p.s3,
+__device__ __forceinline__ FieldConsts field_consts(const TwodParams& p) {
+  return FieldConsts{p.s0,          p.s1,          0.5f * p.s2, 0.5f * p.s3,
                    p.e0 * kLog2e, p.e1 * kLog2e, -p.chf};
 }
 
 // Add the twod field of row `s` at receiver `r` to (fx, fy).
 template <bool kUniform, bool kFov, bool kP2R>
-__device__ __forceinline__ void k1_twod(const K1Row& s, const Receiver& r,
-                                        const K1Uniform& p, float& fx,
+__device__ __forceinline__ void twod_pair(const SrcRow& s, const Receiver& r,
+                                        const FieldConsts& p, float& fx,
                                         float& fy) {
   const float cs = s.a.z, ss = s.a.w;
   float s0, s1, hs2, hs3, e0, e1, neg_chf;
@@ -303,7 +171,7 @@ __device__ __forceinline__ void k1_twod(const K1Row& s, const Receiver& r,
     e0 = s.b.y * kLog2e, e1 = s.b.z * kLog2e, neg_chf = -s.c.w;
   }
   // decision chain
-  const K1Frame f = k1_frame<kFov, kP2R>(s.a.x, s.a.y, r, neg_chf);
+  const DecisionFrame f = decision_frame<kFov, kP2R>(s.a.x, s.a.y, r, neg_chf);
   const float sinphi = __fsub_rn(__fmul_rn(f.dyn, cs), __fmul_rn(f.dxn, ss));
   const float ax = __fsub_rn(f.dxn, cs);
   const float ay = __fsub_rn(f.dyn, ss);
@@ -347,11 +215,11 @@ __device__ __forceinline__ void k1_twod(const K1Row& s, const Receiver& r,
 // Add the legacy field of row `s` (a legacy row of the mixed form) at
 // receiver `r` to (fx, fy).
 template <bool kFov, bool kP2R>
-__device__ __forceinline__ void k1_legacy(const K1Row& s, const Receiver& r,
+__device__ __forceinline__ void legacy_pair(const SrcRow& s, const Receiver& r,
                                           float& fx, float& fy) {
   const float cs = s.a.z, ss = s.a.w;
   const float amp = s.b.x, e = s.b.y, inv_se = s.b.z, inv_pd = s.b.w;
-  const K1Frame f = k1_frame<kFov, kP2R>(s.a.x, s.a.y, r, -s.c.w);
+  const DecisionFrame f = decision_frame<kFov, kP2R>(s.a.x, s.a.y, r, -s.c.w);
   const float cosphi = fmaf(f.dxn, cs, f.dyn * ss);
   const float sinphi = fmaf(f.dyn, cs, -(f.dxn * ss));
   const float u = fmaf(-e, cosphi, 1.0f) * inv_se;
@@ -365,25 +233,31 @@ __device__ __forceinline__ void k1_legacy(const K1Row& s, const Receiver& r,
 }
 
 // Add row `s`'s field at each of a thread's R receivers to its sums, in
-// the forms of pair_accumulate. In K1 every thread of a warp reads the
-// same source row, so the mixed form's family branch is warp-uniform and
-// a legacy row evaluates only its own field.
+// its form:
+//   kUniform: the 7 twod field parameters come from `p`, else from the row;
+//   kFov:     the receiver must see the source inside its half FOV cone;
+//   kP2R:     priority to the right, (dyn cr - dxn sr) >= 0;
+//   kMixed:   the row's family column selects the legacy field (1) or the
+//             twod field from the row's columns (0); excludes kUniform.
+// In the kernels every thread of a warp reads the same source row, so the
+// family branch is warp-uniform: a row evaluates its own field only (the
+// Pallas tile evaluates both on its vector lanes and selects).
 template <bool kUniform, bool kFov, bool kP2R, bool kMixed, int R>
-__device__ __forceinline__ void k1_pairs(const K1Row& s,
+__device__ __forceinline__ void add_pairs(const SrcRow& s,
                                          const Receiver (&r)[R],
-                                         const K1Uniform& p, float (&fx)[R],
+                                         const FieldConsts& p, float (&fx)[R],
                                          float (&fy)[R]) {
   static_assert(!(kUniform && kMixed), "the mixed form reads the columns");
   if constexpr (kMixed) {
     if (s.fam > 0.5f) {
 #pragma unroll
-      for (int i = 0; i < R; ++i) k1_legacy<kFov, kP2R>(s, r[i], fx[i], fy[i]);
+      for (int i = 0; i < R; ++i) legacy_pair<kFov, kP2R>(s, r[i], fx[i], fy[i]);
       return;
     }
   }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
-    k1_twod<kUniform, kFov, kP2R>(s, r[i], p, fx[i], fy[i]);
+    twod_pair<kUniform, kFov, kP2R>(s, r[i], p, fx[i], fy[i]);
   }
 }
 
@@ -398,23 +272,6 @@ inline void with_flag(bool v, F&& f) {
   } else {
     f(std::false_type{});
   }
-}
-
-// 16-byte global -> shared copy that bypasses L1 (cp.async.cg)
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace csf

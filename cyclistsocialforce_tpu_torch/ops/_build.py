@@ -8,6 +8,16 @@ library is named by a hash of the sources, the headers they include
 (`csrc/*.cuh`) and the flags, so an unchanged tree never rebuilds and an
 edited header always does. It runs at the first CUDA launch, never at
 import. A missing nvcc or a failed compile raises.
+
+The three kernels (K1 `pair_forces.cu`, K2 `pair_forces_unrolled.cu`, K3
+`pair_forces_db.cu`) share one per-pair math (`pair_math.cuh`) and one
+CTA shape (`pair_groups.cuh`): a receiver block is 8 groups of 64 threads,
+2 receivers per thread, whose partial sums are added in a fixed order.
+K1 hands whole table slots to the groups; K2 stages a row's tiles in
+shared memory in rounds of 96 KB (any kb) and splits a round's rows
+evenly over the groups; K3 streams 128-row tiles through a 4-slot ring,
+every group on 16 rows of each tile, the tile screen voted across the
+groups.
 """
 
 from __future__ import annotations
@@ -23,16 +33,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-# -fmad=false: no contraction of a*b + c into one fused multiply-add, so
-# K2 and K3 round each operation as their plain PyTorch version does and
-# agree with it pair by pair, also where the force field is discontinuous
-# (the FOV cone edge, the sign(sin phi) jump) and one rounding step
-# decides which side of it a pair falls on. K1 does not rely on the flag:
-# it rounds that decision chain with __fadd_rn/__fsub_rn/__fmul_rn, which
-# no flag contracts, and fuses explicitly (fmaf) where the field is smooth
-# (csrc/pair_math.cuh)
+# No flag constrains how the compiler rounds: the kernels round the
+# operations that decide a pair at a discontinuity of the field (the FOV
+# cone edge, the sign(sin phi) jump) with __fadd_rn/__fsub_rn/__fmul_rn,
+# which nothing contracts, in their plain PyTorch version's order, and fuse
+# explicitly (fmaf) where the field is smooth (csrc/pair_math.cuh)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 build_seconds = None   # wall time of this process's compile (None: cached)

@@ -13,7 +13,7 @@ legacy v0.1 elliptic field, by its column 13.
                                   tile or strip distance screen
   pair_forces_neighbors_unrolled  K2 `_pair_kernel_unrolled`,
                                   `csrc/pair_forces_unrolled.cu`: every
-                                  tile staged up front, no screen
+                                  tile staged before use, no screen
   pair_forces_neighbors_db        K3 `_pair_kernel_db`,
                                   `csrc/pair_forces_db.cu`: a 4-slot ring
                                   of 128-row tiles, the tile screen at the
@@ -366,9 +366,18 @@ def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
     on CUDA tensors, the plain version (unscreened) on CPU tensors;
     arguments and result as in `pair_forces_neighbors_ref`.
 
-    The kernel takes float32 packs, an int32 table and block = 128, and
-    needs kb * block_src * 64 bytes of shared memory per block: a launch
-    above the device's opt-in limit raises."""
+    The kernel takes float32 packs, an int32 table and block = 128. It
+    stages a receiver block's source tiles in shared memory by bulk
+    copies, each tile reporting its own arrival, in rounds of at most
+    96 KB (the main path's kb = 19 at block_src = 64 is one round), so
+    any kb is taken. The block's 8 thread groups (two receivers per
+    thread) split a round's source rows evenly and wait only for the
+    tiles they read; their sums are added in a fixed order, so a call
+    gives the same result every time. Per pair it is K1's math: every
+    decision (FOV cone, priority to the right, the sign(sin phi) jump)
+    rounds as the plain version's, the smooth rest is fused and uses the
+    GPU's approximate exp2 and rsqrt, within a few float32 ulps of each
+    pair force of the plain version."""
     block_src = block_src or block
     is_uniform, field = _field_args(uniform, mixed)
     if not _on_cuda("pair_forces_neighbors_unrolled", nbr, valid, src_pack,
@@ -398,7 +407,20 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
     (with `mixed`, each row's own family). Source and receiver blocks
     are both `block` = 128 agents. The CUDA kernel on CUDA tensors, the
     plain version (screened, per-source columns) on CPU tensors; result
-    as in `pair_forces_neighbors_ref`."""
+    as in `pair_forces_neighbors_ref`.
+
+    The kernel takes float32 packs and an int32 table. Tiles stream
+    through a 4-slot ring in shared memory: a bulk copy fills a slot and
+    reports to the slot's barrier, and the last warp to finish a tile
+    starts the copy of the tile 4 slots on. Each of the block's 8 thread
+    groups (two receivers per thread) takes 16 rows of every tile. A
+    tile is skipped exactly when the plain version skips it: every group
+    votes on its rows (inactive and pad rows included), one group in
+    range admits the tile for all, and a group out of range waits for
+    the others' votes. The groups' sums are added in a fixed order, so a
+    call gives the same result every time; per pair it is K1's math
+    (decisions rounded as the plain version's, the smooth rest fused,
+    within a few float32 ulps of each pair force)."""
     if not _on_cuda("pair_forces_neighbors_db", nbr, valid, src_pack,
                     recv_pack):
         return pair_forces_neighbors_ref(

@@ -1,18 +1,20 @@
-"""PyTorch port: K1 (`csrc/pair_forces.cu`) held to its plain version on
-pairs placed at the discontinuities of the pair field, where one rounding
-step decides a whole pair force: exactly on a receiver's FOV cone edge
+"""PyTorch port: the three pair kernels (K1 `csrc/pair_forces.cu`, K2
+`csrc/pair_forces_unrolled.cu`, K3 `csrc/pair_forces_db.cu`) held to their
+plain version on pairs placed at the discontinuities of the pair field,
+where one rounding step decides a whole pair force: exactly on a receiver's FOV cone edge
 (and up to 3 ulps either side), straight ahead of a source (|sin phi| of
 0 to ~2e-6, the sign(sin phi) jump, with and without the
 priority-to-the-right edge),
 coincident (rho2 = 0), with sigma <= 0 (one such pair ~1e-9 m apart
 near the origin, where sigma^2 times the squared distance underflows
 float32), with zero amplitude, at the distance screen's cutoff (exactly,
-and one ulp beyond), and at inactive receivers. K1 rounds the operations
-that decide these (its decision chain) as the plain version does and
-fuses the smooth rest, so every force must agree within the kernels'
-float32 bar in every form. The plain version itself is held to the JAX
-package's Pallas kernel (interpret mode) on the same inputs, so the chain
-JAX -> plain -> K1 is closed on the edges.
+and one ulp beyond), and at inactive receivers. The kernels share one
+per-pair math (`csrc/pair_math.cuh`), which rounds the operations that
+decide these (its decision chain) as the plain version does and fuses the
+smooth rest, so every force must agree within the kernels' float32 bar in
+every form of every kernel. The plain version itself is held to the JAX
+package's Pallas kernels (interpret mode) on the same inputs, so the
+chain JAX -> plain -> CUDA kernel is closed on the edges.
 
 The inputs are built with numpy from a seed. The card's tests skip
 without a CUDA device (and need no JAX):
@@ -201,8 +203,40 @@ def edge_inputs(seed=0, mixed=False):
     return nbr, valid, src, recv, target
 
 
-def torch_inputs(device, mixed=False, seed=0):
-    nbr, valid, src, recv, _ = edge_inputs(seed, mixed)
+# K3's inputs (`edge_inputs_db`): blocks of 128 sources, the tile screen
+# always on; the tile of the screen-edge rows is admitted at CUTOFF (32 of
+# its rows lie exactly at it) and skipped at the float32 just below
+DB_BLOCK_SRC = 128
+CUTOFF_BELOW = float(np.nextafter(np.float32(CUTOFF), np.float32(0)))
+FAR = 1.0e4                         # pad rows: silent, far from everything
+
+
+def edge_inputs_db(seed=0, mixed=False):
+    """`edge_inputs` rebuilt at block_src 128, as K3 takes it: (nbr,
+    valid, src_pack, recv_pack, target) with the same receivers and five
+    source tiles. Tiles 0-2 are rows 0-383 as they are; tile 3 is rows
+    384-447 and 64 pad rows (silent, FAR away); tile 4 is the screen edge
+    alone: the 32 rows exactly CUTOFF from the point P of receivers
+    448-511, the 32 rows one ulp beyond, and 64 more copies of those. No
+    other receiver of block 3 is within CUTOFF of tile 4, so its edge rows
+    decide whether the tile screen admits it: at CUTOFF it does, at
+    CUTOFF_BELOW it does not. Block 2's table is the short prefix of 3."""
+    _, _, src, recv, target = edge_inputs(seed, mixed)
+    pad = src[480:512].repeat(2, axis=0)            # any rows: overwritten
+    pad[:, 0:2] = FAR
+    pad[:, 4] = 0.0
+    src = np.concatenate([src[:448], pad, src[448:512],
+                          src[480:512].repeat(2, axis=0)])
+    assert src.shape[0] == 5 * DB_BLOCK_SRC
+    target = np.concatenate([target[:448], np.full(192, -1)])
+    nbr = np.tile(np.arange(5, dtype=np.int32), (N_RECV_BLOCKS, 1))
+    valid = np.ones(nbr.shape, bool)
+    valid[2, 3:] = False
+    return nbr, valid, src, recv, target
+
+
+def torch_inputs(device, mixed=False, seed=0, make=edge_inputs):
+    nbr, valid, src, recv, _ = make(seed, mixed)
     return tuple(torch.as_tensor(a, device=device)
                  for a in (nbr, valid, src, recv))
 
@@ -300,51 +334,65 @@ FORMS = {
 }
 
 
+# K2's forms (no screen) and K3's (the tile screen and per-source columns
+# always): name -> (mixed pack, wrapper options)
+K2_FORMS = {
+    "uniform": (False, {"uniform": UNIFORM}),
+    "columns": (False, {}),
+    "uniform_fov_off": (False, {"uniform": UNIFORM, "fov": False}),
+    "uniform_p2r": (False, {"uniform": UNIFORM, "priority_p2r": True}),
+    "mixed": (True, {"mixed": True}),
+    "mixed_p2r": (True, {"mixed": True, "priority_p2r": True}),
+}
+K3_FORMS = {
+    "columns": (False, {}),
+    "columns_p2r": (False, {"priority_p2r": True}),
+    "mixed": (True, {"mixed": True}),
+}
+# K3's cutoff by seed: the screen-edge tile admitted, and skipped
+K3_CUTOFF = {0: CUTOFF, 1: CUTOFF_BELOW}
+
+
 @pytest.fixture
-def pallas_k1():
-    """The JAX package's K1 (`pair_forces_neighbors`, interpret mode) on
-    numpy inputs, in a form of FORMS."""
+def pallas():
+    """The JAX package's Pallas kernels (interpret mode) on numpy inputs:
+    run(kernel, arrays, mixed, opts, cutoff) with kernel "k1", "k2" or
+    "k3" and `opts` a form's wrapper options."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
     from cyclistsocialforce_tpu.ops import pallas_forces
 
-    def run(arrays, mixed, opts):
+    def run(kernel, arrays, mixed, opts, cutoff=CUTOFF):
         jn, jv, js, jr = (jnp.asarray(a) for a in arrays)
-        return np.asarray(pallas_forces.pair_forces_neighbors(
-            jn, jv, js, jr, block=BLOCK, block_src=BLOCK_SRC,
-            interpret=True, cutoff=CUTOFF, mixed=mixed,
-            screen=opts.get("screen", False), sub=opts.get("sub", 0),
-            fov=opts.get("fov", True),
-            priority_p2r=opts.get("priority_p2r", False),
-            uniform=opts.get("uniform")))
+        common = dict(block=BLOCK, interpret=True, mixed=mixed,
+                      fov=opts.get("fov", True),
+                      priority_p2r=opts.get("priority_p2r", False))
+        if kernel == "k1":
+            out = pallas_forces.pair_forces_neighbors(
+                jn, jv, js, jr, block_src=BLOCK_SRC, cutoff=cutoff,
+                screen=opts.get("screen", False), sub=opts.get("sub", 0),
+                uniform=opts.get("uniform"), **common)
+        elif kernel == "k2":
+            out = pallas_forces.pair_forces_neighbors_unrolled(
+                jn, jv, js, jr, block_src=BLOCK_SRC,
+                uniform=opts.get("uniform"), **common)
+        else:
+            out = pallas_forces.pair_forces_neighbors_db(
+                jn, jv, js, jr, cutoff=cutoff, **common)
+        return np.asarray(out)
 
     return run
 
 
-@pytest.mark.parametrize("form", sorted(FORMS))
-@pytest.mark.parametrize("seed", [0, 1])
-def test_plain_decides_edges_as_pallas_interpret(pallas_k1, form, seed):
-    """The port's plain float32 version (its wrapper on CPU tensors) in
-    each form against the JAX package's Pallas kernel of the same form in
-    interpret mode, on the edge inputs. Every force agrees within ATOL +
-    RTOL |JAX| but at the receivers of the pairs placed on the cone edge,
-    on the priority edge or straight ahead: there the two may take that
-    one pair's decision differently, because XLA on the CPU contracts
-    a*b + c*d into fused multiply-adds and rounds rsqrt its own way (not
-    as 1 / sqrt), so a decision value a few ulps from its bound can land
-    on the other side. There they differ by at most that pair's own
-    force, twice (the jump at phi = 0 reverses it). Coincident pairs,
-    sigma <= 0 (the tiny pair too), silent rows, inactive receivers and
-    the screen's cutoff are decided alike."""
-    mixed, opts = FORMS[form]
-    nbr, valid, src, recv, target = edge_inputs(seed, mixed)
-    want = pallas_k1((nbr, valid, src, recv), mixed, opts)
-    kw = dict(block=BLOCK, block_src=BLOCK_SRC, cutoff=CUTOFF, **opts)
-    PF.reset_launches()
-    got = PF.pair_forces_neighbors(*torch_inputs("cpu", mixed, seed), **kw)
-    assert PF.pair_forces_neighbors.launches == 0
-    err = np.abs(got.numpy() - want)
+def assert_edges_decided_as(want, got, src, recv, target, mixed, uniform):
+    """`got` (the port's plain version) against `want` (the Pallas kernel,
+    interpret mode): within ATOL + RTOL |want| at every receiver but those
+    of the pairs placed on the cone edge, on the priority edge or straight
+    ahead, where they differ by at most that pair's own force, twice (the
+    jump at phi = 0 reverses it). Returns (receivers that differ, edge
+    receivers, max |diff|)."""
+    err = np.abs(got - want)
     tol = ATOL + RTOL * np.abs(want)
     assert np.abs(want).max() > 1.0
 
@@ -359,12 +407,89 @@ def test_plain_decides_edges_as_pallas_interpret(pallas_k1, form, seed):
     rv = [t(recv[k, target[rows]])[:, None, None] for k in range(4)]
     fx, fy = PF.tile_forces(t(src[rows])[:, None, :], *rv,
                             torch.ones_like(rv[0]), fov=False, mixed=mixed,
-                            uniform=opts.get("uniform"))
+                            uniform=uniform)
     own = torch.hypot(fx, fy).flatten().numpy()
     r = target[rows]
     assert np.all(err[:, r] <= tol[:, r] + 2 * own)
-    print(f"{form} seed {seed}: {int((err > tol).any(0).sum())} of "
-          f"{edge.sum()} edge receivers differ, max |diff| {err.max():.3e}")
+    return int((err > tol).any(0).sum()), int(edge.sum()), float(err.max())
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_decides_edges_as_pallas_interpret(pallas, form, seed):
+    """The port's plain float32 version (its wrapper on CPU tensors) in
+    each form against the JAX package's Pallas kernel of the same form in
+    interpret mode, on the edge inputs. Every force agrees within ATOL +
+    RTOL |JAX| but at the receivers of the pairs placed on the cone edge,
+    on the priority edge or straight ahead: there the two may take that
+    one pair's decision differently, because XLA on the CPU contracts
+    a*b + c*d into fused multiply-adds and rounds rsqrt its own way (not
+    as 1 / sqrt), so a decision value a few ulps from its bound can land
+    on the other side. There they differ by at most that pair's own
+    force, twice (the jump at phi = 0 reverses it). Coincident pairs,
+    sigma <= 0 (the tiny pair too), silent rows, inactive receivers and
+    the screen's cutoff are decided alike."""
+    mixed, opts = FORMS[form]
+    nbr, valid, src, recv, target = edge_inputs(seed, mixed)
+    want = pallas("k1", (nbr, valid, src, recv), mixed, opts)
+    kw = dict(block=BLOCK, block_src=BLOCK_SRC, cutoff=CUTOFF, **opts)
+    PF.reset_launches()
+    got = PF.pair_forces_neighbors(*torch_inputs("cpu", mixed, seed), **kw)
+    assert PF.pair_forces_neighbors.launches == 0
+    n_diff, n_edge, worst = assert_edges_decided_as(
+        want, got.numpy(), src, recv, target, mixed, opts.get("uniform"))
+    print(f"{form} seed {seed}: {n_diff} of {n_edge} edge receivers "
+          f"differ, max |diff| {worst:.3e}")
+
+
+@pytest.mark.parametrize("form", sorted(K2_FORMS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_decides_edges_as_pallas_interpret_k2(pallas, form, seed):
+    """K2's wrapper on CPU tensors (the plain version, unscreened) in each
+    of K2's forms against the JAX package's
+    `pair_forces_neighbors_unrolled` in interpret mode on the edge
+    inputs, by the rule of `test_plain_decides_edges_as_pallas_interpret`."""
+    mixed, opts = K2_FORMS[form]
+    nbr, valid, src, recv, target = edge_inputs(seed, mixed)
+    want = pallas("k2", (nbr, valid, src, recv), mixed, opts)
+    PF.reset_launches()
+    got = PF.pair_forces_neighbors_unrolled(
+        *torch_inputs("cpu", mixed, seed), block=BLOCK, block_src=BLOCK_SRC,
+        **opts)
+    assert PF.pair_forces_neighbors_unrolled.launches == 0
+    assert_edges_decided_as(want, got.numpy(), src, recv, target, mixed,
+                            opts.get("uniform"))
+
+
+@pytest.mark.parametrize("form", sorted(K3_FORMS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_decides_edges_as_pallas_interpret_k3(pallas, form, seed):
+    """K3's wrapper on CPU tensors (the plain version with the tile screen
+    and per-source columns) in each of K3's forms against the JAX
+    package's `pair_forces_neighbors_db` in interpret mode, on the edge
+    inputs rebuilt at block_src 128, by the same rule. Seed 0 runs at the
+    cutoff that admits the screen-edge tile, seed 1 at the float32 just
+    below, which skips it; both decide the tile alike. In the mixed form
+    the tile's legacy rows push the edge receivers by more than the
+    tolerance, so the two cutoffs give different sums."""
+    mixed, opts = K3_FORMS[form]
+    cutoff = K3_CUTOFF[seed]
+    nbr, valid, src, recv, target = edge_inputs_db(seed, mixed)
+    want = pallas("k3", (nbr, valid, src, recv), mixed, opts, cutoff)
+    tensors = torch_inputs("cpu", mixed, seed, edge_inputs_db)
+    PF.reset_launches()
+    got = PF.pair_forces_neighbors_db(*tensors, block=BLOCK, cutoff=cutoff,
+                                      **opts)
+    assert PF.pair_forces_neighbors_db.launches == 0
+    assert torch.all(got[:, ::13] == 0)
+    assert_edges_decided_as(want, got.numpy(), src, recv, target, mixed,
+                            None)
+    if mixed:
+        other = PF.pair_forces_neighbors_db(
+            *tensors, block=BLOCK, cutoff=K3_CUTOFF[1 - seed], **opts)
+        moved = (got - other).abs()[:, 448:]
+        assert moved.max() > 10 * ATOL
+        assert torch.equal(got[:, :384], other[:, :384])
 
 
 @pytest.fixture
@@ -374,24 +499,60 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def check_cuda_edges(fn, tensors, kw, plain_kw):
+    """Kernel `fn` on the card against its plain version: every force
+    within ATOL + RTOL |plain| (a pair decided the other way would move a
+    force by more), inactive receivers exactly 0, one launch counted, and
+    the same call twice the same bits (the groups' partial sums are added
+    in a fixed order)."""
+    before = fn.launches
+    got = fn(*tensors, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = PF.pair_forces_neighbors_ref(*tensors, **plain_kw)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert torch.all(got[:, ::13] == 0)
+    assert want.abs().max() > 1.0
+    assert torch.equal(fn(*tensors, **kw), got)
+    return got
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("seed", [0, 1])
 def test_cuda_k1_decides_edges_as_plain(cuda_device, form, seed):
-    """K1 in each form against its plain version on the card: every force
-    within ATOL + RTOL |plain| (a pair decided the other way would move a
-    force by more), inactive receivers exactly 0, one launch counted."""
+    """K1 in each form against its plain version on the card
+    (`check_cuda_edges`)."""
     mixed, opts = FORMS[form]
-    tensors = torch_inputs(cuda_device, mixed, seed)
     kw = dict(block=BLOCK, block_src=BLOCK_SRC, cutoff=CUTOFF, **opts)
-    before = PF.pair_forces_neighbors.launches
-    got = PF.pair_forces_neighbors(*tensors, **kw)
-    torch.cuda.synchronize()
-    assert PF.pair_forces_neighbors.launches == before + 1
-    want = PF.pair_forces_neighbors_ref(*tensors, **kw)
-    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
-    assert torch.all(got[:, ::13] == 0)
-    assert want.abs().max() > 1.0
-    # the same call twice gives the same bits (the groups' partial sums
-    # are added in a fixed order)
-    assert torch.equal(PF.pair_forces_neighbors(*tensors, **kw), got)
+    check_cuda_edges(PF.pair_forces_neighbors,
+                     torch_inputs(cuda_device, mixed, seed), kw, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(K2_FORMS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_k2_decides_edges_as_plain(cuda_device, form, seed):
+    """K2 in each form against its plain version on the card
+    (`check_cuda_edges`)."""
+    mixed, opts = K2_FORMS[form]
+    kw = dict(block=BLOCK, block_src=BLOCK_SRC, **opts)
+    check_cuda_edges(PF.pair_forces_neighbors_unrolled,
+                     torch_inputs(cuda_device, mixed, seed), kw, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", sorted(K3_FORMS))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_k3_decides_edges_as_plain(cuda_device, form, seed):
+    """K3 in each form against its plain version on the card
+    (`check_cuda_edges`), on the edge inputs at block_src 128: at the
+    cutoff that admits the screen-edge tile (seed 0) and at the one that
+    skips it (seed 1)."""
+    mixed, opts = K3_FORMS[form]
+    cutoff = K3_CUTOFF[seed]
+    kw = dict(block=BLOCK, cutoff=cutoff, **opts)
+    plain_kw = dict(kw, block_src=DB_BLOCK_SRC, screen=True)
+    check_cuda_edges(PF.pair_forces_neighbors_db,
+                     torch_inputs(cuda_device, mixed, seed, edge_inputs_db),
+                     kw, plain_kw)

@@ -428,7 +428,10 @@ def test_cuda_form_matches_plain(cuda_device, form):
 
 
 @pytest.mark.cuda
-def test_cuda_mixed_and_shared_memory_limit_raise(cuda_device):
+def test_cuda_mixed_equals_columns_and_any_kb_is_taken(cuda_device):
+    """`mixed` on an all-twod pack equals the per-column call bit for bit
+    in each kernel; `mixed` with uniform constants raises; K2 takes a
+    table of any length (it stages a long row in rounds)."""
     _, tensors, kw = form_inputs("k2_uniform", 20_000, cuda_device, 50.0,
                                  kb=40)
     _, db_tensors, db_kw = form_inputs("k3", 20_000, cuda_device, 50.0,
@@ -443,10 +446,16 @@ def test_cuda_mixed_and_shared_memory_limit_raise(cuda_device):
     for fn in PF.KERNELS[:2]:
         with pytest.raises(ValueError, match="mixed"):
             fn(*tensors, mixed=True, uniform=kw["uniform"])
-    # 400 slots of 64 rows need 1.6 MB of shared memory: refused
-    nbr, valid = (t.repeat(1, 10) for t in tensors[:2])
-    with pytest.raises(RuntimeError, match="shared memory"):
-        PF.pair_forces_neighbors_unrolled(nbr, valid, *tensors[2:], **kw)
+    # 400 slots of 64 rows are 1.6 MB of tiles, 17 rounds: the table
+    # repeated 10 times with every slot valid (an invalid slot holds
+    # block 0, summed here like any other)
+    nbr = tensors[0].repeat(1, 10)
+    valid = torch.ones_like(tensors[1]).repeat(1, 10)
+    got = PF.pair_forces_neighbors_unrolled(nbr, valid, *tensors[2:], **kw)
+    want = PF.pair_forces_neighbors_ref(nbr, valid, *tensors[2:], **kw,
+                                        chunk=8)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert want.abs().max() > 1.0
 
 
 @pytest.mark.cuda
