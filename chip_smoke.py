@@ -33,9 +33,13 @@ non-zero):
                legacy crowd, and K1's mixed form unscreened against K2's
                mixed form on the same table;
   5. audit     no receiver block overflows the neighbor table at t = 0;
-  6. slice     240 steps of Engine.simulate on the card: one K1 launch per
-               step, a finite state, no overflow at t = end, and the
-               best-of-3 wall time per step;
+  6. slice     240 steps of Engine.simulate on the card, as a user calls it:
+               each 20-step chunk one replay of a CUDA graph. 240 K1
+               launches counted (replays x 20), a finite state, no overflow
+               at t = end, the time of the first run and of the capture in
+               it; then the eager loop (`graph=False`) and the graphed one
+               timed in turns, three runs of each: ms per step of both,
+               their spreads and the ratio;
   7. slice_unrolled  the same 240 steps through K2: 240 K2 launches and
                no K1 launch;
   8. slice_db  240 steps of 100,000 riders with per-rider f_0 and sigma_0
@@ -59,7 +63,22 @@ non-zero):
                on the CPU in float32 (the two tiers of `parity`) and in
                float64 (every rider within the cap; the 99.9% tier is
                reported beside the CPU float32 run's own distance from
-               float64, which fails it alike: see PARITY_LEG_N).
+               float64, which fails it alike: see PARITY_LEG_N);
+ 13. graph_parity  on each of the four paths 45 steps (two chunks and a
+               5-step tail) with `graph=False` and with the graph from the
+               same 100,000-rider state: every field of the final state
+               bit-equal, again with `record_metrics=True`, and with
+               `record=True` on a 4,096-rider crowd; one eager chunk with
+               every host synchronisation an error;
+ 14. metrics   `simulate(state, 240, record=False, record_metrics=True)` on
+               the main path: [240, 8], finite, 100,000 active and no
+               overflow in every row, speeds within the model's limits;
+ 15. aliasing  two `simulate` calls on one engine from two states: the
+               first call's state and records are unchanged by the second;
+ 16. profile   one torch.profiler window of 40 graphed steps of the main
+               path: device kernels and host launches per step, device-busy
+               ms per step, the card's idle share, the kernels that take
+               most of the time.
 
 Then the script's wall time, a JSON line with the kernels' launch counts
 (each from its own path, with every count set to 0 just before it),
@@ -72,6 +91,7 @@ non-zero before printing any result.
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -79,6 +99,10 @@ import time
 N_AGENTS, DENSITY, HIST_LEN = 100_000, 0.02, 8
 BLOCK, BLOCK_SRC, KB, CUTOFF, REBUILD = 128, 64, 19, 50.0, 20
 N_STEPS = 240
+# graph_parity: two chunks and a 5-step tail; the recorded run's crowd
+GRAPH_PARITY_STEPS, GRAPH_PARITY_RECORD_N = 45, 4096
+# the profiled window: two chunks
+PROFILE_STEPS = 40
 # the JAX package's float32 bar for its own pair kernel against its
 # float64 oracle (tests/test_neighbors.py): |kernel - plain| <= A + R|plain|
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 2e-4
@@ -537,10 +561,12 @@ def phase_db_config(state):
 
 
 def phase_slice(phase, engine, state, kernel):
-    """N_STEPS steps of `engine.simulate`, each through `kernel`: exactly
-    N_STEPS launches of it and none of the other kernels (every count set
-    to 0 just before the run), a finite state, no table overflow at t = 0
-    and t = end, then the best-of-3 wall time per step."""
+    """N_STEPS steps of `engine.simulate` as a user calls it (on the card
+    each chunk is one CUDA-graph replay), each step through `kernel`:
+    exactly N_STEPS launches of it counted and none of the other kernels
+    (every count set to 0 just before the run), a finite state, no table
+    overflow at t = 0 and t = end. Then the eager loop and the graphed one
+    timed in turns, three runs of each."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
@@ -554,8 +580,15 @@ def phase_slice(phase, engine, state, kernel):
     first_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in PF.KERNELS}
     finite = bool(torch.isfinite(final.s).all())
+    runner, = engine._runners.values()
+    if runner.graph is None or not runner.presorted:
+        raise AssertionError(f"{phase}: the run did not go through a "
+                             f"captured sorted-resident chunk")
     emit(f"{phase}_run", steps=N_STEPS, backend=engine.neighbors.backend,
-         kernel_launches=launches, finite=finite, first_run_s=first_s)
+         kernel_launches=launches, finite=finite, first_run_s=first_s,
+         capture_s=runner.capture_seconds,
+         captured_launches_per_replay=dict(zip(
+             (fn.__name__ for fn in PF.KERNELS), runner.captured)))
     want = {fn.__name__: N_STEPS * (fn is kernel) for fn in PF.KERNELS}
     if launches != want:
         raise AssertionError(f"{phase}: expected launches {want}, counted "
@@ -564,19 +597,222 @@ def phase_slice(phase, engine, state, kernel):
         raise AssertionError(f"{phase}: non-finite state after the run")
     audit_overflow(engine, final, f"{phase} t=end")
 
-    dts = []
+    runs = {"eager": [], "graphed": []}
     for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine.simulate(state, N_STEPS, record=False)
-        torch.cuda.synchronize()
-        dts.append(time.perf_counter() - t0)
-    dt = min(dts)
+        for how, graph in (("eager", False), ("graphed", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.simulate(state, N_STEPS, record=False, graph=graph)
+            torch.cuda.synchronize()
+            runs[how].append(time.perf_counter() - t0)
+    if len(engine._runners) != 1:
+        raise AssertionError(f"{phase}: the timed runs captured again")
+
+    def ms(seconds):
+        return 1e3 * seconds / N_STEPS
+
+    dt = min(runs["graphed"])
+    med = {how: ms(statistics.median(r)) for how, r in runs.items()}
     emit(phase, n_agents=N_AGENTS, n_padded=state.n, steps=N_STEPS,
-         backend=engine.neighbors.backend, ms_per_step=1e3 * dt / N_STEPS,
+         backend=engine.neighbors.backend, ms_per_step=ms(dt),
          agent_steps_per_s=N_AGENTS * N_STEPS / dt,
-         spread_pct=100.0 * (max(dts) - dt) / dt, runs_s=dts)
+         median_ms_per_step=med,
+         best_ms_per_step={how: ms(min(r)) for how, r in runs.items()},
+         spread_ms_per_step={how: ms(max(r) - min(r))
+                             for how, r in runs.items()},
+         eager_over_graphed=med["eager"] / med["graphed"], runs_s=runs)
     return launches[kernel.__name__]
+
+
+def states_differ(a, b):
+    """The fields in which two states are not bit-equal."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import _STATE_FIELDS
+
+    return [f for f in _STATE_FIELDS
+            if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def phase_graph_parity(paths, state):
+    """The graphed run against the eager loop, bit for bit: on each path
+    GRAPH_PARITY_STEPS steps from the 100,000-rider state without records
+    and with the per-step metrics; on the main path's engine with the
+    [T, N, 8] record on a GRAPH_PARITY_RECORD_N-rider crowd. And one eager
+    chunk of the main path with every host synchronisation an error (what
+    a capture would refuse)."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import permute_state
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
+    small = build_population(GRAPH_PARITY_RECORD_N, DENSITY, HIST_LEN, BLOCK,
+                             torch.float32, "cuda")
+    cases = [(name, engine, state, kw) for name, engine in paths.items()
+             for kw in (dict(record=False),
+                        dict(record=False, record_metrics=True))]
+    cases.append(("slice", paths["slice"], small, dict(record=True)))
+    for name, engine, st, kw in cases:
+        eager, rec_e = engine.simulate(st, GRAPH_PARITY_STEPS, graph=False,
+                                       **kw)
+        graphed, rec_g = engine.simulate(st, GRAPH_PARITY_STEPS, graph=True,
+                                         **kw)
+        torch.cuda.synchronize()
+        differ = states_differ(eager, graphed)
+        if rec_e is not None and not torch.equal(rec_e, rec_g):
+            differ.append("records")
+        emit("graph_parity", path=name, n=st.n, steps=GRAPH_PARITY_STEPS,
+             rebuild_every=REBUILD, options=kw, fields_differing=differ,
+             records=None if rec_e is None else list(rec_e.shape))
+        if differ:
+            raise AssertionError(f"graph_parity {name} {kw}: the graphed "
+                                 f"run differs from the eager loop in "
+                                 f"{differ}")
+
+    engine = paths["slice"]
+    cache = engine.neighbor_cache(state)
+    st = permute_state(state, cache[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.run_chunk(st, cache, REBUILD, presorted=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    emit("graph_parity", check="one eager chunk under "
+         "torch.cuda.set_sync_debug_mode('error')", steps=REBUILD,
+         sync_points=0)
+
+
+def phase_metrics(engine, state):
+    """The per-step metrics of the main path at full width, through the
+    sorted-resident graphed chunks."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.params import pair_hi, pair_lo
+
+    names = engine.METRIC_NAMES
+    t0 = time.perf_counter()
+    _, m = engine.simulate(state, N_STEPS, record=False, record_metrics=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    cols = dict(zip(names, m.double().cpu().T))
+    lo = pair_lo(engine.params.v_max_riding)
+    hi = pair_hi(engine.params.v_max_riding)
+    checks = {
+        "shape": tuple(m.shape) == (N_STEPS, len(names)),
+        "finite": bool(torch.isfinite(m).all()),
+        "n_active": bool((cols["n_active"] == N_AGENTS).all()),
+        "nbr_overflow": bool((cols["nbr_overflow"] == 0).all()),
+        "v_max": bool(((cols["v_max"] >= lo) & (cols["v_max"] <= hi)).all()),
+        "v_mean": bool(((cols["v_mean"] >= lo)
+                        & (cols["v_mean"] <= cols["v_max"])).all()),
+        "f_max": bool((cols["f_max"] >= cols["f_mean"]).all()),
+    }
+    emit("metrics", steps=N_STEPS, shape=list(m.shape), run_s=run_s,
+         speed_limits=[lo, hi], checks=checks,
+         last_row=dict(zip(names, m[-1].tolist())))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"metrics failed: {failed}")
+
+
+def phase_aliasing(engine, state):
+    """Two `simulate` calls on one engine from two different states, with
+    the [T, 8] records: what the first call returned is unchanged after
+    the second (a graph's outputs live in memory its next replay
+    overwrites; `simulate` hands out copies)."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import _STATE_FIELDS
+
+    s = state.s.clone()
+    s[:, :2] += 1.5
+    other = state.replace(s=s)
+    kw = dict(record=False, record_metrics=True)
+    first, m_first = engine.simulate(state, 2 * REBUILD, **kw)
+    keep = {f: getattr(first, f).clone() for f in _STATE_FIELDS}
+    m_keep = m_first.clone()
+    second, _ = engine.simulate(other, 2 * REBUILD + 5, **kw)
+    torch.cuda.synchronize()
+    changed = [f for f in _STATE_FIELDS
+               if not torch.equal(getattr(first, f), keep[f])]
+    if not torch.equal(m_first, m_keep):
+        changed.append("records")
+    runs_differ = not torch.equal(first.s, second.s)
+    emit("aliasing", steps=[2 * REBUILD, 2 * REBUILD + 5],
+         first_call_changed=changed, runs_differ=runs_differ)
+    if changed or not runs_differ:
+        raise AssertionError(f"aliasing: the second simulate changed the "
+                             f"first call's {changed} (runs differ: "
+                             f"{runs_differ})")
+
+
+def phase_profile(engine, state):
+    """One torch.profiler window of PROFILE_STEPS graphed steps (two
+    chunks, with their two table rebuilds) of the main path: device
+    kernels and copies per step, host launches per step, device-busy ms
+    per step, the card's idle share within the window, and the kernels
+    by device time. The profiler slows the host's part (the rebuilds), so
+    the same steps are also timed without it, and the device-busy time is
+    given over that wall time too."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.simulate(state, PROFILE_STEPS, record=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.simulate(state, PROFILE_STEPS, record=False)
+    torch.cuda.synchronize()
+    plain_wall_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.simulate(state, PROFILE_STEPS, record=False)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = list(prof.events())
+    device = sorted(((e.time_range.start, e.time_range.end, e.name)
+                     for e in events if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e[:2])
+    if not device:
+        raise AssertionError("profile: the trace holds no device activity")
+    busy_us, by_name = 0.0, {}
+    window_start = reach = device[0][0]
+    for start, end, name in device:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    window_us = reach - window_start
+    host = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in (
+                "cudaGraphLaunch", "cudaLaunchKernel", "cudaMemcpyAsync",
+                "cudaMemsetAsync"):
+            host[e.name] = host.get(e.name, 0) + 1
+    pair_us = sum(t for n, t in by_name.items() if "pair_forces" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # what the host launched one by one ran outside the graphs (rebuilds,
+    # permutations, the copies into the static buffers)
+    eager_launches = sum(n for name, n in host.items()
+                         if name != "cudaGraphLaunch")
+    emit("profile", steps=PROFILE_STEPS, rebuilds=PROFILE_STEPS // REBUILD,
+         wall_ms_per_step=1e3 * wall_s / PROFILE_STEPS,
+         unprofiled_wall_ms_per_step=1e3 * plain_wall_s / PROFILE_STEPS,
+         device_activities_per_step=len(device) / PROFILE_STEPS,
+         graph_activities_per_step=(len(device) - eager_launches)
+         / PROFILE_STEPS,
+         host_calls=host,
+         host_launches_per_step=sum(host.values()) / PROFILE_STEPS,
+         device_busy_ms_per_step=1e-3 * busy_us / PROFILE_STEPS,
+         window_ms_per_step=1e-3 * window_us / PROFILE_STEPS,
+         idle_share=1.0 - busy_us / window_us,
+         device_busy_over_unprofiled_wall=1e-6 * busy_us / plain_wall_s,
+         pair_kernel_ms_per_step=1e-3 * pair_us / PROFILE_STEPS,
+         other_ms_per_step=1e-3 * (busy_us - pair_us) / PROFILE_STEPS,
+         top_kernels_ms_per_step={n[:80]: 1e-3 * t / PROFILE_STEPS
+                                  for n, t in top})
 
 
 def compare_runs(phase, engine_a, state_a, engine_b, state_b, **info):
@@ -743,10 +979,12 @@ def main():
                                                  state)
     forms.update(mixed_forms)
     vs_k1.update(mixed_vs_k1)
+    paths = {"slice": engine,
+             "slice_unrolled": make_engine(backend="pallas_unrolled"),
+             "slice_db": db_engine, "slice_legacy": leg_engine}
     launches = {
         "k1": phase_slice("slice", engine, state, PF.pair_forces_neighbors),
-        "k2": phase_slice("slice_unrolled",
-                          make_engine(backend="pallas_unrolled"), state,
+        "k2": phase_slice("slice_unrolled", paths["slice_unrolled"], state,
                           PF.pair_forces_neighbors_unrolled),
         "k3": phase_slice("slice_db", db_engine, state,
                           PF.pair_forces_neighbors_db),
@@ -756,6 +994,10 @@ def main():
     phase_parity()
     phase_parity_db(db_engine, state)
     phase_parity_legacy(leg_engine)
+    phase_graph_parity(paths, state)
+    phase_metrics(engine, state)
+    phase_aliasing(engine, state)
+    phase_profile(engine, state)
     emit("total", seconds=time.perf_counter() - t_start)
 
     def mixed(form, launched=None):

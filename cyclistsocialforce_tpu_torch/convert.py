@@ -32,7 +32,7 @@ def state_to_numpy(st: AgentState) -> dict:
 
 def params_from_jax(p, device="cuda"):
     """The port's params of the same class and values as a JAX
-    `VehicleParams` / `BicycleParams` (no re-validation). Per-agent
+    `VehicleParams` / `CarParams` / `BicycleParams` (no re-validation). Per-agent
     leaves become float64 tensors on `device`."""
     name = type(p).__name__
     if name not in PARAM_CLASSES:

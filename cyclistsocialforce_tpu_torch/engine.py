@@ -18,11 +18,20 @@ shared space, advanced step by step --
 Every stage is a batched function over the [N] agent axis. The culled
 pair stage runs its CUDA kernel on CUDA tensors and its plain version on
 CPU tensors: the state's device selects the backend.
+
+`Engine.simulate` is the step loop. The JAX package compiles a chunk of
+`rebuild_every` steps (its inner `lax.scan`) into one program; the port's
+counterpart is `ChunkRunner`, which captures the chunk's steps once as a
+CUDA graph over static buffers and replays it per chunk.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import math
+import time
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -33,7 +42,8 @@ from cyclistsocialforce_tpu_torch.ops import navigation as nav
 from cyclistsocialforce_tpu_torch.ops import neighbors as NB
 from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 from cyclistsocialforce_tpu_torch.params import pair_hi
-from cyclistsocialforce_tpu_torch.state import PSI, V, X, Y, AgentState
+from cyclistsocialforce_tpu_torch.state import (PSI, STATE_DIM, THETA, V, X,
+                                                Y, AgentState)
 
 
 @dataclass(frozen=True)
@@ -192,6 +202,16 @@ class NeighborConfig:
     rebuild_every : rebuild the sort and table every K steps inside
         `simulate`, with a skin margin on the cutoff covering the
         pairwise drift in between (default 2 * v_max * t_s * K).
+    table_chunk : build the neighbor table in chunks of this many
+        receiver rows (0: all at once); the same table, with the
+        [B, B_src] box-distance matrix (~8 GB at N = 4e6) bounded to
+        [table_chunk, B_src].
+    rebuild_mode, row_segments : accepted so that a configuration written
+        for the JAX package constructs here, validated as there
+        ("chunked" or "flat"; >= 1), stored, and without effect: both
+        select between TPU mechanisms of the same physics (one flat scan
+        with a gated rebuild; the pair call split for the scalar-memory
+        budget), which the port has no use for.
     """
 
     cutoff: float = 60.0
@@ -205,6 +225,9 @@ class NeighborConfig:
     t_s: float = 0.01
     sub: int = 0
     screen: bool = True
+    rebuild_mode: str = "chunked"
+    table_chunk: int = 0
+    row_segments: int = 1
 
     def __post_init__(self):
         bs = int(self.block_src) or int(self.block)
@@ -221,6 +244,11 @@ class NeighborConfig:
             raise ValueError("the double-buffered backend does not support "
                              "block_src != block; use 'pallas'")
         PF._check_sub(bs, int(self.sub))
+        if self.rebuild_mode not in ("chunked", "flat"):
+            raise ValueError(f"rebuild_mode must be 'chunked' or 'flat', "
+                             f"got {self.rebuild_mode!r}")
+        if int(self.row_segments) < 1:
+            raise ValueError("row_segments must be >= 1")
         skin = (float(self.skin) if self.skin is not None
                 else 2.0 * self.v_max * self.t_s * int(self.rebuild_every))
         set_ = object.__setattr__
@@ -232,6 +260,8 @@ class NeighborConfig:
         set_(self, "skin", skin)
         set_(self, "sub", int(self.sub))
         set_(self, "screen", bool(self.screen))
+        set_(self, "table_chunk", int(self.table_chunk))
+        set_(self, "row_segments", int(self.row_segments))
 
 
 def _values(params, field):
@@ -262,17 +292,21 @@ def _uniform_pair_params(params):
 
 
 def build_neighbor_cache(cfg: NeighborConfig, state: AgentState):
-    """(perm, nbr, valid, overflow) over the population padded to a
-    multiple of `block` (pad rows parked at agent 0's position), with the
-    skin-extended cutoff."""
+    """(perm, nbr, valid, overflow, count) over the population padded to
+    a multiple of `block` (pad rows parked at agent 0's position), with
+    the skin-extended cutoff. `count` [B] int32 is the valid entries per
+    table row, which the CUDA kernels read in place of `valid`: counted
+    here once per rebuild and not once per step."""
     n = state.n
     npad = -(-n // cfg.block) * cfg.block
     x, y = state.s[:, X], state.s[:, Y]
     if npad != n:
         x = torch.cat([x, x[:1].expand(npad - n)])
         y = torch.cat([y, y[:1].expand(npad - n)])
-    return NB.build(x, y, cfg.cutoff + cfg.skin, cfg.block, cfg.kb,
-                    block_src=cfg.block_src)
+    perm, nbr, valid, overflow = NB.build(
+        x, y, cfg.cutoff + cfg.skin, cfg.block, cfg.kb,
+        block_src=cfg.block_src, table_chunk=cfg.table_chunk)
+    return perm, nbr, valid, overflow, valid.sum(dim=1, dtype=torch.int32)
 
 
 def sorted_packs(src_pack, perm):
@@ -296,20 +330,22 @@ def unsort_forces(out, perm, n):
 
 def pair_kernel_dispatch(cfg: NeighborConfig, nbr, valid, src_sorted,
                          recv_sorted, fov: bool = True, uniform=None,
-                         priority_p2r: bool = False, mixed: bool = False):
+                         priority_p2r: bool = False, mixed: bool = False,
+                         count=None):
     """[2, B*block] sorted forces from cell-sorted packs through the
     kernel `cfg.backend` names: the CUDA kernel (float32) for CUDA
     tensors, its plain version in the packs' dtype for CPU tensors. The
     screens compare with `cfg.cutoff`, without the skin; K3 always reads
     the per-source field columns. `mixed` selects each source row's field
     family by its column 13 (the legacy field's form); it excludes
-    `uniform`."""
+    `uniform`. `count` is the table's valid entries per row where the
+    caller has them (`build_neighbor_cache`)."""
     dtype = src_sorted.dtype
     if src_sorted.is_cuda:
         src_sorted = src_sorted.float()
         recv_sorted = recv_sorted.float()
     kw = dict(block=cfg.block, fov=fov, priority_p2r=priority_p2r,
-              mixed=mixed)
+              mixed=mixed, count=count)
     if cfg.backend == "pallas_unrolled":
         out = PF.pair_forces_neighbors_unrolled(
             nbr, valid, src_sorted, recv_sorted, block_src=cfg.block_src,
@@ -362,14 +398,177 @@ def _check_state_widths(widths, state):
                 f">= {need}: the state was built for a different model")
 
 
+_STATE_FIELDS = _ALL_AGENT_FIELDS + ("t_glob",)
+
+
+def _map_state(fn, state: AgentState) -> AgentState:
+    return state.replace(**{f: fn(getattr(state, f))
+                            for f in _STATE_FIELDS})
+
+
+def _copy_state(dst: AgentState, src: AgentState):
+    """Copy every field of `src` into the tensors of `dst`, in place."""
+    for f in _STATE_FIELDS:
+        getattr(dst, f).copy_(getattr(src, f))
+
+
+def _check_params_on(params, device):
+    """A CUDA-graph capture takes no host-to-device copy: every per-agent
+    parameter tensor must already lie on the state's device."""
+    for f in dataclasses.fields(params):
+        v = getattr(params, f.name)
+        if isinstance(v, torch.Tensor) and v.device != device:
+            raise ValueError(
+                f"params.{f.name} is on {v.device} but the state is on "
+                f"{device}: a graphed simulate copies nothing from the "
+                f"host inside a step. Build per-agent parameters with "
+                f"as_population(..., device={str(device)!r}), or run "
+                f"simulate(graph=False)")
+
+
+def record_buffers(mode, steps: int, state: AgentState) -> tuple:
+    """The preallocated record tensors of `steps` steps in record mode
+    `mode`: () for None, ([T, N, 8],) for "states", ([T, N, 8], [T, N],
+    [T, N]) for "forces", ([T, 8],) for "metrics"."""
+    def buf(*shape):
+        return torch.empty((steps, *shape), dtype=state.s.dtype,
+                           device=state.device)
+
+    if mode == "states":
+        return (buf(state.n, STATE_DIM),)
+    if mode == "forces":
+        return (buf(state.n, STATE_DIM), buf(state.n), buf(state.n))
+    if mode == "metrics":
+        return (buf(len(Engine.METRIC_NAMES)),)
+    return ()
+
+
+class ChunkRunner:
+    """The `k` steps of one table-rebuild chunk of `Engine.simulate`
+    behind static buffers: the port's counterpart of the JAX package's
+    compiled inner `lax.scan`.
+
+    A CUDA graph reads and writes fixed addresses. So the runner owns a
+    static input state, static copies of the chunk's neighbor cache and
+    of its overflow count, and static [k, ...] record rows. `run` copies
+    the chunk's state and cache in, replays the graph (captured once, at
+    construction, from `Engine.run_chunk` on those buffers) and hands
+    back the static output state and record rows. Both are overwritten
+    by the next `run`: the caller copies out what it keeps.
+
+    With `capture=False` nothing is captured and `run` calls
+    `Engine.run_chunk` on the static buffers directly in place of the
+    replay, copying its result into a static output state: the same
+    copy-in, run, copy-out contract on any device (the CPU tests drive
+    it).
+
+    The capture bakes in what the engine's step reads from Python:
+    shared parameters, the NeighborConfig, the kernel form. An engine
+    keeps its runners for its own lifetime and `Engine.with_params`
+    starts a new engine without them.
+
+    Launch counters: the capture runs each kernel's wrapper `k` times
+    without launching anything, and a replay launches `k` kernels without
+    running a wrapper. The runner puts the counters back after the warm-up
+    and the capture, and adds the captured launches at every replay."""
+
+    def __init__(self, engine, state: AgentState, cache, k: int,
+                 presorted: bool, mode, capture: bool):
+        # a weak reference: the engine owns its runners, and a cycle
+        # would leave an engine's graphs to the cyclic collector, which
+        # may destroy them while another graph is being captured (CUDA
+        # refuses that and drops the capture)
+        self.engine, self.k = weakref.proxy(engine), k
+        self.presorted, self.mode = presorted, mode
+        self.state_in = _map_state(torch.empty_like, state)
+        self.cache = tuple(torch.empty_like(c) for c in cache)
+        self.overflow = torch.zeros((), dtype=state.s.dtype,
+                                    device=state.device)
+        self.rows = record_buffers(mode, k, state)
+        self.graph = None
+        self.captured = (0,) * len(PF.KERNELS)
+        self.capture_seconds = None    # wall time of warm-up and capture
+        self._load(state, cache)
+        if capture:
+            t0 = time.perf_counter()
+            self._capture()
+            self.capture_seconds = time.perf_counter() - t0
+        else:
+            self.state_out = _map_state(torch.empty_like, state)
+
+    def _load(self, state, cache):
+        _copy_state(self.state_in, state)
+        for dst, src in zip(self.cache, cache):
+            dst.copy_(src)
+        if self.mode == "metrics":
+            self.overflow.copy_(cache[3].sum())
+
+    def _body(self) -> AgentState:
+        return self.engine.run_chunk(self.state_in, self.cache, self.k,
+                                     self.presorted, self.mode, self.rows,
+                                     self.overflow)
+
+    def _capture(self):
+        device = self.state_in.device
+        _check_params_on(self.engine.params, device)
+        counts = PF.launch_counts()
+        with torch.cuda.device(device):
+            # Warm-up on a side stream, as a capture needs: the kernel
+            # library builds and loads, CUDA loads every kernel the chunk
+            # launches, the launchers set their shared-memory attribute,
+            # and the engine builds its constant pack columns, all of
+            # which a capture would refuse or freeze into the graph's
+            # pool. It reads the static input and writes only the static
+            # rows and tensors of its own.
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self._body()
+            torch.cuda.current_stream(device).wait_stream(side)
+            warm = PF.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            # no cyclic collection inside the capture: it could free
+            # another graph or a CUDA event there (see __init__)
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    self.state_out = self._body()
+            finally:
+                if collecting:
+                    gc.enable()
+        self.captured = tuple(a - b for a, b in
+                              zip(PF.launch_counts(), warm))
+        PF.set_launch_counts(counts)
+
+    def run(self, state: AgentState, cache):
+        """One chunk from `state` on the table `cache`: (final state,
+        record rows), both static tensors that the next `run`
+        overwrites."""
+        self._load(state, cache)
+        if self.graph is None:
+            _copy_state(self.state_out, self._body())
+        else:
+            self.graph.replay()
+            PF.set_launch_counts(a + b for a, b in
+                                 zip(PF.launch_counts(), self.captured))
+        return self.state_out, self.rows
+
+
 class Engine(nn.Module):
     """One shared space with one homogeneous-model agent population and a
     named repulsive field ("twod" or "legacy"), dense or culled. Build
     with `Engine.create`.
 
-    The engine holds no tensors of its own: parameters shared by the
-    population are Python floats, and the state's device decides where
-    each step runs."""
+    Parameters shared by the population are Python floats, and the
+    state's device decides where each step runs. The engine owns two
+    caches of device tensors, both filled on demand and both private to
+    it (`with_params` starts a new engine with neither): the constant
+    columns of the pair packs, one set per population size, dtype and
+    device (`pack_pair_fields`), and the `ChunkRunner`s of `simulate`
+    with their static buffers and CUDA graphs, one per captured program.
+    Both freeze what they read from the engine's attributes, so build a
+    new engine instead of assigning to one that has run."""
 
     def __init__(self, params, model_step, state_widths, dest_force,
                  rep_force, pair_family: str, neighbors, full_fov: bool,
@@ -387,6 +586,8 @@ class Engine(nn.Module):
         self.uniform_pair = uniform_pair
         self.priority_p2r = priority_p2r
         self.rep_chunk = rep_chunk
+        self._columns = {}    # (name, n, dtype, device) -> constant [n]
+        self._runners = {}    # captured program -> ChunkRunner
 
     @classmethod
     def create(cls, params, model, dest_force=None, rep_force=None,
@@ -494,37 +695,66 @@ class Engine(nn.Module):
         The legacy field packs every row as a legacy row of the mixed
         form: columns 4-7 are amp * emit (amp = p_0/p_decay), the
         excentricity e of the row's speed, 1/sqrt(1 - e^2) and 1/p_decay,
-        column 13 (the family) is 1."""
+        column 13 (the family) is 1.
+
+        A column that no step changes (a shared parameter, or a function
+        of shared parameters only) is built once per population size,
+        dtype and device and kept by the engine; the packs are stacked
+        copies, so no caller holds a kept column."""
         n = state.n
         npad = n if npad is None else npad
         s = state.s
         dtype, dev = s.dtype, s.device
+        values = {f: getattr(self.params, f)
+                  for f in ("hfov", "p_0", "p_decay", "f_0", "e_0", "e_1",
+                            "sigma_0", "sigma_1", "sigma_2", "sigma_3")
+                  if hasattr(self.params, f)}
+        if "p_0" in values:
+            values["v_max"] = pair_hi(self.params.v_max_riding)
 
-        def bb(v):
-            if isinstance(v, torch.Tensor) and v.ndim >= 1:
+        def per_agent(v):
+            return isinstance(v, torch.Tensor) and v.ndim >= 1
+
+        def kept(name, build):
+            key = (name, n, dtype, dev)
+            if key not in self._columns:
+                self._columns[key] = build()
+            return self._columns[key]
+
+        def b(name):
+            v = values[name]
+            if per_agent(v):
                 # per-agent table in original row order: index by uid so
                 # a row's parameters follow it through permutations
                 return v.to(device=dev, dtype=dtype)[state.uid.long()]
-            return torch.full((n,), float(v), dtype=dtype, device=dev)
+            return kept(name, lambda: torch.full((n,), float(v), dtype=dtype,
+                                                 device=dev))
 
-        def b(field):
-            return bb(getattr(self.params, field))
+        def derived(name, fn, *fields):
+            """fn of the columns `fields`, kept when all are shared."""
+            def build():
+                return fn(*map(b, fields))
+
+            if any(per_agent(values[f]) for f in fields):
+                return build()
+            return kept(name, build)
 
         x, y = s[:, X], s[:, Y]
         cpsi, spsi = torch.cos(s[:, PSI]), torch.sin(s[:, PSI])
         act = state.active.to(dtype)
-        zero = torch.zeros((n,), dtype=dtype, device=dev)
-        chf = torch.cos(b("hfov") / 2)
+        zero = kept("zero", lambda: torch.zeros((n,), dtype=dtype,
+                                                device=dev))
+        chf = derived("cos_half_hfov", lambda h: torch.cos(h / 2), "hfov")
         if self.pair_family == "legacy":
-            e = F.legacy_excentricity(s[:, V],
-                                      bb(pair_hi(self.params.v_max_riding)))
-            p_decay = b("p_decay")
-            amp = b("p_0") / p_decay
+            e = F.legacy_excentricity(s[:, V], b("v_max"))
+            amp = derived("amp", lambda p0, pd: p0 / pd, "p_0", "p_decay")
+            inv_pd = derived("inv_p_decay", lambda pd: 1.0 / pd, "p_decay")
+            one = kept("one", lambda: torch.ones((n,), dtype=dtype,
+                                                 device=dev))
             emit = act * (amp > 0)
             src_cols = [x, y, cpsi, spsi, amp * emit, e,
-                        1.0 / torch.sqrt(1.0 - e * e), 1.0 / p_decay, zero,
-                        zero, zero, chf, emit, torch.ones_like(zero), zero,
-                        act]
+                        1.0 / torch.sqrt(1.0 - e * e), inv_pd, zero,
+                        zero, zero, chf, emit, one, zero, act]
         else:
             f0 = b("f_0")
             emit = act * (f0 > 0)
@@ -550,7 +780,8 @@ class Engine(nn.Module):
             recv_pack = torch.cat([recv_pack, recv_pad], dim=1)
         return src_pack, recv_pack
 
-    def pair_kernel_dispatch(self, nbr, valid, src_sorted, recv_sorted):
+    def pair_kernel_dispatch(self, nbr, valid, src_sorted, recv_sorted,
+                             count=None):
         """`pair_kernel_dispatch` in this engine's form: the legacy family
         through the mixed-family form (every row legacy), which takes no
         shared constants."""
@@ -560,7 +791,7 @@ class Engine(nn.Module):
                                     uniform=None if mixed
                                     else self.uniform_pair,
                                     priority_p2r=self.priority_p2r,
-                                    mixed=mixed)
+                                    mixed=mixed, count=count)
 
     def repulsive_sum_neighbors(self, state: AgentState, cache=None,
                                 presorted: bool = False):
@@ -573,15 +804,17 @@ class Engine(nn.Module):
         n = state.n
         npad = -(-n // cfg.block) * cfg.block
         src_pack, recv_pack = self.pack_pair_fields(state, npad)
-        if presorted:
-            out = self.pair_kernel_dispatch(cache[1], cache[2], src_pack,
-                                            recv_pack)
-            return out[0, :n], out[1, :n]
         if cache is None:
             cache = self.neighbor_cache(state)
         perm, nbr, valid = cache[0], cache[1], cache[2]
+        count = cache[4] if len(cache) > 4 else None
+        if presorted:
+            out = self.pair_kernel_dispatch(nbr, valid, src_pack, recv_pack,
+                                            count)
+            return out[0, :n], out[1, :n]
         src_sorted, recv_sorted = sorted_packs(src_pack, perm)
-        out = self.pair_kernel_dispatch(nbr, valid, src_sorted, recv_sorted)
+        out = self.pair_kernel_dispatch(nbr, valid, src_sorted, recv_sorted,
+                                        count)
         return unsort_forces(out, perm, n)
 
     # ---- one simulation step ----
@@ -611,6 +844,46 @@ class Engine(nn.Module):
         pos_hist = merged.pos_hist.index_copy(1, slot, merged.s[:, None, :2])
         return merged.replace(i=i, t_glob=t1, pos_hist=pos_hist)
 
+    # per-step population metrics: the columns of the [T, 8] tensor that
+    # simulate(record_metrics=True) returns. nbr_overflow counts the
+    # receiver blocks whose in-range source blocks exceeded the
+    # NeighborConfig's kb at the last table rebuild (the farthest were
+    # dropped): non-zero means the culled forces are TRUNCATED and kb must
+    # be raised.
+    METRIC_NAMES = ("n_active", "v_mean", "v_max", "roll_max", "f_mean",
+                    "f_max", "arrived_frac", "nbr_overflow")
+
+    @staticmethod
+    def step_metrics(state: AgentState, fx, fy, nbr_overflow=0.0):
+        """Aggregate population metrics of one step: [8] values in the
+        state's dtype on its device, in `METRIC_NAMES` order. Means are
+        over the active agents (over 1 when none is active); v_max is
+        -inf and roll_max and f_max are 0 when none is. `nbr_overflow` is
+        a number or a 0-d tensor. No value is read back to the host."""
+        s = state.s
+        act = state.active
+        w = act.to(s.dtype)
+        n_active = torch.sum(w)
+        n = torch.clamp(n_active, min=1.0)
+        v = s[:, V]
+        fmag = torch.sqrt(fx * fx + fy * fy)
+        roll = torch.abs(s[:, THETA])
+        if isinstance(nbr_overflow, torch.Tensor):
+            overflow = nbr_overflow.to(dtype=s.dtype, device=s.device)
+        else:
+            overflow = torch.full((), float(nbr_overflow), dtype=s.dtype,
+                                  device=s.device)
+        return torch.stack([
+            n_active,
+            torch.sum(v * w) / n,
+            torch.max(torch.where(act, v, float("-inf"))),
+            torch.max(torch.where(act, roll, 0.0)),
+            torch.sum(fmag * w) / n,
+            torch.max(torch.where(act, fmag, 0.0)),
+            torch.sum(state.znav[:, 2].to(s.dtype) * w) / n,
+            overflow,
+        ])
+
     def step_with_forces(self, state: AgentState, nbr_cache=None,
                          presorted: bool = False):
         """One full step; returns (state, fx, fy) with the applied
@@ -630,53 +903,147 @@ class Engine(nn.Module):
 
     # ---- step loop ----
 
+    def _record(self, mode, rows, t: int, state, fx, fy, overflow):
+        """Write step `t`'s record into the preallocated `rows`
+        (`record_buffers`)."""
+        if mode == "metrics":
+            rows[0][t] = self.step_metrics(state, fx, fy, overflow)
+        elif mode is not None:
+            rows[0][t] = state.s
+            if mode == "forces":
+                rows[1][t] = fx
+                rows[2][t] = fy
+
+    def run_chunk(self, state: AgentState, cache, k: int,
+                  presorted: bool = False, mode=None, rows=(),
+                  overflow=0.0) -> AgentState:
+        """The `k` steps of one rebuild chunk on the chunk's table
+        `cache`, step j's record written to `rows[...][j]`: the program
+        `ChunkRunner` captures. `overflow` is the table's overflow count
+        for the metrics. Nothing here reads a value back to the host or
+        has a shape that depends on the data."""
+        for j in range(k):
+            state, fx, fy = self.step_with_forces(state, cache, presorted)
+            self._record(mode, rows, j, state, fx, fy, overflow)
+        return state
+
+    def _run_steps(self, state, steps: int, mode, rows, t0: int):
+        """`steps` steps that each build their own table (or the dense
+        stage), recorded from row `t0` on."""
+        for j in range(steps):
+            cache, overflow = None, 0.0
+            if self.neighbors is not None:
+                cache = self.neighbor_cache(state)
+                overflow = cache[3].sum()
+            state, fx, fy = self.step_with_forces(state, cache)
+            self._record(mode, rows, t0 + j, state, fx, fy, overflow)
+        return state
+
+    def _chunk_runner(self, state, cache, k, presorted, mode, capture):
+        """This engine's ChunkRunner for the program that these arguments
+        fix, built (and captured) at first use."""
+        key = (capture, presorted, mode, k, state.device,
+               tuple((tuple(t.shape), t.dtype) for t in
+                     (getattr(state, f) for f in _STATE_FIELDS)),
+               tuple(tuple(c.shape) for c in cache))
+        if key not in self._runners:
+            self._runners[key] = ChunkRunner(self, state, cache, k,
+                                             presorted, mode, capture)
+        return self._runners[key]
+
     def simulate(self, state: AgentState, n_steps: int,
-                 record: bool = True, record_forces: bool = False):
-        """Run `n_steps` steps. Returns (final_state, traj): traj is the
-        [T, N, 8] recorded states, with record_forces the tuple
-        (states, fx, fy) of [T, N, 8], [T, N] and [T, N] (the applied
-        forces), and None with record=False.
+                 record: bool = True, record_forces: bool = False,
+                 record_metrics: bool = False, graph=None):
+        """Run `n_steps` steps. Returns (final_state, records): the
+        [T, N, 8] recorded states; with record_forces the tuple (states,
+        fx, fy) of [T, N, 8], [T, N] and [T, N] (the applied forces);
+        None with record=False. record_metrics=True wins over both:
+        records is then the [T, 8] per-step metrics under
+        `METRIC_NAMES`, its nbr_overflow column the overflow count of the
+        table each step used (0 on the dense stage).
 
         With a NeighborConfig the sort and neighbor table are rebuilt every
         `rebuild_every` steps, at chunk boundaries; the steps left over
-        (n_steps % rebuild_every) rebuild every step. Without recording
-        and with N a multiple of the block, agent rows live in cell-sorted
-        order for each whole chunk (one permutation of the state per
-        rebuild instead of a pack gather and force scatter per step) and
-        the original order is restored at the end."""
-        recs = []
+        (n_steps % rebuild_every) rebuild every step. With record=False
+        and no record_forces (whatever record_metrics: the metrics do not
+        depend on the row order) and with N a multiple of the block,
+        agent rows live in cell-sorted order for each whole chunk (one
+        permutation of the state per rebuild instead of a pack gather and
+        force scatter per step) and the original order is restored at the
+        end.
 
-        def run(st, steps, cache=None, presorted=False):
-            for _ in range(steps):
-                c = cache
-                if c is None and self.neighbors is not None:
-                    c = self.neighbor_cache(st)
-                st, fx, fy = self.step_with_forces(st, c, presorted)
-                if record:
-                    recs.append((st.s, fx, fy) if record_forces else st.s)
-            return st
-
-        def result(st):
-            if not record:
-                return st, None
-            if record_forces:
-                return st, tuple(torch.stack(r) for r in zip(*recs))
-            return st, torch.stack(recs)
-
+        graph : how a chunk's `rebuild_every` steps run. None (default):
+            on CUDA tensors as one CUDA graph, captured at this engine's
+            first call of the program and replayed per chunk
+            (`ChunkRunner`; bit for bit the eager loop's result), on CPU
+            tensors as the eager loop. False: the eager loop, always.
+            True: the graph, or an error where there is none to capture
+            (CPU tensors; the dense stage, rebuild_every <= 1 or fewer
+            steps than a chunk, which always loop eagerly). "direct": the
+            graph's static buffers with the chunk run directly in place
+            of a replay, on any device. Rebuilds, the final
+            un-permutation and the leftover steps are never captured. The
+            returned state and records are the caller's own tensors: a
+            later call does not touch them."""
+        if record_metrics:
+            mode = "metrics"
+        elif record:
+            mode = "forces" if record_forces else "states"
+        else:
+            mode = None
+        if graph not in (None, False, True, "direct"):
+            raise ValueError(f"graph must be None, False, True or "
+                             f"'direct', got {graph!r}")
         k = self.neighbors.rebuild_every if self.neighbors is not None else 1
-        if k <= 1 or n_steps < k:
-            return result(run(state, n_steps))
+        chunked = k > 1 and n_steps >= k
+        on_card = state.device.type == "cuda"
+        if graph is True and not on_card:
+            raise ValueError(
+                f"graph=True needs CUDA tensors: the state is on "
+                f"{state.device} (graph=None picks by the device)")
+        if graph in (True, "direct") and not chunked:
+            raise ValueError(
+                f"graph={graph!r}: only the chunks of a NeighborConfig "
+                f"with rebuild_every > 1 are captured, and this run has "
+                f"none (rebuild_every {k}, {n_steps} steps)")
+        if graph is None:
+            graph = on_card and chunked
+
+        rows = record_buffers(mode, n_steps, state)
+        if not chunked:
+            state = self._run_steps(state, n_steps, mode, rows, 0)
+            return state, self._records(mode, rows)
 
         n_chunks, rem = divmod(n_steps, k)
-        if not record and state.n % self.neighbors.block == 0:
-            ident = torch.arange(state.n, device=state.device)
-            for _ in range(n_chunks):
-                cache = self.neighbor_cache(state)
+        presorted = (not record and not record_forces
+                     and state.n % self.neighbors.block == 0)
+        ident = torch.arange(state.n, device=state.device)
+        for c in range(n_chunks):
+            cache = self.neighbor_cache(state)
+            if presorted:
                 state = permute_state(state, cache[0])
                 ident = ident[cache[0]]
-                state = run(state, k, cache, presorted=True)
+            chunk_rows = tuple(r[c * k:(c + 1) * k] for r in rows)
+            if graph:
+                runner = self._chunk_runner(state, cache, k, presorted, mode,
+                                            capture=graph is True)
+                state, static_rows = runner.run(state, cache)
+                for dst, src in zip(chunk_rows, static_rows):
+                    dst.copy_(src)
+            else:
+                state = self.run_chunk(state, cache, k, presorted, mode,
+                                       chunk_rows, cache[3].sum()
+                                       if mode == "metrics" else 0.0)
+        if graph:
+            # the runner's output state is overwritten by its next run
+            state = _map_state(torch.clone, state)
+        if presorted:
             state = permute_state(state, torch.argsort(ident))
-        else:
-            for _ in range(n_chunks):
-                state = run(state, k, self.neighbor_cache(state))
-        return result(run(state, rem))
+        state = self._run_steps(state, rem, mode, rows, n_chunks * k)
+        return state, self._records(mode, rows)
+
+    @staticmethod
+    def _records(mode, rows):
+        if mode is None:
+            return None
+        return tuple(rows) if mode == "forces" else rows[0]

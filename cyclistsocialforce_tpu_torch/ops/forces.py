@@ -67,6 +67,16 @@ def rep_force_twod_pair(dx, dy, cos_src, sin_src, cos_recv, sin_recv,
     return torch.where(zero, 0.0, fx), torch.where(zero, 0.0, fy)
 
 
+def rep_force_twod(dx, dy, psi_src, psi_recv, f_0, e_0, e_1,
+                   sigma_0, sigma_1, sigma_2, sigma_3):
+    """`rep_force_twod_pair` in the reference's signature: headings in
+    radians (reference vehicle.py:1560-1648)."""
+    return rep_force_twod_pair(
+        dx, dy, torch.cos(psi_src), torch.sin(psi_src),
+        torch.cos(psi_recv), torch.sin(psi_recv),
+        f_0, e_0, e_1, sigma_0, sigma_1, sigma_2, sigma_3)
+
+
 def rep_force_legacy_pair(dx, dy, cos_src, sin_src, e, inv_se,
                           inv_pdecay, amp):
     """Legacy v0.1 elliptic repulsive force (reference
@@ -100,6 +110,32 @@ def legacy_excentricity(v_src, v_max_riding_fwd):
     return torch.clamp(torch.pow(v / v_max_riding_fwd, 0.1), max=0.7)
 
 
+def potential_legacy(dx, dy, psi_src, v_src, v_max_riding_fwd, p_0,
+                     p_decay):
+    """Legacy elliptic repulsive POTENTIAL of a source at offsets (dx, dy)
+    from it (reference Bicycle.calcPotential, vehicle.py:1066-1104):
+    P = p_0 exp(-rho (1 - e cos phi0) / (sqrt(1 - e^2) p_decay)) with the
+    speed-dependent excentricity e."""
+    e = legacy_excentricity(v_src, v_max_riding_fwd)
+    inv_se = 1.0 / torch.sqrt(1 - e**2)
+    rho = torch.sqrt(dx * dx + dy * dy)
+    safe = torch.where(rho > 0, rho, 1.0)
+    cosphi0 = (dx * torch.cos(psi_src) + dy * torch.sin(psi_src)) / safe
+    u = (1 - e * torch.where(rho > 0, cosphi0, 1.0)) * inv_se
+    return p_0 * torch.exp(-rho * u / p_decay)
+
+
+def rep_force_legacy(dx, dy, psi_src, v_src, v_max_riding_fwd, p_0,
+                     p_decay):
+    """`rep_force_legacy_pair` in the reference's signature (reference
+    vehicle.py:1054-1147). Parameters are the SOURCE's."""
+    e = legacy_excentricity(v_src, v_max_riding_fwd)
+    inv_se = 1.0 / torch.sqrt(1 - e**2)
+    return rep_force_legacy_pair(
+        dx, dy, torch.cos(psi_src), torch.sin(psi_src), e, inv_se,
+        1.0 / p_decay, p_0 / p_decay)
+
+
 # ---- foe masking and dense assembly ----------------------------------------
 
 
@@ -131,6 +167,19 @@ def untracked_foes_tile(x_src, y_src, idx_src, active_src, hfov_src,
     return untracked
 
 
+def untracked_foes(x, y, psi, hfov, active=None,
+                   priority_p2r: bool = False):
+    """Dense [N, N] foe mask (i = source, j = receiver); see
+    `untracked_foes_tile`. `hfov` is a float or an [N] tensor."""
+    n = x.shape[0]
+    idx = torch.arange(n, device=x.device)
+    if active is None:
+        active = torch.ones((n,), dtype=torch.bool, device=x.device)
+    hfov = torch.as_tensor(hfov, dtype=x.dtype, device=x.device).expand(n)
+    return untracked_foes_tile(x, y, idx, active, hfov, x, y, psi, idx,
+                               active, priority_p2r=priority_p2r)
+
+
 def sum_sources(fx_pair, fy_pair, tracked):
     """Mask untracked pairs and sum the repulsive force over the source
     axis (reference intersection.py:822-838)."""
@@ -145,6 +194,14 @@ def clamp_add_dest(frep_x, frep_y, fdest_x, fdest_y):
     fdest_mag = torch.sqrt(fdest_x * fdest_x + fdest_y * fdest_y)
     frep_x, frep_y = limit_magnitude(frep_x, frep_y, fdest_mag)
     return frep_x + fdest_x, frep_y + fdest_y
+
+
+def sum_repulsive(fx_pair, fy_pair, tracked, fdest_x, fdest_y):
+    """Mask, sum over the sources, clamp to the destination-force
+    magnitude and add the destination force (reference
+    intersection.py:822-848)."""
+    frep_x, frep_y = sum_sources(fx_pair, fy_pair, tracked)
+    return clamp_add_dest(frep_x, frep_y, fdest_x, fdest_y)
 
 
 # ---- destination forces ----------------------------------------------------

@@ -64,39 +64,55 @@ def bbox_distance2(boxes_a, boxes_b):
     return dx * dx + dy * dy
 
 
-def neighbor_block_table(bboxes, cutoff, kb: int, src_bboxes=None):
-    """Fixed-width neighbor-block table (dense [B, B_src] form).
+def neighbor_block_table(bboxes, cutoff, kb: int, src_bboxes=None,
+                         chunk: int = 0):
+    """Fixed-width neighbor-block table.
 
     Returns (nbr [B, KB] int32, valid [B, KB] bool, overflow [B] bool):
     for each receiver block the up-to-KB source blocks within `cutoff`
     (box to box), CLOSEST FIRST, so the valid entries of a row are a
     prefix; invalid entries hold source block 0. Among blocks at equal
-    distance (overlapping boxes, d2 = 0) the order is unspecified."""
+    distance (overlapping boxes, d2 = 0) the order is unspecified.
+
+    chunk : receiver rows built at a time (0: all at once). The dense form
+        holds the [B, B_src] box-distance matrix, ~8 GB at N = 4e6;
+        chunking bounds it to [chunk, B_src] with the same test and the
+        same closest-first selection per row, so the same table."""
     if src_bboxes is None:
         src_bboxes = bboxes
-    d2 = bbox_distance2(bboxes, src_bboxes)
-    within = d2 <= cutoff * cutoff
-    neg = torch.where(within, -d2, -BIG)
-    k_eff = min(kb, neg.shape[1])
-    dneg, order = torch.topk(neg, k_eff, dim=1, largest=True, sorted=True)
-    order = order.to(torch.int32)
-    valid = dneg > -BIG
-    if k_eff < kb:
-        pad = (neg.shape[0], kb - k_eff)
-        order = torch.cat([order, order.new_zeros(pad)], dim=1)
-        valid = torch.cat([valid, valid.new_zeros(pad)], dim=1)
-    overflow = torch.sum(within, dim=1) > kb
-    nbr = torch.where(valid, order, 0)
-    return nbr, valid, overflow
+
+    def per_rows(boxes_r):
+        d2 = bbox_distance2(boxes_r, src_bboxes)
+        within = d2 <= cutoff * cutoff
+        neg = torch.where(within, -d2, -BIG)
+        k_eff = min(kb, neg.shape[1])
+        dneg, order = torch.topk(neg, k_eff, dim=1, largest=True,
+                                 sorted=True)
+        order = order.to(torch.int32)
+        valid = dneg > -BIG
+        if k_eff < kb:
+            pad = (neg.shape[0], kb - k_eff)
+            order = torch.cat([order, order.new_zeros(pad)], dim=1)
+            valid = torch.cat([valid, valid.new_zeros(pad)], dim=1)
+        overflow = torch.sum(within, dim=1) > kb
+        return torch.where(valid, order, 0), valid, overflow
+
+    b = bboxes.shape[0]
+    if not chunk or chunk >= b:
+        return per_rows(bboxes)
+    parts = [per_rows(bboxes[lo:lo + chunk]) for lo in range(0, b, chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def build(x, y, cutoff, block: int, kb: int, cell_size=None,
-          block_src: int = 0):
+          block_src: int = 0, table_chunk: int = 0):
     """One-call neighbor structure (perm, nbr, valid, overflow).
 
     perm sorts agents by cell; nbr/valid index SORTED blocks: receiver
     blocks of `block` agents, source blocks of `block_src` (0: same as
-    `block`; must divide it). N must be divisible by `block`."""
+    `block`; must divide it). N must be divisible by `block`.
+    `table_chunk` bounds the table build's memory
+    (`neighbor_block_table`)."""
     if cell_size is None:
         cell_size = cutoff
     block_src = block_src or block
@@ -106,5 +122,6 @@ def build(x, y, cutoff, block: int, kb: int, cell_size=None,
     src_boxes = (boxes if block_src == block
                  else block_bboxes(xs, ys, block_src))
     nbr, valid, overflow = neighbor_block_table(boxes, cutoff, kb,
-                                                src_bboxes=src_boxes)
+                                                src_bboxes=src_boxes,
+                                                chunk=table_chunk)
     return perm, nbr, valid, overflow

@@ -31,10 +31,15 @@ row, whose columns 4-7 then hold amp * emit (amp = p_0/p_decay), e,
 1/sqrt(1 - e^2) and 1/p_decay, and columns 8-10 are unused.
 
 Each wrapper runs its CUDA kernel on CUDA tensors and the plain version,
-in the matching form, on CPU tensors; it raises for any other input.
+in the matching form, on CPU tensors; it raises for any other input. One
+exception: the kernels take receiver blocks of 128, so for any other
+`block` a wrapper runs the plain version on the card, warns once per
+block size, and counts no launch.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -265,12 +270,37 @@ def _on_cuda(name, nbr, valid, src_pack, recv_pack) -> bool:
     return True
 
 
+KERNEL_BLOCK = 128      # receivers per block of the CUDA kernels (kBlock)
+_warned_blocks = set()  # block sizes already warned about
+
+
+def _use_kernel(name, nbr, valid, src_pack, recv_pack, block) -> bool:
+    """Does this call launch the CUDA kernel? False for CPU inputs (the
+    plain version's case), and for CUDA inputs with a receiver block the
+    kernels do not take: those run the plain version on the card, with
+    one warning per block size."""
+    if not _on_cuda(name, nbr, valid, src_pack, recv_pack):
+        return False
+    if block == KERNEL_BLOCK:
+        return True
+    if block not in _warned_blocks:
+        _warned_blocks.add(block)
+        warnings.warn(
+            f"{name}: block = {block}, but the CUDA kernels take receiver "
+            f"blocks of {KERNEL_BLOCK}: running the plain PyTorch version "
+            f"on the card (correct, much slower)", stacklevel=3)
+    return False
+
+
 def _check_kernel_inputs(name, nbr, valid, src_pack, recv_pack, block,
-                         block_src):
+                         block_src, count=None):
     _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src)
-    if block != 128:
-        raise ValueError(f"{name}: the CUDA kernel needs block = 128, got "
-                         f"{block}")
+    if count is not None and (
+            count.dtype != torch.int32 or count.device != nbr.device
+            or tuple(count.shape) != (nbr.shape[0],)
+            or not count.is_contiguous()):
+        raise ValueError(f"{name}: count must be a contiguous int32 "
+                         f"[{nbr.shape[0]}] tensor on the table's device")
     if src_pack.dtype != torch.float32 or recv_pack.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32 packs")
     if nbr.dtype != torch.int32:
@@ -296,14 +326,19 @@ def _field_args(uniform, mixed=False):
     return 1, tuple(float(u) for u in uniform)
 
 
-def _launch(name, symbol, nbr, valid, src_pack, recv_pack, block, *args):
-    """Run the C launcher `symbol` on the packs' device and stream; the
-    [2, B*block] float32 output."""
+def _launch(name, symbol, nbr, valid, count, src_pack, recv_pack, block,
+            *args):
+    """Run the C launcher `symbol` on the packs' device and current
+    stream (under a CUDA-graph capture the capturing stream, so the launch
+    is recorded); the [2, B*block] float32 output. `count` [B] int32 is
+    the valid entries per table row (`valid` is a prefix of each row);
+    None counts them here."""
     from cyclistsocialforce_tpu_torch.ops import _build
 
     lib = _build.library()
     bcount, kb = nbr.shape
-    count = valid.sum(dim=1, dtype=torch.int32)
+    if count is None:
+        count = valid.sum(dim=1, dtype=torch.int32)
     out = torch.empty((2, bcount * block), dtype=torch.float32,
                       device=src_pack.device)
     device = src_pack.device
@@ -323,10 +358,12 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
                           uniform=None, fov: bool = True,
                           priority_p2r: bool = False, mixed: bool = False,
                           screen: bool = False, sub: int = 0,
-                          cutoff: float = float("inf")):
+                          cutoff: float = float("inf"), count=None):
     """K1: block-sparse pair sum, one source tile at a time. The CUDA
     kernel on CUDA tensors, the plain version on CPU tensors; arguments
-    and result as in `pair_forces_neighbors_ref`.
+    and result as in `pair_forces_neighbors_ref`. `count` [B] int32, the
+    valid entries per table row, saves the kernel's wrapper a reduction
+    of `valid` when the caller keeps it with the table.
 
     The kernel takes float32 packs, an int32 table and block = 128. It
     splits each receiver block's table slots over 8 thread groups (two
@@ -339,19 +376,20 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
     block_src = block_src or block
     _check_sub(block_src, sub)
     is_uniform, field = _field_args(uniform, mixed)
-    if not _on_cuda("pair_forces_neighbors", nbr, valid, src_pack,
-                    recv_pack):
+    if not _use_kernel("pair_forces_neighbors", nbr, valid, src_pack,
+                       recv_pack, block):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block,
             block_src=block_src, uniform=uniform, fov=fov,
             priority_p2r=priority_p2r, mixed=mixed, screen=screen, sub=sub,
             cutoff=cutoff)
     _check_kernel_inputs("pair_forces_neighbors", nbr, valid, src_pack,
-                         recv_pack, block, block_src)
+                         recv_pack, block, block_src, count)
     out = _launch("pair_forces_neighbors", "csf_pair_forces_twod", nbr,
-                  valid, src_pack, recv_pack, block, block_src, is_uniform,
-                  int(mixed), int(fov), int(priority_p2r), int(screen),
-                  (sub or block_src), cutoff_squared(cutoff), *field)
+                  valid, count, src_pack, recv_pack, block, block_src,
+                  is_uniform, int(mixed), int(fov), int(priority_p2r),
+                  int(screen), (sub or block_src), cutoff_squared(cutoff),
+                  *field)
     pair_forces_neighbors.launches += 1
     return out
 
@@ -360,11 +398,12 @@ def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
                                    block: int = 128, block_src: int = 0,
                                    uniform=None, fov: bool = True,
                                    priority_p2r: bool = False,
-                                   mixed: bool = False):
+                                   mixed: bool = False, count=None):
     """K2: block-sparse pair sum with every source tile of a receiver
     block staged before the sum, and no distance screen. The CUDA kernel
     on CUDA tensors, the plain version (unscreened) on CPU tensors;
-    arguments and result as in `pair_forces_neighbors_ref`.
+    arguments and result as in `pair_forces_neighbors_ref`; `count` as in
+    `pair_forces_neighbors`.
 
     The kernel takes float32 packs, an int32 table and block = 128. It
     stages a receiver block's source tiles in shared memory by bulk
@@ -380,16 +419,16 @@ def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
     pair force of the plain version."""
     block_src = block_src or block
     is_uniform, field = _field_args(uniform, mixed)
-    if not _on_cuda("pair_forces_neighbors_unrolled", nbr, valid, src_pack,
-                    recv_pack):
+    if not _use_kernel("pair_forces_neighbors_unrolled", nbr, valid,
+                       src_pack, recv_pack, block):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block,
             block_src=block_src, uniform=uniform, fov=fov,
             priority_p2r=priority_p2r, mixed=mixed)
     _check_kernel_inputs("pair_forces_neighbors_unrolled", nbr, valid,
-                         src_pack, recv_pack, block, block_src)
+                         src_pack, recv_pack, block, block_src, count)
     out = _launch("pair_forces_neighbors_unrolled",
-                  "csf_pair_forces_unrolled", nbr, valid, src_pack,
+                  "csf_pair_forces_unrolled", nbr, valid, count, src_pack,
                   recv_pack, block, block_src, is_uniform, int(mixed),
                   int(fov), int(priority_p2r), *field)
     pair_forces_neighbors_unrolled.launches += 1
@@ -400,14 +439,15 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
                              block: int = 128, fov: bool = True,
                              priority_p2r: bool = False,
                              mixed: bool = False,
-                             cutoff: float = float("inf")):
+                             cutoff: float = float("inf"), count=None):
     """K3: block-sparse pair sum through a ring of 128-row source tiles,
     each skipped when no pair of it lies within `cutoff` (the tile
     screen, always on), with the field parameters read per source row
     (with `mixed`, each row's own family). Source and receiver blocks
     are both `block` = 128 agents. The CUDA kernel on CUDA tensors, the
     plain version (screened, per-source columns) on CPU tensors; result
-    as in `pair_forces_neighbors_ref`.
+    as in `pair_forces_neighbors_ref`; `count` as in
+    `pair_forces_neighbors`.
 
     The kernel takes float32 packs and an int32 table. Tiles stream
     through a 4-slot ring in shared memory: a bulk copy fills a slot and
@@ -421,17 +461,17 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
     call gives the same result every time; per pair it is K1's math
     (decisions rounded as the plain version's, the smooth rest fused,
     within a few float32 ulps of each pair force)."""
-    if not _on_cuda("pair_forces_neighbors_db", nbr, valid, src_pack,
-                    recv_pack):
+    if not _use_kernel("pair_forces_neighbors_db", nbr, valid, src_pack,
+                       recv_pack, block):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block, block_src=block,
             fov=fov, priority_p2r=priority_p2r, mixed=mixed, screen=True,
             cutoff=cutoff)
     _check_kernel_inputs("pair_forces_neighbors_db", nbr, valid, src_pack,
-                         recv_pack, block, block)
+                         recv_pack, block, block, count)
     out = _launch("pair_forces_neighbors_db", "csf_pair_forces_db", nbr,
-                  valid, src_pack, recv_pack, block, int(mixed), int(fov),
-                  int(priority_p2r), cutoff_squared(cutoff))
+                  valid, count, src_pack, recv_pack, block, int(mixed),
+                  int(fov), int(priority_p2r), cutoff_squared(cutoff))
     pair_forces_neighbors_db.launches += 1
     return out
 
@@ -449,3 +489,18 @@ def reset_launches():
     """Set every kernel's launch counter to 0."""
     for fn in KERNELS:
         fn.launches = 0
+
+
+def launch_counts() -> tuple:
+    """Every kernel's launch counter, in `KERNELS` order."""
+    return tuple(fn.launches for fn in KERNELS)
+
+
+def set_launch_counts(counts):
+    """Set the launch counters (`KERNELS` order). A CUDA-graph capture
+    runs the wrappers once without launching anything, and each replay
+    launches the captured kernels without running a wrapper: the code that
+    captures and replays (`engine.ChunkRunner`) puts the counters back
+    after a capture and adds the captured launches at every replay."""
+    for fn, c in zip(KERNELS, counts):
+        fn.launches = int(c)

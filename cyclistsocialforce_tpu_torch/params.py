@@ -160,6 +160,14 @@ class VehicleParams:
 
 
 @dataclass(frozen=True)
+class CarParams(VehicleParams):
+    """Reference parameters.py:753-763."""
+
+    length: Any = 4.0
+    width: Any = 2.0
+
+
+@dataclass(frozen=True)
 class BicycleParams(VehicleParams):
     """Bicycle and rider parameters (reference parameters.py:766-935)."""
 
@@ -237,7 +245,7 @@ class BicycleParams(VehicleParams):
                               **fields, **kw)
 
 
-PARAM_CLASSES = {"VehicleParams": VehicleParams,
+PARAM_CLASSES = {"VehicleParams": VehicleParams, "CarParams": CarParams,
                  "BicycleParams": BicycleParams}
 
 

@@ -197,3 +197,53 @@ def set_destinations(state: AgentState, agent: int, x, y, stop=None,
     destqueue[agent, start:start + m] = new
     nq[agent] = start + m
     return state.replace(destqueue=destqueue, nq=nq)
+
+
+def stop(state: AgentState, agent: int, stoptype: int = 0, stopdest=None,
+         a_brake=None) -> AgentState:
+    """Make one agent come to a halt (reference vehicle.py:459-503). Out
+    of place: returns the new state.
+
+    stoptype 0: flag the current destination as a stop destination.
+    stoptype 1: emergency stop at the projected braking point; needs
+        `a_brake` (params.a_max[0]).
+    stoptype 2: stop at the given location `stopdest`.
+    """
+    dest = state.dest.clone()
+    if stoptype == 0:
+        dest[agent, 2] = 1.0
+        return state.replace(dest=dest)
+    if stoptype not in (1, 2):
+        raise ValueError("Stop type has to be one of [0,1,2].")
+    if stoptype == 1:
+        if a_brake is None:
+            raise ValueError("Provide a_brake (params.a_max[0]).")
+        v = state.s[agent, V]
+        tstop = torch.abs(v / a_brake)
+        dstop = 1.1 * (v * tstop + 0.5 * a_brake * tstop**2)
+        # reference quirk (vehicle.py:491-492): sin for x, cos for y
+        dest[agent, 0] = state.s[agent, X] + dstop * torch.sin(
+            state.s[agent, PSI])
+        dest[agent, 1] = state.s[agent, Y] + dstop * torch.cos(
+            state.s[agent, PSI])
+    else:
+        dest[agent, 0] = float(stopdest[0])
+        dest[agent, 1] = float(stopdest[1])
+    dest[agent, 2] = 1.0
+    destpointer = state.destpointer.clone()
+    destpointer[agent] = torch.clamp(state.destpointer[agent] - 1, min=0)
+    return state.replace(dest=dest, destpointer=destpointer)
+
+
+def go(state: AgentState, agent: int, gotype: int = 0) -> AgentState:
+    """Continue after a stop (reference vehicle.py:505-535): gotype 0
+    clears the stop flag of the current destination, gotype 1 takes the
+    current queue entry as the destination again. Out of place."""
+    dest = state.dest.clone()
+    if gotype == 0:
+        dest[agent, 2] = 0.0
+    elif gotype == 1:
+        dest[agent] = state.destqueue[agent, state.destpointer[agent].long()]
+    else:
+        raise ValueError("Go type has to be one of [0,1].")
+    return state.replace(dest=dest)

@@ -12,7 +12,19 @@ import math
 
 import torch
 
-__all__ = ["limit_angle", "angle_difference", "thresh", "limit_magnitude"]
+__all__ = [
+    "limit_angle",
+    "expand_angle",
+    "angle_difference",
+    "cart2polar",
+    "polar2cart",
+    "thresh",
+    "limit_magnitude",
+    "angle_sumo_to_sfm",
+    "angle_sfm_to_sumo",
+    "to_deg",
+    "to_rad",
+]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -27,6 +39,11 @@ def limit_angle(theta: torch.Tensor) -> torch.Tensor:
     return theta
 
 
+def expand_angle(theta: torch.Tensor) -> torch.Tensor:
+    """An angle of [-pi, pi] in [0, 2 pi) (reference utils.py:142-148)."""
+    return torch.where(theta < 0, _TWO_PI + theta, theta)
+
+
 def angle_difference(a1: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
     """Signed smallest rotation `da` such that a1 + da lands on a2
     (mod 2 pi). The sign is picked by testing which of a1 -/+ da wraps
@@ -36,6 +53,20 @@ def angle_difference(a1: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
     test_1 = torch.abs(limit_angle(a1 - da) - a2)
     test_2 = torch.abs(limit_angle(a1 + da) - a2)
     return torch.where(test_1 < test_2, -da, da)
+
+
+def cart2polar(x: torch.Tensor, y: torch.Tensor):
+    """Cartesian to polar: (rho, phi) with phi in [-pi, pi], as
+    arccos(x / rho) with the sign of y (reference utils.py:185-194);
+    rho == 0 gives NaN there as here."""
+    rho = torch.sqrt(x * x + y * y)
+    phi = torch.arccos(x / rho)
+    return rho, torch.where(y < 0, -phi, phi)
+
+
+def polar2cart(rho: torch.Tensor, phi: torch.Tensor):
+    """Polar to cartesian (reference utils.py:197-201)."""
+    return rho * torch.cos(phi), rho * torch.sin(phi)
 
 
 def thresh(x: torch.Tensor, minmax) -> torch.Tensor:
@@ -53,3 +84,26 @@ def limit_magnitude(x: torch.Tensor, y: torch.Tensor, r):
     denom = torch.where(rin > 0, rin, 1.0)
     scale = torch.where(exceed, r / denom, 1.0)
     return x * scale, y * scale
+
+
+def to_deg(rad):
+    """Radians to degrees (reference utils.py:101-102)."""
+    return 360.0 * rad / _TWO_PI
+
+
+def to_rad(deg):
+    """Degrees to radians (reference utils.py:105-106)."""
+    return _TWO_PI * deg / 360.0
+
+
+def angle_sumo_to_sfm(theta_deg: torch.Tensor) -> torch.Tensor:
+    """SUMO's angle convention (degrees, clockwise from north) to the
+    model's (radians, counter-clockwise from east; reference
+    utils.py:114-116)."""
+    return limit_angle(math.pi / 2 - to_rad(theta_deg))
+
+
+def angle_sfm_to_sumo(theta_rad: torch.Tensor) -> torch.Tensor:
+    """The model's angle convention to SUMO's (reference
+    utils.py:119-121)."""
+    return to_deg(expand_angle(math.pi / 2 - theta_rad))

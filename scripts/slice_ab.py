@@ -15,6 +15,14 @@ from round to round. A process drives the four paths through its
 best of 3 x 240 steps each). Prints one JSON line per process and path,
 then per path both medians, the spread of each checkout's own rounds and
 the rounds this checkout won, and the nvidia-smi line last.
+
+A path's figure is that of `simulate` as a user calls it: since the
+20-step chunk became a CUDA graph, the graphed loop. Where a checkout's
+`phase_slice` also times the eager loop (`graph=False`), that figure is
+kept as a path of its own, "<path> eager", and compared with the other
+checkout's eager figure, or with its only figure where it has no graph.
+Eager against graphed on ONE checkout needs no second checkout:
+`chip_smoke.py` times the two in turns in every `slice*` phase.
 """
 
 import argparse
@@ -58,6 +66,9 @@ def run_paths(directory):
             d = json.loads(line)
             if "ms_per_step" in d:
                 out[d["phase"]] = d["ms_per_step"]
+                if "eager" in d.get("best_ms_per_step", {}):
+                    out[d["phase"] + " eager"] = d["best_ms_per_step"][
+                        "eager"]
     return out
 
 
@@ -79,7 +90,8 @@ def main():
                 print(json.dumps({"round": rnd, "build": tag, "path": path,
                                   "ms_per_step": t}), flush=True)
     for path in ms["this"]:
-        a, b = ms["this"][path], ms["other"][path]
+        a = ms["this"][path]
+        b = ms["other"].get(path) or ms["other"][path.removesuffix(" eager")]
         print(json.dumps({
             "path": path, "median_this": statistics.median(a),
             "median_other": statistics.median(b),
