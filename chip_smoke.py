@@ -35,9 +35,12 @@ non-zero):
   5. audit     no receiver block overflows the neighbor table at t = 0;
   6. slice     240 steps of Engine.simulate on the card, as a user calls it:
                each 20-step chunk one replay of a CUDA graph. 240 K1
-               launches counted (replays x 20), a finite state, no overflow
-               at t = end, the time of the first run and of the capture in
-               it; then the eager loop (`graph=False`) and the graphed one
+               launches counted (12 replays x the 20 launches the capture
+               recorded) beside the 20 of the capture's warm-up chunk that
+               K1's wrapper counted, a finite state, no overflow at t =
+               end, the time of the first run and of the capture in it; a
+               device trace of 40 more graphed steps, which must show 40
+               runs of K1's kernel and none of K2's or K3's; then the eager loop (`graph=False`) and the graphed one
                timed in turns, three runs of each: ms per step of both,
                their spreads and the ratio;
   7. slice_unrolled  the same 240 steps through K2: 240 K2 launches and
@@ -81,7 +84,8 @@ non-zero):
                most of the time.
 
 Then the script's wall time, a JSON line with the kernels' launch counts
-(each from its own path, with every count set to 0 just before it),
+(each from its own path, with every count set to 0 just before it: the
+replayed launches, and the warm-up's beside them),
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
 kernel's, same work, same call), the nvidia-smi line, and last
@@ -560,42 +564,98 @@ def phase_db_config(state):
                        kb=most + KB_MARGIN, screen=True)
 
 
+# each wrapper's kernel by the name a device trace shows it under
+KERNEL_SYMBOLS = {"pair_forces_neighbors": "pair_forces_twod_kernel",
+                  "pair_forces_neighbors_unrolled":
+                      "pair_forces_unrolled_kernel",
+                  "pair_forces_neighbors_db": "pair_forces_db_kernel"}
+
+
+def traced_pair_kernels(engine, state, steps):
+    """How often each pair kernel ran on the card in one graphed
+    `simulate` of `steps` steps, read from a torch.profiler device trace:
+    {wrapper name: kernel events}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.simulate(state, steps, record=False, graph=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    if not names:
+        raise AssertionError("the trace holds no device activity")
+    return {fn: sum(symbol in n for n in names)
+            for fn, symbol in KERNEL_SYMBOLS.items()}
+
+
 def phase_slice(phase, engine, state, kernel):
     """N_STEPS steps of `engine.simulate` as a user calls it (on the card
-    each chunk is one CUDA-graph replay), each step through `kernel`:
-    exactly N_STEPS launches of it counted and none of the other kernels
-    (every count set to 0 just before the run), a finite state, no table
-    overflow at t = 0 and t = end. Then the eager loop and the graphed one
-    timed in turns, three runs of each."""
+    each chunk is one CUDA-graph replay), each step through `kernel`.
+    Every count is set to 0 just before the run. The wrappers count what
+    they launch themselves, here the REBUILD steps of the capture's
+    warm-up chunk; a replay runs no wrapper, so the engine counts its
+    replays times the launches its capture recorded: exactly N_STEPS of
+    `kernel` and none of the other kernels. A device trace of
+    PROFILE_STEPS further graphed steps then shows that a replay does run
+    that kernel once per step, and no other pair kernel. Also: a finite
+    state, no table overflow at t = 0 and t = end. Then the eager loop and
+    the graphed one timed in turns, three runs of each."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 
+    def named(counts):
+        return dict(zip((fn.__name__ for fn in PF.KERNELS), counts))
+
+    def only(n):
+        return {fn.__name__: n * (fn is kernel) for fn in PF.KERNELS}
+
     audit_overflow(engine, state, f"{phase} t=0")
     torch.cuda.synchronize()
+    if engine._runners:
+        raise AssertionError(f"{phase}: the engine has captured already")
     PF.reset_launches()
     t0 = time.perf_counter()
     final, _ = engine.simulate(state, N_STEPS, record=False)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in PF.KERNELS}
+    warm_up = named(PF.launch_counts())
+    launches = named(engine.graph_launches())
     finite = bool(torch.isfinite(final.s).all())
     runner, = engine._runners.values()
     if runner.graph is None or not runner.presorted:
         raise AssertionError(f"{phase}: the run did not go through a "
                              f"captured sorted-resident chunk")
     emit(f"{phase}_run", steps=N_STEPS, backend=engine.neighbors.backend,
-         kernel_launches=launches, finite=finite, first_run_s=first_s,
+         kernel_launches=launches, warm_up_launches=warm_up,
+         replays=runner.replays, finite=finite, first_run_s=first_s,
          capture_s=runner.capture_seconds,
-         captured_launches_per_replay=dict(zip(
-             (fn.__name__ for fn in PF.KERNELS), runner.captured)))
-    want = {fn.__name__: N_STEPS * (fn is kernel) for fn in PF.KERNELS}
-    if launches != want:
-        raise AssertionError(f"{phase}: expected launches {want}, counted "
-                             f"{launches}")
+         captured_launches_per_replay=named(runner.captured))
+    if launches != only(N_STEPS) or warm_up != only(REBUILD):
+        raise AssertionError(
+            f"{phase}: expected {only(N_STEPS)} replayed and "
+            f"{only(REBUILD)} warm-up launches, counted {launches} and "
+            f"{warm_up}")
     if not finite:
         raise AssertionError(f"{phase}: non-finite state after the run")
     audit_overflow(engine, final, f"{phase} t=end")
+
+    PF.reset_launches()
+    traced = traced_pair_kernels(engine, state, PROFILE_STEPS)
+    replayed = {k: n - launches[k]
+                for k, n in named(engine.graph_launches()).items()}
+    by_wrapper = named(PF.launch_counts())
+    emit(f"{phase}_trace", steps=PROFILE_STEPS, device_trace_kernels=traced,
+         counted_replayed=replayed, counted_by_wrappers=by_wrapper)
+    if not (traced == replayed == only(PROFILE_STEPS)
+            and by_wrapper == only(0)):
+        raise AssertionError(
+            f"{phase}: the device trace of {PROFILE_STEPS} graphed steps "
+            f"shows {traced}, the replay counters {replayed}, the "
+            f"wrappers {by_wrapper}")
 
     runs = {"eager": [], "graphed": []}
     for _ in range(3):
@@ -621,7 +681,7 @@ def phase_slice(phase, engine, state, kernel):
          spread_ms_per_step={how: ms(max(r) - min(r))
                              for how, r in runs.items()},
          eager_over_graphed=med["eager"] / med["graphed"], runs_s=runs)
-    return launches[kernel.__name__]
+    return launches[kernel.__name__], warm_up[kernel.__name__]
 
 
 def states_differ(a, b):
@@ -1000,25 +1060,29 @@ def main():
     phase_profile(engine, state)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    def mixed(form, launched=None):
-        return {"form": form, "launches": launched, **forms[form]}
+    def mixed(form, launched=(None, None)):
+        return {"form": form, **counted(launched), **forms[form]}
+
+    def counted(pair):
+        """A path's (replayed, warm-up) launches of its kernel."""
+        return {"launches": pair[0], "warm_up_launches": pair[1]}
 
     # vs_k1: K1's time over the kernel's on the same work in the same call
     print(json.dumps({"kernels": [
         {"name": "pair_forces_neighbors", "route": "cuda",
          "source": SRC + "pair_forces.cu", "replaces": TPU + "75",
-         "launches": launches["k1"], **kernel,
+         **counted(launches["k1"]), **kernel,
          "vs_k2_uniform": vs_k1["k2_uniform"],
          "mixed": {**mixed("k1_mixed_screen", launches["k1_legacy"]),
                    "vs_k3_mixed": vs_k1["k3_mixed"]}},
         {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
          "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",
-         "launches": launches["k2"], **forms["k2_uniform"],
+         **counted(launches["k2"]), **forms["k2_uniform"],
          "vs_k1": vs_k1["k2_uniform"],
          "mixed": {**mixed("k2_mixed"), "vs_k1": vs_k1["k2_mixed"]}},
         {"name": "pair_forces_neighbors_db", "route": "cuda",
          "source": SRC + "pair_forces_db.cu", "replaces": TPU + "500",
-         "launches": launches["k3"], **forms["k3"],
+         **counted(launches["k3"]), **forms["k3"],
          "vs_k1": vs_k1["k3"],
          "mixed": {**mixed("k3_mixed"), "vs_k1": vs_k1["k3_mixed"]}},
     ]}), flush=True)

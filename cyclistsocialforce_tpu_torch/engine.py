@@ -28,7 +28,6 @@ CUDA graph over static buffers and replays it per chunk.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import math
 import time
 import weakref
@@ -183,7 +182,8 @@ class NeighborConfig:
         exp(-rho/sigma), sigma <= ~5.5 m, so 50-60 m bounds the dropped
         force near 1e-4. The legacy field needs ~100 m: its forward decay
         is much slower for fast sources.
-    block : receivers per block (the CUDA kernel takes 128).
+    block : receivers per block. The CUDA kernels take 128 and raise for
+        any other value; CPU tensors (the plain version) take any.
     block_src : sources per block (0: `block`; must divide `block`, and
         be a multiple of 8).
     kb : capacity of the neighbor-block table (overflow drops the
@@ -453,31 +453,30 @@ class ChunkRunner:
     of its overflow count, and static [k, ...] record rows. `run` copies
     the chunk's state and cache in, replays the graph (captured once, at
     construction, from `Engine.run_chunk` on those buffers) and hands
-    back the static output state and record rows. Both are overwritten
-    by the next `run`: the caller copies out what it keeps.
+    back the graph's output state and the record rows. Both are
+    overwritten by the next `run`: the caller copies out what it keeps.
 
-    With `capture=False` nothing is captured and `run` calls
-    `Engine.run_chunk` on the static buffers directly in place of the
-    replay, copying its result into a static output state: the same
-    copy-in, run, copy-out contract on any device (the CPU tests drive
-    it).
+    `_capture` and `_replay` are the only parts that need a card; the
+    buffer logic around them is the same on any device.
 
     The capture bakes in what the engine's step reads from Python:
     shared parameters, the NeighborConfig, the kernel form. An engine
-    keeps its runners for its own lifetime and `Engine.with_params`
-    starts a new engine without them.
+    keeps its runners until one of those attributes is assigned, and
+    `Engine.with_params` starts a new engine without them.
 
-    Launch counters: the capture runs each kernel's wrapper `k` times
-    without launching anything, and a replay launches `k` kernels without
-    running a wrapper. The runner puts the counters back after the warm-up
-    and the capture, and adds the captured launches at every replay."""
+    Launch counters: the warm-up chunk launches its `k` kernels through
+    their wrappers, which count them. The capture runs the wrappers again,
+    but records the launches instead of running them (`captured`, the
+    recorded launches per kernel), and a replay runs them without a
+    wrapper: the runner counts its `replays`, and `launches` is their
+    product."""
 
     def __init__(self, engine, state: AgentState, cache, k: int,
-                 presorted: bool, mode, capture: bool):
+                 presorted: bool, mode):
         # a weak reference: the engine owns its runners, and a cycle
-        # would leave an engine's graphs to the cyclic collector, which
-        # may destroy them while another graph is being captured (CUDA
-        # refuses that and drops the capture)
+        # would leave a dropped engine's graphs to the cyclic collector,
+        # which may destroy them while another graph is being captured
+        # (CUDA refuses that and drops the capture)
         self.engine, self.k = weakref.proxy(engine), k
         self.presorted, self.mode = presorted, mode
         self.state_in = _map_state(torch.empty_like, state)
@@ -486,15 +485,15 @@ class ChunkRunner:
                                     device=state.device)
         self.rows = record_buffers(mode, k, state)
         self.graph = None
-        self.captured = (0,) * len(PF.KERNELS)
-        self.capture_seconds = None    # wall time of warm-up and capture
+        self.state_out = None
+        self.replays = 0
         self._load(state, cache)
-        if capture:
-            t0 = time.perf_counter()
-            self._capture()
-            self.capture_seconds = time.perf_counter() - t0
-        else:
-            self.state_out = _map_state(torch.empty_like, state)
+        t0 = time.perf_counter()
+        recorded = PF.captured_counts()
+        self._capture()
+        self.captured = tuple(a - b for a, b in
+                              zip(PF.captured_counts(), recorded))
+        self.capture_seconds = time.perf_counter() - t0   # with the warm-up
 
     def _load(self, state, cache):
         _copy_state(self.state_in, state)
@@ -509,9 +508,10 @@ class ChunkRunner:
                                      self.overflow)
 
     def _capture(self):
+        """Capture `_body` into `self.graph`; its result, which lives in
+        the graph's memory, becomes `self.state_out`."""
         device = self.state_in.device
         _check_params_on(self.engine.params, device)
-        counts = PF.launch_counts()
         with torch.cuda.device(device):
             # Warm-up on a side stream, as a capture needs: the kernel
             # library builds and loads, CUDA loads every kernel the chunk
@@ -525,34 +525,26 @@ class ChunkRunner:
             with torch.cuda.stream(side):
                 self._body()
             torch.cuda.current_stream(device).wait_stream(side)
-            warm = PF.launch_counts()
             self.graph = torch.cuda.CUDAGraph()
-            # no cyclic collection inside the capture: it could free
-            # another graph or a CUDA event there (see __init__)
-            collecting = gc.isenabled()
-            gc.disable()
-            try:
-                with torch.cuda.graph(self.graph):
-                    self.state_out = self._body()
-            finally:
-                if collecting:
-                    gc.enable()
-        self.captured = tuple(a - b for a, b in
-                              zip(PF.launch_counts(), warm))
-        PF.set_launch_counts(counts)
+            with torch.cuda.graph(self.graph):
+                self.state_out = self._body()
+
+    def _replay(self):
+        self.graph.replay()
 
     def run(self, state: AgentState, cache):
         """One chunk from `state` on the table `cache`: (final state,
         record rows), both static tensors that the next `run`
         overwrites."""
         self._load(state, cache)
-        if self.graph is None:
-            _copy_state(self.state_out, self._body())
-        else:
-            self.graph.replay()
-            PF.set_launch_counts(a + b for a, b in
-                                 zip(PF.launch_counts(), self.captured))
+        self._replay()
+        self.replays += 1
         return self.state_out, self.rows
+
+    def launches(self) -> tuple:
+        """Kernel launches made by this runner's replays, in
+        `ops.pair_forces.KERNELS` order."""
+        return tuple(self.replays * c for c in self.captured)
 
 
 class Engine(nn.Module):
@@ -564,11 +556,18 @@ class Engine(nn.Module):
     state's device decides where each step runs. The engine owns two
     caches of device tensors, both filled on demand and both private to
     it (`with_params` starts a new engine with neither): the constant
-    columns of the pair packs, one set per population size, dtype and
-    device (`pack_pair_fields`), and the `ChunkRunner`s of `simulate`
-    with their static buffers and CUDA graphs, one per captured program.
-    Both freeze what they read from the engine's attributes, so build a
-    new engine instead of assigning to one that has run."""
+    columns of the pair packs, one set per parameter values, population
+    size, dtype and device (`pack_pair_fields`), and the `ChunkRunner`s
+    of `simulate` with their static buffers and CUDA graphs, one per
+    captured program. A captured program froze what it read from the
+    engine's attributes: assigning one of them (`params`, `neighbors`,
+    ...) empties both caches, and the next `simulate` captures anew."""
+
+    # what a captured chunk and the kept pack columns read from the engine
+    _FROZEN_BY_A_CAPTURE = frozenset((
+        "params", "model_step", "state_widths", "dest_force", "rep_force",
+        "pair_family", "neighbors", "full_fov", "uniform_pair",
+        "priority_p2r", "rep_chunk"))
 
     def __init__(self, params, model_step, state_widths, dest_force,
                  rep_force, pair_family: str, neighbors, full_fov: bool,
@@ -586,8 +585,14 @@ class Engine(nn.Module):
         self.uniform_pair = uniform_pair
         self.priority_p2r = priority_p2r
         self.rep_chunk = rep_chunk
-        self._columns = {}    # (name, n, dtype, device) -> constant [n]
+        self._columns = {}    # (name, values, n, dtype, device) -> [n]
         self._runners = {}    # captured program -> ChunkRunner
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if name in self._FROZEN_BY_A_CAPTURE and "_runners" in self.__dict__:
+            self._columns.clear()
+            self._runners.clear()
 
     @classmethod
     def create(cls, params, model, dest_force=None, rep_force=None,
@@ -698,9 +703,9 @@ class Engine(nn.Module):
         column 13 (the family) is 1.
 
         A column that no step changes (a shared parameter, or a function
-        of shared parameters only) is built once per population size,
-        dtype and device and kept by the engine; the packs are stacked
-        copies, so no caller holds a kept column."""
+        of shared parameters only) is built once per value, population
+        size, dtype and device and kept by the engine; the packs are
+        stacked copies, so no caller holds a kept column."""
         n = state.n
         npad = n if npad is None else npad
         s = state.s
@@ -715,8 +720,8 @@ class Engine(nn.Module):
         def per_agent(v):
             return isinstance(v, torch.Tensor) and v.ndim >= 1
 
-        def kept(name, build):
-            key = (name, n, dtype, dev)
+        def kept(name, build, *shared):
+            key = (name, shared, n, dtype, dev)
             if key not in self._columns:
                 self._columns[key] = build()
             return self._columns[key]
@@ -728,7 +733,7 @@ class Engine(nn.Module):
                 # a row's parameters follow it through permutations
                 return v.to(device=dev, dtype=dtype)[state.uid.long()]
             return kept(name, lambda: torch.full((n,), float(v), dtype=dtype,
-                                                 device=dev))
+                                                 device=dev), float(v))
 
         def derived(name, fn, *fields):
             """fn of the columns `fields`, kept when all are shared."""
@@ -737,7 +742,7 @@ class Engine(nn.Module):
 
             if any(per_agent(values[f]) for f in fields):
                 return build()
-            return kept(name, build)
+            return kept(name, build, *(float(values[f]) for f in fields))
 
         x, y = s[:, X], s[:, Y]
         cpsi, spsi = torch.cos(s[:, PSI]), torch.sin(s[:, PSI])
@@ -939,17 +944,24 @@ class Engine(nn.Module):
             self._record(mode, rows, t0 + j, state, fx, fy, overflow)
         return state
 
-    def _chunk_runner(self, state, cache, k, presorted, mode, capture):
-        """This engine's ChunkRunner for the program that these arguments
-        fix, built (and captured) at first use."""
-        key = (capture, presorted, mode, k, state.device,
+    def _chunk_runner(self, runner_cls, state, cache, k, presorted, mode):
+        """This engine's `runner_cls` for the program that these
+        arguments fix, built (and captured) at first use."""
+        key = (presorted, mode, k, state.device,
                tuple((tuple(t.shape), t.dtype) for t in
                      (getattr(state, f) for f in _STATE_FIELDS)),
                tuple(tuple(c.shape) for c in cache))
         if key not in self._runners:
-            self._runners[key] = ChunkRunner(self, state, cache, k,
-                                             presorted, mode, capture)
+            self._runners[key] = runner_cls(self, state, cache, k,
+                                            presorted, mode)
         return self._runners[key]
+
+    def graph_launches(self) -> tuple:
+        """Kernel launches made by the replays of this engine's captured
+        chunks so far, in `ops.pair_forces.KERNELS` order. The wrappers'
+        own counters do not see them: a replay runs no wrapper."""
+        per_runner = [r.launches() for r in self._runners.values()]
+        return tuple(map(sum, zip(*per_runner))) or (0,) * len(PF.KERNELS)
 
     def simulate(self, state: AgentState, n_steps: int,
                  record: bool = True, record_forces: bool = False,
@@ -979,21 +991,19 @@ class Engine(nn.Module):
             tensors as the eager loop. False: the eager loop, always.
             True: the graph, or an error where there is none to capture
             (CPU tensors; the dense stage, rebuild_every <= 1 or fewer
-            steps than a chunk, which always loop eagerly). "direct": the
-            graph's static buffers with the chunk run directly in place
-            of a replay, on any device. Rebuilds, the final
-            un-permutation and the leftover steps are never captured. The
-            returned state and records are the caller's own tensors: a
-            later call does not touch them."""
+            steps than a chunk, which always loop eagerly). Rebuilds,
+            the final un-permutation and the leftover steps are never
+            captured. The returned state and records are the caller's
+            own tensors: a later call does not touch them."""
         if record_metrics:
             mode = "metrics"
         elif record:
             mode = "forces" if record_forces else "states"
         else:
             mode = None
-        if graph not in (None, False, True, "direct"):
-            raise ValueError(f"graph must be None, False, True or "
-                             f"'direct', got {graph!r}")
+        if not any(graph is g for g in (None, False, True)):
+            raise ValueError(f"graph must be None, False or True, got "
+                             f"{graph!r}")
         k = self.neighbors.rebuild_every if self.neighbors is not None else 1
         chunked = k > 1 and n_steps >= k
         on_card = state.device.type == "cuda"
@@ -1001,22 +1011,30 @@ class Engine(nn.Module):
             raise ValueError(
                 f"graph=True needs CUDA tensors: the state is on "
                 f"{state.device} (graph=None picks by the device)")
-        if graph in (True, "direct") and not chunked:
+        if graph is True and not chunked:
             raise ValueError(
-                f"graph={graph!r}: only the chunks of a NeighborConfig "
+                f"graph=True: only the chunks of a NeighborConfig "
                 f"with rebuild_every > 1 are captured, and this run has "
                 f"none (rebuild_every {k}, {n_steps} steps)")
         if graph is None:
             graph = on_card and chunked
+        return self._simulate(state, n_steps, mode,
+                              not record and not record_forces,
+                              ChunkRunner if graph else None)
 
+    def _simulate(self, state, n_steps, mode, sorted_resident, runner_cls):
+        """`simulate` in record mode `mode` (`record_buffers`), on the
+        sorted-resident path where `sorted_resident` allows it and N is a
+        multiple of the block; the chunks through this engine's
+        `runner_cls` (`ChunkRunner`), or with None as eager loops."""
+        k = self.neighbors.rebuild_every if self.neighbors is not None else 1
         rows = record_buffers(mode, n_steps, state)
-        if not chunked:
+        if k <= 1 or n_steps < k:
             state = self._run_steps(state, n_steps, mode, rows, 0)
             return state, self._records(mode, rows)
 
         n_chunks, rem = divmod(n_steps, k)
-        presorted = (not record and not record_forces
-                     and state.n % self.neighbors.block == 0)
+        presorted = sorted_resident and state.n % self.neighbors.block == 0
         ident = torch.arange(state.n, device=state.device)
         for c in range(n_chunks):
             cache = self.neighbor_cache(state)
@@ -1024,9 +1042,9 @@ class Engine(nn.Module):
                 state = permute_state(state, cache[0])
                 ident = ident[cache[0]]
             chunk_rows = tuple(r[c * k:(c + 1) * k] for r in rows)
-            if graph:
-                runner = self._chunk_runner(state, cache, k, presorted, mode,
-                                            capture=graph is True)
+            if runner_cls is not None:
+                runner = self._chunk_runner(runner_cls, state, cache, k,
+                                            presorted, mode)
                 state, static_rows = runner.run(state, cache)
                 for dst, src in zip(chunk_rows, static_rows):
                     dst.copy_(src)
@@ -1034,7 +1052,7 @@ class Engine(nn.Module):
                 state = self.run_chunk(state, cache, k, presorted, mode,
                                        chunk_rows, cache[3].sum()
                                        if mode == "metrics" else 0.0)
-        if graph:
+        if runner_cls is not None:
             # the runner's output state is overwritten by its next run
             state = _map_state(torch.clone, state)
         if presorted:

@@ -31,15 +31,11 @@ row, whose columns 4-7 then hold amp * emit (amp = p_0/p_decay), e,
 1/sqrt(1 - e^2) and 1/p_decay, and columns 8-10 are unused.
 
 Each wrapper runs its CUDA kernel on CUDA tensors and the plain version,
-in the matching form, on CPU tensors; it raises for any other input. One
-exception: the kernels take receiver blocks of 128, so for any other
-`block` a wrapper runs the plain version on the card, warns once per
-block size, and counts no launch.
+in the matching form, on CPU tensors; it raises for any other input,
+and on CUDA tensors for a receiver `block` other than the kernels' 128.
 """
 
 from __future__ import annotations
-
-import warnings
 
 import torch
 
@@ -271,30 +267,17 @@ def _on_cuda(name, nbr, valid, src_pack, recv_pack) -> bool:
 
 
 KERNEL_BLOCK = 128      # receivers per block of the CUDA kernels (kBlock)
-_warned_blocks = set()  # block sizes already warned about
-
-
-def _use_kernel(name, nbr, valid, src_pack, recv_pack, block) -> bool:
-    """Does this call launch the CUDA kernel? False for CPU inputs (the
-    plain version's case), and for CUDA inputs with a receiver block the
-    kernels do not take: those run the plain version on the card, with
-    one warning per block size."""
-    if not _on_cuda(name, nbr, valid, src_pack, recv_pack):
-        return False
-    if block == KERNEL_BLOCK:
-        return True
-    if block not in _warned_blocks:
-        _warned_blocks.add(block)
-        warnings.warn(
-            f"{name}: block = {block}, but the CUDA kernels take receiver "
-            f"blocks of {KERNEL_BLOCK}: running the plain PyTorch version "
-            f"on the card (correct, much slower)", stacklevel=3)
-    return False
 
 
 def _check_kernel_inputs(name, nbr, valid, src_pack, recv_pack, block,
                          block_src, count=None):
     _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src)
+    if block != KERNEL_BLOCK:
+        raise ValueError(
+            f"{name}: the CUDA kernel takes receiver blocks of "
+            f"{KERNEL_BLOCK} (kBlock in csrc/, a compile-time constant), "
+            f"got block = {block}: use block = {KERNEL_BLOCK} on CUDA "
+            f"tensors (any block runs the plain version on CPU tensors)")
     if count is not None and (
             count.dtype != torch.int32 or count.device != nbr.device
             or tuple(count.shape) != (nbr.shape[0],)
@@ -376,8 +359,8 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
     block_src = block_src or block
     _check_sub(block_src, sub)
     is_uniform, field = _field_args(uniform, mixed)
-    if not _use_kernel("pair_forces_neighbors", nbr, valid, src_pack,
-                       recv_pack, block):
+    if not _on_cuda("pair_forces_neighbors", nbr, valid,
+                    src_pack, recv_pack):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block,
             block_src=block_src, uniform=uniform, fov=fov,
@@ -390,7 +373,7 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
                   is_uniform, int(mixed), int(fov), int(priority_p2r),
                   int(screen), (sub or block_src), cutoff_squared(cutoff),
                   *field)
-    pair_forces_neighbors.launches += 1
+    _count(pair_forces_neighbors)
     return out
 
 
@@ -419,8 +402,8 @@ def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
     pair force of the plain version."""
     block_src = block_src or block
     is_uniform, field = _field_args(uniform, mixed)
-    if not _use_kernel("pair_forces_neighbors_unrolled", nbr, valid,
-                       src_pack, recv_pack, block):
+    if not _on_cuda("pair_forces_neighbors_unrolled", nbr, valid,
+                    src_pack, recv_pack):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block,
             block_src=block_src, uniform=uniform, fov=fov,
@@ -431,7 +414,7 @@ def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
                   "csf_pair_forces_unrolled", nbr, valid, count, src_pack,
                   recv_pack, block, block_src, is_uniform, int(mixed),
                   int(fov), int(priority_p2r), *field)
-    pair_forces_neighbors_unrolled.launches += 1
+    _count(pair_forces_neighbors_unrolled)
     return out
 
 
@@ -461,8 +444,8 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
     call gives the same result every time; per pair it is K1's math
     (decisions rounded as the plain version's, the smooth rest fused,
     within a few float32 ulps of each pair force)."""
-    if not _use_kernel("pair_forces_neighbors_db", nbr, valid, src_pack,
-                       recv_pack, block):
+    if not _on_cuda("pair_forces_neighbors_db", nbr, valid,
+                    src_pack, recv_pack):
         return pair_forces_neighbors_ref(
             nbr, valid, src_pack, recv_pack, block=block, block_src=block,
             fov=fov, priority_p2r=priority_p2r, mixed=mixed, screen=True,
@@ -472,17 +455,28 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
     out = _launch("pair_forces_neighbors_db", "csf_pair_forces_db", nbr,
                   valid, count, src_pack, recv_pack, block, int(mixed),
                   int(fov), int(priority_p2r), cutoff_squared(cutoff))
-    pair_forces_neighbors_db.launches += 1
+    _count(pair_forces_neighbors_db)
     return out
 
 
-# kernel launches since the last reset (the plain version never counts)
-pair_forces_neighbors.launches = 0
-pair_forces_neighbors_unrolled.launches = 0
-pair_forces_neighbors_db.launches = 0
+def _count(fn):
+    """One more launch of `fn`'s kernel. Into a CUDA-graph capture the
+    launch is only recorded, and runs once per replay of the graph: it
+    counts as captured, and whoever replays the graph counts the replays
+    (`engine.ChunkRunner`)."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
 
+
+# per kernel: launches since the last reset (the plain version never
+# counts), and launches recorded into CUDA-graph captures
 KERNELS = (pair_forces_neighbors, pair_forces_neighbors_unrolled,
            pair_forces_neighbors_db)
+for _fn in KERNELS:
+    _fn.launches = 0
+    _fn.captured = 0
 
 
 def reset_launches():
@@ -496,11 +490,7 @@ def launch_counts() -> tuple:
     return tuple(fn.launches for fn in KERNELS)
 
 
-def set_launch_counts(counts):
-    """Set the launch counters (`KERNELS` order). A CUDA-graph capture
-    runs the wrappers once without launching anything, and each replay
-    launches the captured kernels without running a wrapper: the code that
-    captures and replays (`engine.ChunkRunner`) puts the counters back
-    after a capture and adds the captured launches at every replay."""
-    for fn, c in zip(KERNELS, counts):
-        fn.launches = int(c)
+def captured_counts() -> tuple:
+    """Every kernel's count of launches recorded into CUDA-graph captures
+    since the module was loaded, in `KERNELS` order."""
+    return tuple(fn.captured for fn in KERNELS)

@@ -1,11 +1,13 @@
 """PyTorch port: the compiled chunk of `Engine.simulate` (`ChunkRunner`:
 static buffers and, on the card, a CUDA graph of the `rebuild_every`
 steps) held to the eager loop bit for bit, and the receiver blocks the
-CUDA kernels do not take (block != 128: the plain version on the card).
+CUDA kernels do not take (block != 128: the plain version on CPU tensors,
+an error on the card).
 
 The graph itself runs only on a card. On the CPU the runner's static-
 buffer logic (copy in, run, copy out, clone on return) runs through
-`simulate(graph="direct")`, the chunk called in place of a replay. The JAX
+`DirectRunner`, a `ChunkRunner` whose capture and replay call the chunk
+directly. The JAX
 package comes in through the `jx` fixture, so the card's tests also run
 where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -13,7 +15,6 @@ where JAX is not installed:
 """
 
 import types
-import warnings
 
 import numpy as np
 import pytest
@@ -104,24 +105,48 @@ MODES = {
 }
 
 
+class DirectRunner(TE.ChunkRunner):
+    """`ChunkRunner` with the chunk called directly where the card
+    captures and replays a graph. As there, the output state is made once
+    (at the capture) and overwritten in place by every run."""
+
+    def _capture(self):
+        self.state_out = self._body()
+
+    def _replay(self):
+        TE._copy_state(self.state_out, self._body())
+
+
+def simulate_direct(eng, state, steps, mode):
+    """`Engine.simulate(state, steps, **MODES[mode])` with its chunks
+    through a `DirectRunner`."""
+    kw = {"record": True, **MODES[mode]}
+    record_mode = ("metrics" if kw.get("record_metrics") else
+                   None if not kw["record"] else
+                   "forces" if kw.get("record_forces") else "states")
+    return eng._simulate(state, steps, record_mode,
+                         not kw["record"], DirectRunner)
+
+
 # ---- the runner's static buffers, on the CPU ---------------------------------
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("pad", [128, None])
 def test_direct_runner_equals_eager_loop(mode, pad):
-    """`graph="direct"` (static buffers, the chunk run in place of a
-    replay) equals the eager loop exactly in every state field and every
+    """The runner's static buffers (the chunk run in place of a replay)
+    equal the eager loop exactly in every state field and every
     record, on the sorted-resident path (512 rows) and the gather path
     (500 rows, padded packs)."""
     eng = make_engine()
     st = crowd(500 if pad is None else 512, pad)
     want = eng.simulate(st, STEPS, graph=False, **MODES[mode])
     assert not eng._runners
-    got = eng.simulate(st, STEPS, graph="direct", **MODES[mode])
+    got = simulate_direct(eng, st, STEPS, mode)
     assert_same(*got, snapshot(*want))
     runner, = eng._runners.values()
-    assert runner.graph is None and runner.k == K
+    assert runner.replays == STEPS // K and runner.k == K
+    assert runner.launches() == eng.graph_launches() == (0, 0, 0)
     assert runner.presorted == (pad == 128
                                 and mode in ("none", "metrics_sorted"))
 
@@ -131,11 +156,10 @@ def test_second_simulate_leaves_first_results_untouched(mode):
     """The runner's outputs are overwritten by its next run: `simulate`
     returns tensors of its own, none of them the runner's memory."""
     eng = make_engine()
-    first = eng.simulate(crowd(512, 128), STEPS - 2, graph="direct",
-                         **MODES[mode])          # ends on a chunk boundary
+    first = simulate_direct(eng, crowd(512, 128), STEPS - 2,
+                            mode)                # ends on a chunk boundary
     snap = snapshot(*first)
-    second = eng.simulate(crowd(512, 128, seed=3), STEPS, graph="direct",
-                          **MODES[mode])
+    second = simulate_direct(eng, crowd(512, 128, seed=3), STEPS, mode)
     assert len(eng._runners) == 1                # one program, one runner
     assert_same(*first, snap)
     assert not torch.equal(second[0].s, first[0].s)
@@ -154,14 +178,37 @@ def test_second_simulate_leaves_first_results_untouched(mode):
 def test_runner_cache_is_keyed_by_the_program():
     eng = make_engine()
     st = crowd(512, 128)
-    eng.simulate(st, K, record=False, graph="direct")
-    eng.simulate(st, 2 * K, record=False, graph="direct")
+    simulate_direct(eng, st, K, "none")
+    simulate_direct(eng, st, 2 * K, "none")
     assert len(eng._runners) == 1
-    eng.simulate(st, K, record=False, record_metrics=True, graph="direct")
-    eng.simulate(st, K, record=True, graph="direct")         # gather path
-    eng.simulate(crowd(256, 128), K, record=False, graph="direct")
+    simulate_direct(eng, st, K, "metrics_sorted")
+    simulate_direct(eng, st, K, "states")                    # gather path
+    simulate_direct(eng, crowd(256, 128), K, "none")
     assert len(eng._runners) == 4
     assert not eng.with_params(BicycleParams.create())._runners
+
+
+def test_assigning_a_frozen_attribute_empties_the_caches():
+    """A captured chunk and the kept pack columns froze what they read
+    from the engine: assigning `params` (or `neighbors`, ...) drops both,
+    and the next run equals a new engine's."""
+    eng = make_engine()
+    st = crowd(512, 128)
+    simulate_direct(eng, st, K, "none")
+    assert eng._runners and eng._columns
+    weak = BicycleParams.create().replace(f_0=0.5 * BicycleParams.create().f_0)
+    eng.params = weak
+    assert not eng._runners and not eng._columns
+    got = simulate_direct(eng, st, STEPS, "forces")
+    want = make_engine(params=weak).simulate(st, STEPS, graph=False,
+                                             **MODES["forces"])
+    assert_same(*got, snapshot(*want))
+    old = make_engine().simulate(st, STEPS, graph=False, **MODES["forces"])
+    assert not torch.equal(old[1][1], want[1][1])
+    # the kept columns are keyed by their values too
+    src = eng.pack_pair_fields(st)[0]
+    object.__setattr__(eng, "params", BicycleParams.create())
+    assert not torch.equal(eng.pack_pair_fields(st)[0][:, 4], src[:, 4])
 
 
 def test_engine_and_runner_form_no_reference_cycle():
@@ -172,7 +219,7 @@ def test_engine_and_runner_form_no_reference_cycle():
     import weakref
 
     eng = make_engine()
-    eng.simulate(crowd(256, 128), K, record=False, graph="direct")
+    simulate_direct(eng, crowd(256, 128), K, "none")
     runner = weakref.ref(next(iter(eng._runners.values())))
     gc.collect()
     gc.disable()
@@ -190,14 +237,8 @@ def test_graph_argument_on_the_cpu():
         eng.simulate(st, STEPS, record=False, graph=True)
     with pytest.raises(ValueError, match="graph"):
         eng.simulate(st, STEPS, record=False, graph="yes")
-    # nothing to capture: fewer steps than a chunk, per-step rebuilds, dense
-    for e, steps in ((eng, K - 1), (make_engine(rebuild_every=1), 4)):
-        with pytest.raises(ValueError, match="rebuild_every"):
-            e.simulate(st, steps, record=False, graph="direct")
-    dense = TE.Engine.create(BicycleParams.create(), bicycle2d,
-                             rep_force="twod")
-    with pytest.raises(ValueError, match="rebuild_every"):
-        dense.simulate(crowd(64, None), 3, graph="direct")
+    with pytest.raises(ValueError, match="graph"):
+        eng.simulate(st, STEPS, record=False, graph="direct")
     # None on CPU tensors is the eager loop: no runner is built
     want = eng.simulate(st, STEPS, record_metrics=True, graph=False)
     got = eng.simulate(st, STEPS, record_metrics=True)
@@ -274,9 +315,7 @@ def test_block_64_on_the_cpu_matches_jax_interpret(jx):
     jst = jst.replace(active=jx.jnp.asarray(st.active.numpy()))
     assert not teng.neighbor_cache(st)[3].any()
     want = [np.asarray(f) for f in jeng.repulsive_sum_neighbors(jst)]
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")            # CPU tensors: no warning
-        got = teng.repulsive_sum_neighbors(st)
+    got = teng.repulsive_sum_neighbors(st)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=RTOL)
     assert np.abs(want[0]).max() > 1.0
@@ -303,24 +342,63 @@ CARD_STEPS, CARD_K = 45, 20        # two chunks and a 5-step tail
 @pytest.mark.parametrize("rep_force", ["twod", "legacy"])
 @pytest.mark.parametrize("backend", sorted(KERNEL_OF))
 def test_cuda_graph_equals_eager(cuda_device, backend, rep_force, mode):
-    """The graphed run equals the eager loop bit for bit, and its launch
-    counters read replays x k plus the tail: never the capture or the
-    warm-up."""
+    """The graphed run equals the eager loop bit for bit. The wrappers
+    count what they launch (the warm-up chunk of the capturing call and
+    the leftover steps), the capture records k launches of the backend's
+    kernel, and the engine counts replays x k."""
     eng = make_engine(rep_force, backend, CARD_K)
     st = crowd(4096, 128, cuda_device)
     assert not eng.neighbor_cache(st)[3].any()
     want = eng.simulate(st, CARD_STEPS, graph=False, **MODES[mode])
-    for _ in range(2):                   # the capturing call, then a replay
+
+    def only(n):
+        return tuple(n * (fn is KERNEL_OF[backend]) for fn in PF.KERNELS)
+
+    tail = CARD_STEPS % CARD_K
+    for call, warm_up in ((1, CARD_K), (2, 0)):  # the capture, then replays
         PF.reset_launches()
         got = eng.simulate(st, CARD_STEPS, graph=True, **MODES[mode])
         torch.cuda.synchronize()
-        assert {fn: fn.launches for fn in PF.KERNELS} == {
-            fn: CARD_STEPS * (fn is KERNEL_OF[backend])
-            for fn in PF.KERNELS}
+        assert PF.launch_counts() == only(warm_up + tail)
+        assert eng.graph_launches() == only(call * (CARD_STEPS - tail))
         assert_same(*got, snapshot(*want))
     runner, = eng._runners.values()
     assert runner.graph is not None and runner.presorted
+    assert runner.captured == only(CARD_K)
+    assert runner.replays == 2 * (CARD_STEPS // CARD_K)
     assert torch.isfinite(got[0].s).all()
+
+
+@pytest.mark.cuda
+def test_cuda_graph_true_needs_chunks(cuda_device):
+    """graph=True where there is nothing to capture: fewer steps than a
+    chunk, per-step rebuilds, the dense stage."""
+    st = crowd(256, 128, cuda_device)
+    for e, steps in ((make_engine(), K - 1),
+                     (make_engine(rebuild_every=1), 4)):
+        with pytest.raises(ValueError, match="rebuild_every"):
+            e.simulate(st, steps, record=False, graph=True)
+    dense = TE.Engine.create(BicycleParams.create(), bicycle2d,
+                             rep_force="twod")
+    with pytest.raises(ValueError, match="rebuild_every"):
+        dense.simulate(crowd(64, None, cuda_device), 3, graph=True)
+
+
+@pytest.mark.cuda
+def test_cuda_assigning_params_captures_anew(cuda_device):
+    """Assigning `engine.params` drops the captured graphs: the next
+    graphed run is the new parameters' eager run, bit for bit."""
+    eng = make_engine(rebuild_every=CARD_K)
+    st = crowd(4096, 128, cuda_device)
+    old, _ = eng.simulate(st, CARD_STEPS, record=False)
+    weak = BicycleParams.create().replace(f_0=0.5 * BicycleParams.create().f_0)
+    eng.params = weak
+    assert not eng._runners
+    got = eng.simulate(st, CARD_STEPS, record=False)
+    want = make_engine(params=weak, rebuild_every=CARD_K).simulate(
+        st, CARD_STEPS, record=False, graph=False)
+    assert_same(*got, snapshot(*want))
+    assert not torch.equal(got[0].s, old.s)
 
 
 @pytest.mark.cuda
@@ -384,10 +462,9 @@ def test_cuda_graph_refuses_parameters_on_the_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend", sorted(KERNEL_OF))
-def test_cuda_block_64_runs_the_plain_version(cuda_device, backend):
-    """A receiver block the kernels do not take: the plain version on the
-    card, one warning per block size, no launch counted, and the CPU run's
-    forces."""
+def test_cuda_block_64_raises(cuda_device, backend):
+    """A receiver block the kernels do not take: on CUDA tensors an error
+    that names 128, never the plain version, and no launch counted."""
     block_src = 64 if backend == "pallas_db" else 32
     cfg = dict(cutoff=50.0, block=64, block_src=block_src, kb=40,
                backend=backend)
@@ -395,18 +472,11 @@ def test_cuda_block_64_runs_the_plain_version(cuda_device, backend):
                            rep_force="twod",
                            neighbors=TE.NeighborConfig(**cfg))
     st = crowd(2048, 64, cuda_device)
-    PF._warned_blocks.discard(64)
     PF.reset_launches()
-    with pytest.warns(UserWarning, match="block = 64.*128"):
-        got = eng.repulsive_sum_neighbors(st)
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")                # once per block size
-        again = eng.repulsive_sum_neighbors(st)
-        final, _ = eng.simulate(st, 3, record=False)
-    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="128.*block = 64"):
+        eng.repulsive_sum_neighbors(st)
+    with pytest.raises(ValueError, match="128.*block = 64"):
+        eng.simulate(st, 3, record=False)
     assert PF.launch_counts() == (0, 0, 0)
-    want = eng.repulsive_sum_neighbors(st.to("cpu"))
-    for g, a, w in zip(got, again, want):
-        assert g.is_cuda and torch.equal(g, a)
-        torch.testing.assert_close(g.cpu(), w, atol=ATOL, rtol=RTOL)
-    assert want[0].abs().max() > 1.0 and torch.isfinite(final.s).all()
+    fx, _ = eng.repulsive_sum_neighbors(st.to("cpu"))  # the CPU takes it
+    assert fx.abs().max() > 1.0

@@ -398,7 +398,9 @@ def test_cuda_legacy_simulate_launches_backend_kernel(cuda_device, backend):
                                     block_src=block_src, kb=40,
                                     backend=backend, rebuild_every=20))
     PF.reset_launches()
-    final, _ = eng.simulate(st, 25, record=False)
+    # the eager loop: every step goes through the wrapper (the graphed
+    # loop's counts are held in test_torch_graph.py)
+    final, _ = eng.simulate(st, 25, record=False, graph=False)
     torch.cuda.synchronize()
     kernel = {"pallas": PF.pair_forces_neighbors,
               "pallas_unrolled": PF.pair_forces_neighbors_unrolled,

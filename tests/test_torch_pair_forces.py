@@ -232,7 +232,9 @@ def test_cuda_kernel_matches_plain(cuda_device):
 def test_cuda_simulate_launches_kernel_every_step(cuda_device):
     st, teng = port_crowd(4096, cuda_device)
     PF.pair_forces_neighbors.launches = 0
-    final, _ = teng.simulate(st, 25, record=False)
+    # the eager loop: every step goes through the wrapper (the graphed
+    # loop's counts are held in test_torch_graph.py)
+    final, _ = teng.simulate(st, 25, record=False, graph=False)
     torch.cuda.synchronize()
     assert PF.pair_forces_neighbors.launches == 25
     assert torch.isfinite(final.s).all()
