@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-It drives four paths: the main path through K1 (`csrc/pair_forces.cu`,
+It drives six paths: the main path through K1 (`csrc/pair_forces.cu`,
 twod field, unscreened), the same path through K2
 (`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled"), a crowd with
 per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
-"pallas_db"), and bicycle2d's default legacy field through K1's
-mixed-family form (tile screen, the NeighborConfig default). Phases, each
+"pallas_db"), bicycle2d's default legacy field through K1's
+mixed-family form (tile screen, the NeighborConfig default), the twod
+model (spline destination force) through K1's main form, and a
+MixedEngine of bicycle2d and twod riders through K1's two-family form.
+Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
 
@@ -31,7 +34,8 @@ non-zero):
                against K3 on the same table, K1's mixed form with the
                tile screen (slice_legacy's) against K3's mixed form on the
                legacy crowd, and K1's mixed form unscreened against K2's
-               mixed form on the same table;
+               mixed form on the same table; then K1 main, K2 `uniform`
+               and K3 at receiver blocks of 64 and 256 (BLOCK_FORMS);
   5. audit     no receiver block overflows the neighbor table at t = 0;
   6. slice     240 steps of Engine.simulate on the card, as a user calls it:
                each 20-step chunk one replay of a CUDA graph. 240 K1
@@ -40,8 +44,9 @@ non-zero):
                K1's wrapper counted, a finite state, no overflow at t =
                end, the time of the first run and of the capture in it; a
                device trace of 40 more graphed steps, which must show 40
-               runs of K1's kernel and none of K2's or K3's; then the eager loop (`graph=False`) and the graphed one
-               timed in turns, three runs of each: ms per step of both,
+               runs of K1's kernel and none of K2's or K3's; then the
+               eager loop (`graph=False`) and the graphed one timed in
+               turns, TIMED_ROUNDS runs of each: ms per step of both,
                their spreads and the ratio;
   7. slice_unrolled  the same 240 steps through K2: 240 K2 launches and
                no K1 launch;
@@ -53,6 +58,15 @@ non-zero):
                MODELS["bicycle2d"], neighbors=NeighborConfig(cutoff=100,
                block=128, block_src=64, kb=<audited max + 2>,
                rebuild_every=20)): 240 K1 launches, none of K2 or K3;
+  9b. slice_twod  240 steps of the 100,000 riders as twod riders
+               (`bench.py:main_row("twod")`: the spline destination force,
+               position ring of 128, the main path's NeighborConfig):
+               240 K1 launches, sorted-resident;
+  9c. slice_mixed  240 steps of a MixedEngine of the 100,000 riders,
+               bicycle2d (legacy field) on the first 50,000 rows and twod
+               on the rest, NeighborConfig(cutoff=100, block=128,
+               block_src=64, kb=<audited max + 2>, rebuild_every=20): 240
+               K1 launches in the mixed form, rows in original order;
  10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
@@ -67,25 +81,35 @@ non-zero):
                float64 (every rider within the cap; the 99.9% tier is
                reported beside the CPU float32 run's own distance from
                float64, which fails it alike: see PARITY_LEG_N);
- 13. graph_parity  on each of the four paths 45 steps (two chunks and a
+ 12b. parity_twod, parity_mixed  the twod path on 4,096 riders and the
+               mixed path on 2 x 2,048, with TWOD_QUEUE destinations per
+               rider (both spline branches run), 45 steps: the card in
+               float64 against the CPU in float64 under both tiers, the
+               card's float32 run reported (see TWOD_FLOAT32);
+ 13. graph_parity  on each of the six paths 45 steps (two chunks and a
                5-step tail) with `graph=False` and with the graph from the
                same 100,000-rider state: every field of the final state
                bit-equal, again with `record_metrics=True`, and with
-               `record=True` on a 4,096-rider crowd; one eager chunk with
-               every host synchronisation an error;
+               `record=True` on 4,096-rider crowds of `slice`,
+               `slice_twod` and `slice_mixed`; on those three one eager
+               chunk with every host synchronisation an error;
  14. metrics   `simulate(state, 240, record=False, record_metrics=True)` on
                the main path: [240, 8], finite, 100,000 active and no
                overflow in every row, speeds within the model's limits;
  15. aliasing  two `simulate` calls on one engine from two states: the
                first call's state and records are unchanged by the second;
  16. profile   one torch.profiler window of 40 graphed steps of the main
-               path: device kernels and host launches per step, device-busy
-               ms per step, the card's idle share, the kernels that take
-               most of the time.
+               path, `slice_twod` and `slice_mixed`: device kernels and
+               host launches
+               per step, device-busy ms per step, the card's idle share,
+               the kernels that take most of the time, and the device
+               kernels per step that the twod step adds.
 
-Then the script's wall time, a JSON line with the kernels' launch counts
-(each from its own path, with every count set to 0 just before it: the
-replayed launches, and the warm-up's beside them),
+Then the wall seconds of each phase and of the script, a JSON line with
+the kernels' launch counts (each from its own path, with every count set
+to 0 just before it: the replayed launches, and the warm-up's beside
+them; K1's on each of its four paths under `paths`), the block-64 and
+block-256 forms under `blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
 kernel's, same work, same call), the nvidia-smi line, and last
@@ -107,6 +131,10 @@ N_STEPS = 240
 GRAPH_PARITY_STEPS, GRAPH_PARITY_RECORD_N = 45, 4096
 # the profiled window: two chunks
 PROFILE_STEPS = 40
+# each slice phase times the eager and the graphed loop in turns, this
+# many runs of each (3 before the twod and mixed paths came; the twod
+# path's eager loop takes ~6 s per run)
+TIMED_ROUNDS = 2
 # the JAX package's float32 bar for its own pair kernel against its
 # float64 oracle (tests/test_neighbors.py): |kernel - plain| <= A + R|plain|
 KERNEL_ATOL, KERNEL_RTOL = 1e-4, 2e-4
@@ -131,6 +159,9 @@ PARITY_CAP = {"pos": 1e-2, "psi": 5e-2, "v": 5e-2, "delta": 5e-2}
 # f_0 and sigma_0 jittered by +-JITTER (numpy, seeded), kb = the audited
 # maximum of in-range blocks plus KB_MARGIN (tests/test_neighbors.py)
 DB_BLOCK, JITTER, JITTER_SEED, KB_MARGIN = 128, 0.05, 7, 2
+# the other receiver blocks the kernels are compiled for, each with the
+# block_src of its K1 and K2 forms (K3 takes block_src = block)
+BLOCK_FORMS = {64: 32, 256: 64}
 # the K3 path's CPU float64 crowd: 2,048 riders (4,096 before the legacy
 # path's parity run was added; halved to keep the script near 200 s on
 # the card; the plain version in float32 against float64 on this crowd,
@@ -147,6 +178,28 @@ PARITY_DB_N = 2048
 # so the card is held to the CPU float32 run under both tiers and to the
 # float64 run under the cap.
 LEG_CUTOFF, PARITY_LEG_N = 100.0, 4096
+# the twod model's paths: the spline destination force looks back 1 s, so
+# the position ring holds 1/t_s + 1 = 101 samples or more (bench.py's
+# main_row("twod") takes 128). The twod parity crowd has TWOD_QUEUE
+# destinations per rider, the first TWOD_SPACING m ahead and each next one
+# as far again, with the queue pointer at uid % TWOD_QUEUE: riders on
+# their last destination take the last-destination spline, the others the
+# forward spline over 2 to 4 queue points
+TWOD_HIST, TWOD_QUEUE, TWOD_SPACING, TWOD_QUEUE_SEED = 128, 4, 20.0, 11
+PARITY_TWOD_N = 4096
+# TWOD_FLOAT32: the spline force is ill-conditioned in float32 at the
+# crowd's coordinates (~300 m, ulp 3e-5 m): it fits a spline through the
+# positions one step apart (1-6 cm) and, for the first second, the 1 s
+# lookback reads the start position too. On the CPU the plain version in
+# float32 ends 0.09 m from float64 after 45 steps of 1,024 riders, 131
+# of them beyond 1e-3 m, and so does the JAX package's own float32 run
+# (scripts/twod_float32.py). So the twod and mixed paths are held to the
+# CPU float64 run in float64 on the card (the pair kernel still in
+# float32), and their float32 run's distance is reported
+# the mixed path: bicycle2d (legacy field) on the first half of the rows,
+# twod on the second, drawn as one crowd; the parity run's crowd is
+# 2 x PARITY_MIXED_HALF riders
+PARITY_MIXED_HALF = 2048
 # the bound of a call: the largest of its operations over the H100's FP32
 # peak and bytes over its memory rate (NVIDIA's data sheet, SXM part at
 # 700 W), and its special-function (MUFU) operations over the MUFU rate:
@@ -217,6 +270,75 @@ def make_legacy_engine(params=None, **kw):
     return Engine.create(params or BicycleParams.create(),
                          MODELS["bicycle2d"],
                          neighbors=NeighborConfig(**{**cfg, **kw}))
+
+
+def make_twod_engine(params=None, **kw):
+    """The twod model (spline destination force, twod field) on the main
+    path's NeighborConfig, `bench.py`'s main_row("twod") configuration,
+    with `kw` changed."""
+    from cyclistsocialforce_tpu_torch import Engine
+    from cyclistsocialforce_tpu_torch.models import MODELS
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    return Engine.create(params or BicycleParams.create(), MODELS["twod"],
+                         neighbors=neighbor_config(**kw))
+
+
+def make_mixed_engine(n, **kw):
+    """A MixedEngine of n riders: bicycle2d (its legacy field) on rows
+    [0, n/2), twod on the rest, both on BicycleParams.create(); the
+    NeighborConfig defaults (the tile screen) but for the legacy path's
+    cutoff, blocks and rebuild interval, with `kw` changed."""
+    from cyclistsocialforce_tpu_torch import NeighborConfig
+    from cyclistsocialforce_tpu_torch.mixed import MixedEngine
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    cfg = dict(cutoff=LEG_CUTOFF, block=BLOCK, block_src=BLOCK_SRC,
+               rebuild_every=REBUILD)
+    half = n // 2
+    return MixedEngine.create(
+        [("bicycle2d", BicycleParams.create(), half),
+         ("twod", BicycleParams.create(), n - half)],
+        neighbors=NeighborConfig(**{**cfg, **kw}))
+
+
+def twod_crowd(n, dtype, device, pad=BLOCK):
+    """The bench crowd sized for twod (`build_population(model="twod")`,
+    the position ring TWOD_HIST long), padded to a multiple of `pad`
+    (None: not padded)."""
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
+    return build_population(n, DENSITY, TWOD_HIST, pad, dtype, device,
+                            model="twod")
+
+
+def with_queues(state):
+    """`state` with TWOD_QUEUE destinations per rider along a seeded
+    random direction (the k-th (k + 1) TWOD_SPACING m away, +-TWOD_SPACING/4
+    to the side, so each lies farther than the one before) and the queue
+    pointer at uid % TWOD_QUEUE."""
+    import numpy as np
+    import torch
+
+    n = state.n
+    rng = np.random.default_rng(TWOD_QUEUE_SEED)
+    heading = rng.uniform(-np.pi, np.pi, n)
+    side = rng.uniform(-0.25, 0.25, (n, TWOD_QUEUE)) * TWOD_SPACING
+    along = TWOD_SPACING * np.arange(1, TWOD_QUEUE + 1)[None, :]
+    pos = state.s[:, :2].double().cpu().numpy()
+    c, s_ = np.cos(heading)[:, None], np.sin(heading)[:, None]
+    dq = np.zeros(tuple(state.destqueue.shape))
+    dq[:, :TWOD_QUEUE, 0] = pos[:, :1] + along * c - side * s_
+    dq[:, :TWOD_QUEUE, 1] = pos[:, 1:] + along * s_ + side * c
+    ptr = state.uid.cpu().numpy().astype(np.int64) % TWOD_QUEUE
+    like = state.destqueue
+    return state.replace(
+        destqueue=torch.as_tensor(dq, dtype=like.dtype, device=like.device),
+        dest=torch.as_tensor(dq[np.arange(n), ptr], dtype=like.dtype,
+                             device=like.device),
+        destpointer=torch.as_tensor(ptr, dtype=state.destpointer.dtype,
+                                    device=like.device),
+        nq=torch.full_like(state.nq, TWOD_QUEUE))
 
 
 def jittered_params(n, device, dtype):
@@ -297,7 +419,8 @@ def work(tensors, plain_kw):
     import torch
 
     nbr, valid, src, recv = tensors
-    block_src = plain_kw.get("block_src", BLOCK)
+    block = plain_kw.get("block", BLOCK)
+    block_src = plain_kw.get("block_src", block)
     strip = plain_kw.get("sub") or block_src
     rows, n_strips = src.shape[0] // block_src, block_src // strip
     idx = nbr.long()
@@ -305,20 +428,20 @@ def work(tensors, plain_kw):
     if plain_kw.get("screen"):
         xs = src[:, 0].reshape(rows, block_src)[idx]           # [B, KB, S]
         ys = src[:, 1].reshape(rows, block_src)[idx]
-        xr = recv[0].reshape(nbr.shape[0], 1, 1, BLOCK)
-        yr = recv[1].reshape(nbr.shape[0], 1, 1, BLOCK)
+        xr = recv[0].reshape(nbr.shape[0], 1, 1, block)
+        yr = recv[1].reshape(nbr.shape[0], 1, 1, block)
         dx, dy = xr - xs[..., None], yr - ys[..., None]
         rho2 = (dx * dx + dy * dy).reshape(*nbr.shape, n_strips, -1)
         cutoff = plain_kw["cutoff"]
         admit = admit & (rho2.amin(dim=-1) <= cutoff * cutoff)
     pieces = int(admit.sum())
-    pairs = pieces * strip * BLOCK
+    pairs = pieces * strip * block
     legacy_pairs = 0
     mixed = bool(plain_kw.get("mixed"))
     if mixed:
         fam = (src[:, 13] > 0.5).reshape(rows, block_src)[idx]
         per_strip = fam.reshape(*nbr.shape, n_strips, strip).sum(dim=-1)
-        legacy_pairs = int((per_strip * admit).sum()) * BLOCK
+        legacy_pairs = int((per_strip * admit).sum()) * block
     fov = plain_kw.get("fov", True)
     p2r = plain_kw.get("priority_p2r", False)
     extra = OPS_FOV * fov + OPS_P2R * p2r + OPS_FAMILY * mixed
@@ -332,7 +455,7 @@ def work(tensors, plain_kw):
               "sfu": 1e3 * sfu_ops / PEAK_SFU_PER_S,
               "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
     floor = max(floors, key=floors.get)
-    out = {"candidate_pairs": int(valid.sum()) * block_src * BLOCK,
+    out = {"candidate_pairs": int(valid.sum()) * block_src * block,
            "pairs": pairs, "legacy_pairs": legacy_pairs, "operations": ops,
            "sfu_operations": sfu_ops, "bytes": nbytes,
            "floors_ms": floors, "bound_ms": floors[floor],
@@ -367,9 +490,10 @@ def check_form(phase, form, fn, tensors, kw, plain_kw):
                                                             **plain_kw),
                        reps=5)
     w = work(tensors, plain_kw)
+    block = plain_kw.get("block", BLOCK)
     emit(phase, form=form, name=fn.__name__, shape={
-        "blocks": nbr.shape[0], "kb": nbr.shape[1], "block": BLOCK,
-        "block_src": plain_kw.get("block_src", BLOCK),
+        "blocks": nbr.shape[0], "kb": nbr.shape[1], "block": block,
+        "block_src": plain_kw.get("block_src", block),
         "n_src": src.shape[0]},
         options={k: v for k, v in plain_kw.items()
                  if k not in ("block", "uniform")},
@@ -534,6 +658,49 @@ def phase_mixed_forms(leg, leg_db, state):
     return out, ratios
 
 
+def audited_engine(make, tag, state, **kw):
+    """`make(kb=..., **kw)` with kb = the in-range maximum at t = 0
+    (counted with a table of 8 * KB slots, itself overflow-free) plus
+    KB_MARGIN."""
+    most = audit_overflow(make(kb=8 * KB, **kw), state, f"{tag} probe t=0")
+    return make(kb=most + KB_MARGIN, **kw)
+
+
+def phase_block_forms(state):
+    """The receiver blocks other than 128 that the kernels are compiled
+    for (BLOCK_FORMS): K1 in its main form and K2 `uniform` on the main
+    path's field (block_src BLOCK_FORMS[block]), K3 with per-rider columns
+    and its tile screen (block_src = block), each against its plain
+    version at the 100,000-rider shape, kb from the audit."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    k1, k2, k3 = PF.KERNELS
+    params = jittered_params(state.n, "cuda", torch.float32)
+    out = {}
+    for block, block_src in BLOCK_FORMS.items():
+        main = audited_engine(make_engine, f"block {block}", state,
+                              block=block, block_src=block_src)
+        db = audited_engine(
+            lambda **kw: make_engine(params, **kw), f"db block {block}",
+            state, backend="pallas_db", block=block, block_src=block,
+            screen=True)
+        main_t, db_t = sorted_inputs(main, state), sorted_inputs(db, state)
+        kw = dict(block=block, block_src=block_src,
+                  uniform=main.uniform_pair, fov=not main.full_fov)
+        out[f"k1_block{block}"] = check_form(
+            "kernel_forms", f"k1_block{block}", k1, main_t, kw, kw)
+        out[f"k2_block{block}"] = check_form(
+            "kernel_forms", f"k2_block{block}", k2, main_t, kw, kw)
+        out[f"k3_block{block}"] = check_form(
+            "kernel_forms", f"k3_block{block}", k3, db_t,
+            {"block": block, "cutoff": CUTOFF},
+            {"block": block, "block_src": block, "screen": True,
+             "cutoff": CUTOFF})
+    return out
+
+
 def phase_legacy_config(state):
     """The legacy path's engines: kb = the in-range maximum at t = 0
     (counted with a table of 4 * KB slots, itself overflow-free) plus
@@ -602,7 +769,7 @@ def phase_slice(phase, engine, state, kernel):
     PROFILE_STEPS further graphed steps then shows that a replay does run
     that kernel once per step, and no other pair kernel. Also: a finite
     state, no table overflow at t = 0 and t = end. Then the eager loop and
-    the graphed one timed in turns, three runs of each."""
+    the graphed one timed in turns, TIMED_ROUNDS runs of each."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
@@ -626,12 +793,14 @@ def phase_slice(phase, engine, state, kernel):
     launches = named(engine.graph_launches())
     finite = bool(torch.isfinite(final.s).all())
     runner, = engine._runners.values()
-    if runner.graph is None or not runner.presorted:
-        raise AssertionError(f"{phase}: the run did not go through a "
-                             f"captured sorted-resident chunk")
+    if runner.graph is None or runner.presorted != engine.sorted_resident:
+        raise AssertionError(
+            f"{phase}: the run did not go through a captured chunk "
+            f"(sorted-resident: {engine.sorted_resident})")
     emit(f"{phase}_run", steps=N_STEPS, backend=engine.neighbors.backend,
          kernel_launches=launches, warm_up_launches=warm_up,
-         replays=runner.replays, finite=finite, first_run_s=first_s,
+         replays=runner.replays, presorted=runner.presorted,
+         finite=finite, first_run_s=first_s,
          capture_s=runner.capture_seconds,
          captured_launches_per_replay=named(runner.captured))
     if launches != only(N_STEPS) or warm_up != only(REBUILD):
@@ -658,7 +827,7 @@ def phase_slice(phase, engine, state, kernel):
             f"wrappers {by_wrapper}")
 
     runs = {"eager": [], "graphed": []}
-    for _ in range(3):
+    for _ in range(TIMED_ROUNDS):
         for how, graph in (("eager", False), ("graphed", True)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -694,24 +863,23 @@ def states_differ(a, b):
             if not torch.equal(getattr(a, f), getattr(b, f))]
 
 
-def phase_graph_parity(paths, state):
+def phase_graph_parity(paths, record_cases):
     """The graphed run against the eager loop, bit for bit: on each path
-    GRAPH_PARITY_STEPS steps from the 100,000-rider state without records
-    and with the per-step metrics; on the main path's engine with the
-    [T, N, 8] record on a GRAPH_PARITY_RECORD_N-rider crowd. And one eager
-    chunk of the main path with every host synchronisation an error (what
-    a capture would refuse)."""
+    GRAPH_PARITY_STEPS steps from its 100,000-rider state (`paths`: name
+    -> (engine, state)) without records and with the per-step metrics;
+    with the [T, N, 8] record on the GRAPH_PARITY_RECORD_N-rider crowds of
+    `record_cases` (name -> (engine, state)). And on each path of
+    `record_cases` one eager chunk at full width with every host
+    synchronisation an error (what a capture would refuse)."""
     import torch
 
     from cyclistsocialforce_tpu_torch.engine import permute_state
-    from cyclistsocialforce_tpu_torch.scenarios import build_population
 
-    small = build_population(GRAPH_PARITY_RECORD_N, DENSITY, HIST_LEN, BLOCK,
-                             torch.float32, "cuda")
-    cases = [(name, engine, state, kw) for name, engine in paths.items()
+    cases = [(name, engine, st, kw) for name, (engine, st) in paths.items()
              for kw in (dict(record=False),
                         dict(record=False, record_metrics=True))]
-    cases.append(("slice", paths["slice"], small, dict(record=True)))
+    cases += [(name, engine, st, dict(record=True))
+              for name, (engine, st) in record_cases.items()]
     for name, engine, st, kw in cases:
         eager, rec_e = engine.simulate(st, GRAPH_PARITY_STEPS, graph=False,
                                        **kw)
@@ -729,19 +897,21 @@ def phase_graph_parity(paths, state):
                                  f"run differs from the eager loop in "
                                  f"{differ}")
 
-    engine = paths["slice"]
-    cache = engine.neighbor_cache(state)
-    st = permute_state(state, cache[0])
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        engine.run_chunk(st, cache, REBUILD, presorted=True)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    emit("graph_parity", check="one eager chunk under "
-         "torch.cuda.set_sync_debug_mode('error')", steps=REBUILD,
-         sync_points=0)
+    for name in record_cases:
+        engine, state = paths[name]
+        cache = engine.neighbor_cache(state)
+        presorted = engine.sorted_resident
+        st = permute_state(state, cache[0]) if presorted else state
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine.run_chunk(st, cache, REBUILD, presorted=presorted)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        emit("graph_parity", path=name, check="one eager chunk under "
+             "torch.cuda.set_sync_debug_mode('error')", steps=REBUILD,
+             sync_points=0)
 
 
 def phase_metrics(engine, state):
@@ -808,7 +978,7 @@ def phase_aliasing(engine, state):
                              f"{runs_differ})")
 
 
-def phase_profile(engine, state):
+def phase_profile(path, engine, state):
     """One torch.profiler window of PROFILE_STEPS graphed steps (two
     chunks, with their two table rebuilds) of the main path: device
     kernels and copies per step, host launches per step, device-busy ms
@@ -857,7 +1027,8 @@ def phase_profile(engine, state):
     # permutations, the copies into the static buffers)
     eager_launches = sum(n for name, n in host.items()
                          if name != "cudaGraphLaunch")
-    emit("profile", steps=PROFILE_STEPS, rebuilds=PROFILE_STEPS // REBUILD,
+    emit("profile", path=path, steps=PROFILE_STEPS,
+         rebuilds=PROFILE_STEPS // REBUILD,
          wall_ms_per_step=1e3 * wall_s / PROFILE_STEPS,
          unprofiled_wall_ms_per_step=1e3 * plain_wall_s / PROFILE_STEPS,
          device_activities_per_step=len(device) / PROFILE_STEPS,
@@ -873,6 +1044,7 @@ def phase_profile(engine, state):
          other_ms_per_step=1e-3 * (busy_us - pair_us) / PROFILE_STEPS,
          top_kernels_ms_per_step={n[:80]: 1e-3 * t / PROFILE_STEPS
                                   for n, t in top})
+    return len(device) / PROFILE_STEPS
 
 
 def compare_runs(phase, engine_a, state_a, engine_b, state_b, **info):
@@ -973,6 +1145,40 @@ def phase_parity_legacy(engine):
                              f"{vs32['failed']}, float64 cap {over_cap}")
 
 
+def phase_parity_queues(phase, engine, n, pad):
+    """`engine` on an n-rider crowd with destination queues (`with_queues`),
+    PARITY_STEPS steps from one initial state, the final states against
+    the plain version on the CPU in float64: the card's graphed run in
+    float64 (K1 in float32 inside) held to both tiers of `parity`, and the
+    card's float32 graphed run reported beside it (see TWOD_FLOAT32)."""
+    import torch
+
+    def crowd(dtype, device):
+        return with_queues(twod_crowd(n, dtype, device, pad))
+
+    card32, card64 = crowd(torch.float32, "cuda"), crowd(torch.float64,
+                                                         "cuda")
+    audit_overflow(engine, card32, f"{phase} t=0")
+    fin32, _ = engine.simulate(card32, PARITY_STEPS, record=False)
+    fin64, _ = engine.simulate(card64, PARITY_STEPS, record=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, _ = engine.simulate(crowd(torch.float64, "cpu"), PARITY_STEPS,
+                             record=False)
+    cpu_s = time.perf_counter() - t0
+    info = dict(steps=PARITY_STEPS, rebuild_every=REBUILD, n=n,
+                cpu_run_s=cpu_s)
+    vs64 = parity_errors(fin64, ref)
+    vs32 = parity_errors(fin32, ref)
+    emit(phase, runs="card float64 graphed vs CPU float64 plain "
+         "(enforced)", **info, **vs64)
+    emit(phase, runs="card float32 graphed vs CPU float64 plain "
+         "(reported)", **info,
+         **{k: vs32[k] for k in ("max", "p99.9", "n_over_tol", "failed")})
+    if vs64["failed"]:
+        raise AssertionError(f"{phase} failed: {vs64['failed']}")
+
+
 def parity_errors(a, b):
     """Per-quantity error summary of final states `a` and `b`, and the
     list of checks that failed (see PARITY_TOL)."""
@@ -1033,58 +1239,109 @@ def main():
                              torch.float32, "cuda")
     db_engine = phase_db_config(state)
     leg_engine, leg_db_engine = phase_legacy_config(state)
-    kernel = phase_kernel(engine, state)
-    forms, vs_k1 = phase_kernel_forms(engine, db_engine, state)
-    mixed_forms, mixed_vs_k1 = phase_mixed_forms(leg_engine, leg_db_engine,
-                                                 state)
+    twod_engine = make_twod_engine()
+    twod_state = twod_crowd(N_AGENTS, torch.float32, "cuda")
+    mixed_state = twod_crowd(N_AGENTS, torch.float32, "cuda", pad=None)
+    mixed_engine = audited_engine(
+        lambda **kw: make_mixed_engine(N_AGENTS, **kw), "slice_mixed",
+        mixed_state)
+    seconds = {}
+
+    def timed(label, fn, *args):
+        """fn(*args), its wall seconds kept under `label`."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = seconds.get(label, 0.0) + time.perf_counter() - t
+        return out
+
+    kernel = timed("kernel", phase_kernel, engine, state)
+    forms, vs_k1 = timed("kernel_forms", phase_kernel_forms, engine,
+                         db_engine, state)
+    mixed_forms, mixed_vs_k1 = timed("kernel_forms", phase_mixed_forms,
+                                     leg_engine, leg_db_engine, state)
     forms.update(mixed_forms)
+    forms.update(timed("kernel_forms", phase_block_forms, state))
     vs_k1.update(mixed_vs_k1)
-    paths = {"slice": engine,
-             "slice_unrolled": make_engine(backend="pallas_unrolled"),
-             "slice_db": db_engine, "slice_legacy": leg_engine}
-    launches = {
-        "k1": phase_slice("slice", engine, state, PF.pair_forces_neighbors),
-        "k2": phase_slice("slice_unrolled", paths["slice_unrolled"], state,
-                          PF.pair_forces_neighbors_unrolled),
-        "k3": phase_slice("slice_db", db_engine, state,
-                          PF.pair_forces_neighbors_db),
-        "k1_legacy": phase_slice("slice_legacy", leg_engine, state,
-                                 PF.pair_forces_neighbors),
-    }
-    phase_parity()
-    phase_parity_db(db_engine, state)
-    phase_parity_legacy(leg_engine)
-    phase_graph_parity(paths, state)
-    phase_metrics(engine, state)
-    phase_aliasing(engine, state)
-    phase_profile(engine, state)
+    paths = {"slice": (engine, state),
+             "slice_unrolled": (make_engine(backend="pallas_unrolled"),
+                                state),
+             "slice_db": (db_engine, state),
+             "slice_legacy": (leg_engine, state),
+             "slice_twod": (twod_engine, twod_state),
+             "slice_mixed": (mixed_engine, mixed_state)}
+    k1, k2, k3 = PF.KERNELS
+    kernel_of = {"slice": k1, "slice_unrolled": k2, "slice_db": k3,
+                 "slice_legacy": k1, "slice_twod": k1, "slice_mixed": k1}
+    launches = {path: timed(path, phase_slice, path, *paths[path],
+                            kernel_of[path]) for path in paths}
+    timed("parity", phase_parity)
+    timed("parity_db", phase_parity_db, db_engine, state)
+    timed("parity_legacy", phase_parity_legacy, leg_engine)
+    timed("parity_twod", phase_parity_queues, "parity_twod", twod_engine,
+          PARITY_TWOD_N, BLOCK)
+    n_mixed = 2 * PARITY_MIXED_HALF
+    timed("parity_mixed", phase_parity_queues, "parity_mixed",
+          audited_engine(lambda **kw: make_mixed_engine(n_mixed, **kw),
+                         "parity_mixed",
+                         twod_crowd(n_mixed, torch.float32, "cuda", None)),
+          n_mixed, None)
+    small_mixed = twod_crowd(GRAPH_PARITY_RECORD_N, torch.float32, "cuda",
+                             None)
+    timed("graph_parity", phase_graph_parity, paths, {
+        "slice": (engine, build_population(
+            GRAPH_PARITY_RECORD_N, DENSITY, HIST_LEN, BLOCK, torch.float32,
+            "cuda")),
+        "slice_twod": (twod_engine, twod_crowd(GRAPH_PARITY_RECORD_N,
+                                               torch.float32, "cuda")),
+        "slice_mixed": (audited_engine(
+            lambda **kw: make_mixed_engine(GRAPH_PARITY_RECORD_N, **kw),
+            "graph_parity mixed", small_mixed), small_mixed)})
+    timed("metrics", phase_metrics, engine, state)
+    timed("aliasing", phase_aliasing, engine, state)
+    per_step = {path: timed("profile", phase_profile, path, *paths[path])
+                for path in ("slice", "slice_twod", "slice_mixed")}
+    emit("profile", twod_device_activities_per_step_over_slice=(
+        per_step["slice_twod"] - per_step["slice"]))
+    emit("phase_seconds", **seconds)
     emit("total", seconds=time.perf_counter() - t_start)
 
-    def mixed(form, launched=(None, None)):
-        return {"form": form, **counted(launched), **forms[form]}
-
-    def counted(pair):
+    def counted(path):
         """A path's (replayed, warm-up) launches of its kernel."""
-        return {"launches": pair[0], "warm_up_launches": pair[1]}
+        return {"launches": launches[path][0],
+                "warm_up_launches": launches[path][1]}
+
+    def mixed(form, path=None):
+        return {"form": form, **(counted(path) if path else {
+            "launches": None, "warm_up_launches": None}), **forms[form]}
+
+    def blocks(k):
+        return {str(b): {"form": f"{k}_block{b}", "launches": None,
+                         **forms[f"{k}_block{b}"]} for b in BLOCK_FORMS}
 
     # vs_k1: K1's time over the kernel's on the same work in the same call
     print(json.dumps({"kernels": [
         {"name": "pair_forces_neighbors", "route": "cuda",
          "source": SRC + "pair_forces.cu", "replaces": TPU + "75",
-         **counted(launches["k1"]), **kernel,
+         **counted("slice"), **kernel,
          "vs_k2_uniform": vs_k1["k2_uniform"],
-         "mixed": {**mixed("k1_mixed_screen", launches["k1_legacy"]),
-                   "vs_k3_mixed": vs_k1["k3_mixed"]}},
+         "paths": {name: counted(name) for name, fn in kernel_of.items()
+                   if fn is k1},
+         "mixed": {**mixed("k1_mixed_screen", "slice_legacy"),
+                   "vs_k3_mixed": vs_k1["k3_mixed"]},
+         "two_family": mixed("k1_two_family_screen", "slice_mixed"),
+         "blocks": blocks("k1")},
         {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
          "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",
-         **counted(launches["k2"]), **forms["k2_uniform"],
+         **counted("slice_unrolled"), **forms["k2_uniform"],
          "vs_k1": vs_k1["k2_uniform"],
-         "mixed": {**mixed("k2_mixed"), "vs_k1": vs_k1["k2_mixed"]}},
+         "mixed": {**mixed("k2_mixed"), "vs_k1": vs_k1["k2_mixed"]},
+         "blocks": blocks("k2")},
         {"name": "pair_forces_neighbors_db", "route": "cuda",
          "source": SRC + "pair_forces_db.cu", "replaces": TPU + "500",
-         **counted(launches["k3"]), **forms["k3"],
+         **counted("slice_db"), **forms["k3"],
          "vs_k1": vs_k1["k3"],
-         "mixed": {**mixed("k3_mixed"), "vs_k1": vs_k1["k3_mixed"]}},
+         "mixed": {**mixed("k3_mixed"), "vs_k1": vs_k1["k3_mixed"]},
+         "blocks": blocks("k3")},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

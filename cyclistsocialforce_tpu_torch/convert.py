@@ -32,11 +32,17 @@ def state_to_numpy(st: AgentState) -> dict:
 
 def params_from_jax(p, device="cuda"):
     """The port's params of the same class and values as a JAX
-    `VehicleParams` / `CarParams` / `BicycleParams` (no re-validation). Per-agent
-    leaves become float64 tensors on `device`."""
+    `VehicleParams` / `CarParams` / `BicycleParams` /
+    `InvPendulumBicycleParams` (no re-validation). Per-agent leaves become
+    float64 tensors on `device`."""
     name = type(p).__name__
     if name not in PARAM_CLASSES:
         raise NotImplementedError(f"params class {name} is not ported")
+    if (getattr(p, "ip_zoh_lut", None) is not None
+            or getattr(p, "ip_zoh_poly", None) is not None):
+        raise NotImplementedError(
+            "the ZOH propagator tables come with the invpendulum model, "
+            "which is not ported yet (ROADMAP Queue 1 item 6)")
     cls = PARAM_CLASSES[name]
     vals = {}
     for f in dataclasses.fields(cls):
@@ -45,3 +51,21 @@ def params_from_jax(p, device="cuda"):
             leaf = leaf.to(device)
         vals[f.name] = leaf
     return cls(**vals)
+
+
+def group_specs_from_jax(mixed_engine, device="cuda") -> list:
+    """The port's `MixedEngine.create` group specs, (model module, params,
+    n_agents) per group, of a JAX `MixedEngine`: each group's model is the
+    port's module of the same name as the module of its step function,
+    its params go through `params_from_jax`."""
+    from cyclistsocialforce_tpu_torch.models import MODELS
+
+    by_name = {m.__name__.rsplit(".", 1)[-1]: m for m in MODELS.values()}
+    specs = []
+    for g in mixed_engine.groups:
+        name = g.model_step.__module__.rsplit(".", 1)[-1]
+        if name not in by_name:
+            raise NotImplementedError(f"model module {name} is not ported")
+        specs.append((by_name[name], params_from_jax(g.params, device),
+                      int(g.hi) - int(g.lo)))
+    return specs

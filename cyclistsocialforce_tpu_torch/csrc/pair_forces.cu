@@ -35,10 +35,11 @@
 //   twod pair, not 6). The tracked mask stays a predicate, the receiver's
 //   activity is applied to its sum once, and the uniform constants are
 //   prepared once per thread.
-// - Issue efficiency. A receiver block of 128 agents is one CTA of kGroups
-//   groups of 128 / kRecv threads. Each thread holds kRecv receivers as
-//   independent chains fed by one broadcast read of each source row, and
-//   group g takes table slots g, g + kGroups, ... for all 128 receivers.
+// - Issue efficiency. A receiver block of kBlock agents (64, 128 or 256, a
+//   template parameter) is one CTA of kGroups groups of kBlock / kRecv
+//   threads (csf::Cta). Each thread holds kRecv receivers as independent
+//   chains fed by one broadcast read of each source row, and group g takes
+//   table slots g, g + kGroups, ... for all kBlock receivers.
 //   More independent work per warp hides the MUFU and shared-memory
 //   latencies, and the CTAs are short enough (~2 slots per group on the
 //   main path) that the SMs stay evenly loaded to the end of the call.
@@ -58,10 +59,10 @@
 //
 // Distance screen. With `screen`, each strip of `strip` sources (the
 // whole tile, or `sub` rows) is skipped when no pair of it and the block's
-// 128 receivers lies within the cutoff, the plain version's test (its
+// receivers lies within the cutoff, the plain version's test (its
 // minimum covers inactive and pad rows, as the TPU kernel's does, so all
 // three skip the same strips). The group votes with a barrier reduction
-// (bar.red.or) over its threads, which hold all 128 receivers: first on
+// (bar.red.or) over its threads, which hold all the block's receivers: first on
 // one probe pair per receiver, which admits most strips at once, then,
 // if no probe was in range, on every pair of the strip
 // (csf::group_in_range).
@@ -73,36 +74,36 @@
 
 namespace {
 
-using csf::kBlock;
-using csf::kGroupThreads;
+using csf::Cta;
 using csf::kRecv;
 using csf::kSrcCols;
 
-// The shape of a CTA, measured on an H100 (PERF.md): thread groups per
-// receiver block (of csf::kGroupThreads threads, csf::kRecv receivers per
-// thread) and the CTAs an SM must hold at once (__launch_bounds__, which
-// caps the registers: 2 CTAs of 512 threads, 64 registers).
-constexpr int kGroups = 8;
-constexpr int kMinBlocks = 2;
-constexpr int kThreads = kGroups * kGroupThreads;
-
-static_assert(kGroups <= 15, "one named barrier per group");
-
 // dynamic shared memory of a launch: each group's tile, then the groups'
 // partial sums [kGroups][2][kBlock]
+template <int kBlock>
 size_t shared_bytes(int block_src) {
+  constexpr int kGroups = Cta<kBlock>::kGroups;
   return sizeof(float) * (kGroups * kSrcCols * (size_t)block_src +
                           kGroups * 2 * kBlock);
 }
 
-template <bool kUniform, bool kFov, bool kP2R, bool kScreen, bool kMixed>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// The CTA's shape (thread groups per receiver block, of kBlock / kRecv
+// threads, kRecv receivers per thread, and the CTAs an SM must hold at
+// once for __launch_bounds__) is csf::Cta<kBlock>, measured on an H100 at
+// block 128 (PERF.md).
+template <int kBlock, bool kUniform, bool kFov, bool kP2R, bool kScreen,
+          bool kMixed>
+__global__ void __launch_bounds__(Cta<kBlock>::kThreads,
+                                  Cta<kBlock>::kMinBlocks)
 pair_forces_twod_kernel(const int* __restrict__ nbr,
                         const int* __restrict__ count,
                         const float* __restrict__ src,
                         const float* __restrict__ recv,
                         float* __restrict__ out, int kb, int block_src,
                         int strip, float cutoff2, csf::TwodParams tp) {
+  using C = Cta<kBlock>;
+  constexpr int kGroups = C::kGroups;
+  constexpr int kGroupThreads = C::kGroupThreads;
   extern __shared__ float4 smem4[];
 
   const int b = blockIdx.x;
@@ -129,15 +130,16 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
 
   csf::Receiver rc[kRecv];
   float fx[kRecv], fy[kRecv];
-  csf::load_receivers(recv, npad, b, lt, rc, fx, fy);
+  csf::load_receivers<kBlock>(recv, npad, b, lt, rc, fx, fy);
   const csf::FieldConsts p = csf::field_consts(tp);
 
   for (int k = g; k < n_slots; k += kGroups) {
     csf::cp_async_wait<0>();
-    csf::group_sync(bar);
+    csf::group_sync<kGroupThreads>(bar);
     for (int j0 = 0; j0 < block_src; j0 += strip) {
       if constexpr (kScreen) {
-        if (!csf::group_in_range(tile, j0, strip, lt, rc, cutoff2, bar)) {
+        if (!csf::group_in_range<kBlock>(tile, j0, strip, lt, rc, cutoff2,
+                                         bar)) {
           continue;
         }
       }
@@ -152,12 +154,12 @@ pair_forces_twod_kernel(const int* __restrict__ nbr,
     }
     // the next copy overwrites the tile only after every thread of the
     // group is done with it
-    csf::group_sync(bar);
+    csf::group_sync<kGroupThreads>(bar);
     fill(k + kGroups);
   }
 
-  csf::sum_groups<kGroups>(reinterpret_cast<float*>(smem4 + kGroups * tile_vec),
-                           g, lt, rc, fx, fy, out, npad, b);
+  csf::sum_groups<kBlock>(reinterpret_cast<float*>(smem4 + kGroups * tile_vec),
+                          g, lt, rc, fx, fy, out, npad, b);
 }
 
 }  // namespace
@@ -167,61 +169,68 @@ extern "C" {
 // Launch on `stream` of CUDA device `device`. nbr [n_blocks, kb] int32 (the
 // first count[b] entries of row b are valid source block indices); src
 // [N_src, 16] float32, 16-byte aligned, N_src a multiple of block_src; recv
-// [8, n_blocks * 128] float32; out [2, n_blocks * 128] float32. `strip` is
-// the screened source strip (block_src for the tile screen; it must divide
-// block_src), `cutoff2` the squared cutoff the screen compares with; both
-// are ignored without `screen`. e0..chf are the shared field parameters
-// (read only with `uniform`); `mixed` selects each row's family by its
-// column 13 and excludes `uniform`. Returns cudaGetLastError() after the
-// launch (0 on success).
+// [8, n_blocks * block] float32; out [2, n_blocks * block] float32. `block`
+// is the receiver block, 64, 128 or 256; block_src must divide it. `strip`
+// is the screened source strip (block_src for the tile screen; it must
+// divide block_src), `cutoff2` the squared cutoff the screen compares with;
+// both are ignored without `screen`. e0..chf are the shared field
+// parameters (read only with `uniform`); `mixed` selects each row's family
+// by its column 13 and excludes `uniform`. Returns cudaGetLastError() after
+// the launch (0 on success; cudaErrorInvalidValue, with no launch, for
+// arguments the kernel does not take).
 int csf_pair_forces_twod(const void* nbr, const void* count,
                          const void* src, const void* recv, void* out,
-                         int n_blocks, int kb, int block_src, int uniform,
-                         int mixed, int fov, int p2r, int screen, int strip,
-                         float cutoff2, float e0, float e1, float s0,
-                         float s1, float s2, float s3, float chf, int device,
-                         void* stream) {
+                         int n_blocks, int kb, int block, int block_src,
+                         int uniform, int mixed, int fov, int p2r, int screen,
+                         int strip, float cutoff2, float e0, float e1,
+                         float s0, float s1, float s2, float s3, float chf,
+                         int device, void* stream) {
   if (n_blocks <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (!screen) strip = block_src;
-  if (block_src <= 0 || kBlock % block_src != 0 || strip <= 0 ||
+  if (block_src <= 0 || block % block_src != 0 || strip <= 0 ||
       block_src % strip != 0 || (uniform && mixed)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // at most 72 KB (block_src = 128), above the 48 KB a kernel gets unasked
-  const size_t smem = shared_bytes(block_src);
   const csf::TwodParams p{e0, e1, s0, s1, s2, s3, chf};
   auto s = static_cast<cudaStream_t>(stream);
-  csf::with_flag(uniform, [&](auto U) {
-    csf::with_flag(fov, [&](auto FV) {
-      csf::with_flag(p2r, [&](auto P2R) {
-        csf::with_flag(screen, [&](auto SCR) {
-          csf::with_flag(mixed, [&](auto M) {
-            if constexpr (!(decltype(U)::value && decltype(M)::value)) {
-              auto kernel = pair_forces_twod_kernel<
-                  decltype(U)::value, decltype(FV)::value,
-                  decltype(P2R)::value, decltype(SCR)::value,
-                  decltype(M)::value>;
-              if (smem > 48 * 1024) {
-                err = cudaFuncSetAttribute(
-                    kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                    static_cast<int>(smem));
-                if (err != cudaSuccess) return;
+  const bool known = csf::with_block(block, [&](auto B) {
+    constexpr int kBlock = decltype(B)::value;
+    // at most 72 KB (block 256, block_src = 256), above the 48 KB a kernel
+    // gets unasked
+    const size_t smem = shared_bytes<kBlock>(block_src);
+    csf::with_flag(uniform, [&](auto U) {
+      csf::with_flag(fov, [&](auto FV) {
+        csf::with_flag(p2r, [&](auto P2R) {
+          csf::with_flag(screen, [&](auto SCR) {
+            csf::with_flag(mixed, [&](auto M) {
+              if constexpr (!(decltype(U)::value && decltype(M)::value)) {
+                auto kernel = pair_forces_twod_kernel<
+                    kBlock, decltype(U)::value, decltype(FV)::value,
+                    decltype(P2R)::value, decltype(SCR)::value,
+                    decltype(M)::value>;
+                if (smem > 48 * 1024) {
+                  err = cudaFuncSetAttribute(
+                      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                      static_cast<int>(smem));
+                  if (err != cudaSuccess) return;
+                }
+                kernel<<<n_blocks, Cta<kBlock>::kThreads, smem, s>>>(
+                    static_cast<const int*>(nbr),
+                    static_cast<const int*>(count),
+                    static_cast<const float*>(src),
+                    static_cast<const float*>(recv), static_cast<float*>(out),
+                    kb, block_src, strip, cutoff2, p);
+                err = cudaGetLastError();
               }
-              kernel<<<n_blocks, kThreads, smem, s>>>(
-                  static_cast<const int*>(nbr),
-                  static_cast<const int*>(count),
-                  static_cast<const float*>(src),
-                  static_cast<const float*>(recv), static_cast<float*>(out),
-                  kb, block_src, strip, cutoff2, p);
-              err = cudaGetLastError();
-            }
+            });
           });
         });
       });
     });
   });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);
 }
 

@@ -22,11 +22,12 @@
 // for the last tile before its first pair wastes the copies' latency.
 //
 // Design, against each of those costs:
-// - Warps per SM. A receiver block is one CTA of kGroups groups of 64
-//   threads, 2 receivers per thread (pair_groups.cuh). The tiles are
-//   staged in rounds of at most kStageBytes: with the groups' partial
-//   sums that is ~105 KB, so two CTAs (32 warps, all 64 K registers) fit an
-//   SM at any kb. The main path's row (kb 19, 76 KB) is one round; the
+// - Warps per SM. A receiver block of kBlock agents (64, 128 or 256) is
+//   one CTA of kGroups groups of kBlock / 2 threads, 2 receivers per thread
+//   (csf::Cta, pair_groups.cuh). The tiles are staged in rounds of at most
+//   kStageBytes: with the groups' partial sums that is ~105 KB, so at block
+//   128 and 256 two CTAs (32 warps, all 64 K registers) fit an SM at any kb;
+//   at block 64 the same two CTAs hold 16 warps. The main path's row (kb 19, 76 KB) is one round; the
 //   legacy field's (kb ~35 at cutoff 100 m, 140 KB) is two, where staging
 //   it whole would leave one CTA per SM.
 // - Tiles land once, compute starts with the first. At the start of a
@@ -38,7 +39,7 @@
 // - Even shares. With all tiles of a round resident, the groups split
 //   its source rows evenly, whatever the row's count: group g takes rows
 //   [g n / kGroups, (g + 1) n / kGroups) of the round's n rows, for all
-//   128 receivers. (pair_forces.cu hands out whole tiles, so a row of 14
+//   kBlock receivers. (pair_forces.cu hands out whole tiles, so a row of 14
 //   tiles keeps some of its groups waiting for a quarter of the time.)
 // - Determinism. The split depends only on the row's count; at the end
 //   the groups' partial sums are added in group order (no atomics).
@@ -55,21 +56,14 @@
 
 namespace {
 
-using csf::kBlock;
-using csf::kGroupThreads;
+using csf::Cta;
 using csf::kRecv;
 using csf::kSrcCols;
 
-// The shape of a CTA, measured on an H100 (PERF.md): thread groups per
-// receiver block, the CTAs an SM must hold at once (__launch_bounds__: 2
-// CTAs of 512 threads, 64 registers), and the bytes of source tiles a
-// round stages.
-constexpr int kGroups = 8;
-constexpr int kMinBlocks = 2;
-constexpr int kThreads = kGroups * kGroupThreads;
+// The bytes of source tiles a round stages, measured on an H100 (PERF.md);
+// the CTA's shape (thread groups per receiver block, the CTAs an SM must
+// hold at once for __launch_bounds__) is csf::Cta<kBlock>.
 constexpr int kStageBytes = 96 * 1024;
-
-static_assert(kGroups <= 15, "one named barrier per group");
 
 // tiles a round stages for a table of kb slots
 int round_slots(int kb, int block_src) {
@@ -79,25 +73,30 @@ int round_slots(int kb, int block_src) {
 
 // dynamic shared memory of a launch: the round's tiles, the groups'
 // partial sums [kGroups][2][kBlock], one mbarrier per staged tile
+template <int kBlock>
 size_t shared_bytes(int slots, int block_src) {
   return sizeof(float) * (slots * kSrcCols * (size_t)block_src +
-                          kGroups * 2 * kBlock) +
+                          Cta<kBlock>::kGroups * 2 * kBlock) +
          sizeof(uint64_t) * slots;
 }
 
-template <bool kUniform, bool kFov, bool kP2R, bool kMixed>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int kBlock, bool kUniform, bool kFov, bool kP2R, bool kMixed>
+__global__ void __launch_bounds__(Cta<kBlock>::kThreads,
+                                  Cta<kBlock>::kMinBlocks)
 pair_forces_unrolled_kernel(const int* __restrict__ nbr,
                             const int* __restrict__ count,
                             const float* __restrict__ src,
                             const float* __restrict__ recv,
                             float* __restrict__ out, int kb, int block_src,
                             int slots, csf::TwodParams tp) {
+  using C = Cta<kBlock>;
+  constexpr int kGroups = C::kGroups;
+  constexpr int kThreads = C::kThreads;
   extern __shared__ float4 smem4[];
 
   const int b = blockIdx.x;
-  const int g = threadIdx.x / kGroupThreads;
-  const int lt = threadIdx.x % kGroupThreads;
+  const int g = threadIdx.x / C::kGroupThreads;
+  const int lt = threadIdx.x % C::kGroupThreads;
   const int npad = gridDim.x * kBlock;
   const int n_slots = count[b];
   const int tile_vec = block_src * (kSrcCols / 4);
@@ -115,7 +114,7 @@ pair_forces_unrolled_kernel(const int* __restrict__ nbr,
 
   csf::Receiver rc[kRecv];
   float fx[kRecv], fy[kRecv];
-  csf::load_receivers(recv, npad, b, lt, rc, fx, fy);
+  csf::load_receivers<kBlock>(recv, npad, b, lt, rc, fx, fy);
   const csf::FieldConsts p = csf::field_consts(tp);
 
   for (int k0 = 0; k0 < n_slots; k0 += slots) {
@@ -149,7 +148,7 @@ pair_forces_unrolled_kernel(const int* __restrict__ nbr,
     }
   }
 
-  csf::sum_groups<kGroups>(part, g, lt, rc, fx, fy, out, npad, b);
+  csf::sum_groups<kBlock>(part, g, lt, rc, fx, fy, out, npad, b);
 }
 
 }  // namespace
@@ -159,49 +158,55 @@ extern "C" {
 // Launch on `stream` of CUDA device `device`; arguments as for
 // csf_pair_forces_twod (pair_forces.cu), without the screen. Any kb is
 // taken: a row longer than a round is staged in several. Returns
-// cudaGetLastError() after the launch (0 on success).
+// cudaGetLastError() after the launch (0 on success; cudaErrorInvalidValue,
+// with no launch, for arguments the kernel does not take).
 int csf_pair_forces_unrolled(const void* nbr, const void* count,
                              const void* src, const void* recv, void* out,
-                             int n_blocks, int kb, int block_src,
+                             int n_blocks, int kb, int block, int block_src,
                              int uniform, int mixed, int fov, int p2r,
-                             float e0,
-                             float e1, float s0, float s1, float s2,
-                             float s3, float chf, int device, void* stream) {
+                             float e0, float e1, float s0, float s1,
+                             float s2, float s3, float chf, int device,
+                             void* stream) {
   if (n_blocks <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (block_src <= 0 || kBlock % block_src != 0 || kb <= 0 ||
+  if (block_src <= 0 || block % block_src != 0 || kb <= 0 ||
       (uniform && mixed)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int slots = round_slots(kb, block_src);
-  const size_t smem = shared_bytes(slots, block_src);
 
   const csf::TwodParams p{e0, e1, s0, s1, s2, s3, chf};
   auto s = static_cast<cudaStream_t>(stream);
-  csf::with_flag(uniform, [&](auto U) {
-    csf::with_flag(fov, [&](auto FV) {
-      csf::with_flag(p2r, [&](auto P2R) {
-        csf::with_flag(mixed, [&](auto M) {
-          if constexpr (!(decltype(U)::value && decltype(M)::value)) {
-            auto kernel = pair_forces_unrolled_kernel<
-                decltype(U)::value, decltype(FV)::value,
-                decltype(P2R)::value, decltype(M)::value>;
-            err = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return;
-            kernel<<<n_blocks, kThreads, smem, s>>>(
-                static_cast<const int*>(nbr), static_cast<const int*>(count),
-                static_cast<const float*>(src),
-                static_cast<const float*>(recv), static_cast<float*>(out), kb,
-                block_src, slots, p);
-            err = cudaGetLastError();
-          }
+  const bool known = csf::with_block(block, [&](auto B) {
+    constexpr int kBlock = decltype(B)::value;
+    const size_t smem = shared_bytes<kBlock>(slots, block_src);
+    csf::with_flag(uniform, [&](auto U) {
+      csf::with_flag(fov, [&](auto FV) {
+        csf::with_flag(p2r, [&](auto P2R) {
+          csf::with_flag(mixed, [&](auto M) {
+            if constexpr (!(decltype(U)::value && decltype(M)::value)) {
+              auto kernel = pair_forces_unrolled_kernel<
+                  kBlock, decltype(U)::value, decltype(FV)::value,
+                  decltype(P2R)::value, decltype(M)::value>;
+              err = cudaFuncSetAttribute(
+                  kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                  static_cast<int>(smem));
+              if (err != cudaSuccess) return;
+              kernel<<<n_blocks, Cta<kBlock>::kThreads, smem, s>>>(
+                  static_cast<const int*>(nbr),
+                  static_cast<const int*>(count),
+                  static_cast<const float*>(src),
+                  static_cast<const float*>(recv), static_cast<float*>(out),
+                  kb, block_src, slots, p);
+              err = cudaGetLastError();
+            }
+          });
         });
       });
     });
   });
+  if (!known) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);
 }
 

@@ -1,17 +1,18 @@
 // Thread-group pieces shared by the block-sparse pair kernels
 // (pair_forces.cu, pair_forces_unrolled.cu, pair_forces_db.cu).
 //
-// All three kernels give a receiver block of 128 agents to one CTA of
-// several thread groups. A group is kGroupThreads = 64 threads (two warps)
-// that together hold all 128 receivers, kRecv = 2 per thread: two
-// independent FP32/MUFU chains per thread, fed by one broadcast read of
-// each source row. The groups divide the block's source rows between them
-// (each kernel its own way) and meet once, at the end, where their partial
-// sums are added in group order: no atomics, so the same call gives the
-// same bits every time. Here: a group's named barrier and its vote, the
-// receivers' load, the probe-first distance-screen vote, that final sum,
-// and the two ways a tile reaches shared memory (cp.async per thread; one
-// bulk copy that reports to an mbarrier).
+// All three kernels give a receiver block of kBlock agents (64, 128 or 256,
+// a template parameter) to one CTA of several thread groups. A group is
+// kBlock / kRecv threads (whole warps: 32, 64 or 128) that together hold
+// all kBlock receivers, kRecv = 2 per thread: two independent FP32/MUFU
+// chains per thread, fed by one broadcast read of each source row. The
+// groups divide the block's source rows between them (each kernel its own
+// way) and meet once, at the end, where their partial sums are added in
+// group order: no atomics, so the same call gives the same bits every time.
+// Here: the CTA's shape for each block, a group's named barrier and its
+// vote, the receivers' load, the probe-first distance-screen vote, that
+// final sum, and the two ways a tile reaches shared memory (cp.async per
+// thread; one bulk copy that reports to an mbarrier).
 
 #pragma once
 
@@ -24,21 +25,41 @@
 namespace csf {
 
 constexpr int kRecv = 2;                        // receivers per thread
-constexpr int kGroupThreads = kBlock / kRecv;   // threads per group
 
-static_assert(kGroupThreads % 32 == 0, "a group is whole warps");
+// The shape of a CTA for a receiver block of kBlock agents. Block 128 is
+// the shape measured on an H100 (PERF.md): 8 groups of 64 threads, 512
+// threads, 2 CTAs per SM, so __launch_bounds__ caps a thread at 64
+// registers. The other blocks keep that register budget (threads x CTAs
+// per SM = 1024): block 64 is 8 groups of one warp (256 threads, 4 CTAs),
+// block 256 is 4 groups of 128 threads (512 threads, 2 CTAs; 8 such
+// groups would be 1024 threads at ~60 registers, more than an SM holds
+// twice).
+template <int kBlock>
+struct Cta {
+  static_assert(kBlock == 64 || kBlock == 128 || kBlock == 256,
+                "the receiver blocks the kernels are compiled for");
+  static constexpr int kGroupThreads = kBlock / kRecv;   // threads per group
+  static constexpr int kGroups = kBlock == 256 ? 4 : 8;
+  static constexpr int kThreads = kGroups * kGroupThreads;
+  static constexpr int kMinBlocks = 1024 / kThreads;      // CTAs per SM
+  static_assert(kGroupThreads % 32 == 0, "a group is whole warps");
+  // named barrier 0 is __syncthreads', so a CTA has at most 15 groups
+  static_assert(kGroups <= 15, "one named barrier per group");
+};
 
-// Named barrier of group g: barrier 0 is __syncthreads', so a CTA has at
-// most 15 groups.
+// Named barrier of group g: barrier 0 is __syncthreads'.
 __device__ __forceinline__ int group_barrier(int g) { return 1 + g; }
 
-// wait for the threads of this thread's group (its named barrier `id`)
+// wait for the kGroupThreads threads of this thread's group (its named
+// barrier `id`)
+template <int kGroupThreads>
 __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kGroupThreads)
                : "memory");
 }
 
-// is `v` true on any thread of this thread's group?
+// is `v` true on any of the kGroupThreads threads of this thread's group?
+template <int kGroupThreads>
 __device__ __forceinline__ bool group_any(bool v, int id) {
   int any;
   asm volatile(
@@ -56,11 +77,13 @@ __device__ __forceinline__ bool group_any(bool v, int id) {
 
 // This thread's receivers of block b (receiver lt + i kGroupThreads of the
 // block for thread lt of a group), their sums set to 0.
+template <int kBlock>
 __device__ __forceinline__ void load_receivers(const float* recv, int npad,
                                                int b, int lt,
                                                Receiver (&rc)[kRecv],
                                                float (&fx)[kRecv],
                                                float (&fy)[kRecv]) {
+  constexpr int kGroupThreads = Cta<kBlock>::kGroupThreads;
 #pragma unroll
   for (int i = 0; i < kRecv; ++i) {
     rc[i] = load_receiver(recv, npad, b * kBlock + lt + i * kGroupThreads);
@@ -69,24 +92,26 @@ __device__ __forceinline__ void load_receivers(const float* recv, int npad,
   }
 }
 
-// Does some pair of source rows [j0, j0 + n) of `tile` and the group's 128
-// receivers lie within the cutoff? The plain version's test of a screened
-// strip: its minimum covers inactive and pad rows. The group votes with a
-// barrier reduction, first on one probe pair per receiver (receiver rr
-// against row j0 + rr mod n), which settles most strips, then, if no
+// Does some pair of source rows [j0, j0 + n) of `tile` and the group's
+// kBlock receivers lie within the cutoff? The plain version's test of a
+// screened strip: its minimum covers inactive and pad rows. The group votes
+// with a barrier reduction, first on one probe pair per receiver (receiver
+// rr against row j0 + rr mod n), which settles most strips, then, if no
 // probe was in range, on every pair. Every thread of the group must call
 // it; all get the same answer.
+template <int kBlock>
 __device__ __forceinline__ bool group_in_range(const float4* tile, int j0,
                                                int n, int lt,
                                                const Receiver (&rc)[kRecv],
                                                float cutoff2, int bar) {
+  constexpr int kGroupThreads = Cta<kBlock>::kGroupThreads;
   const float4 a = tile[(j0 + lt % n) * 4];
   bool near = false;
 #pragma unroll
   for (int i = 0; i < kRecv; ++i) {
     near |= rho2_rn(a.x, a.y, rc[i]) <= cutoff2;
   }
-  if (group_any(near, bar)) return true;
+  if (group_any<kGroupThreads>(near, bar)) return true;
   float rho2_min = INFINITY;
   for (int j = j0; j < j0 + n; ++j) {
     const float4 q = tile[j * 4];
@@ -95,7 +120,7 @@ __device__ __forceinline__ bool group_in_range(const float4* tile, int j0,
       rho2_min = fminf(rho2_min, rho2_rn(q.x, q.y, rc[i]));
     }
   }
-  return group_any(rho2_min <= cutoff2, bar);
+  return group_any<kGroupThreads>(rho2_min <= cutoff2, bar);
 }
 
 // The end of a kernel: the groups' partial sums meet in `part`
@@ -103,24 +128,27 @@ __device__ __forceinline__ bool group_in_range(const float4* tile, int j0,
 // order into out [2, npad]; an inactive receiver gets 0 (the plain
 // version's mask drops each of its pairs). Every thread of the CTA calls
 // it.
-template <int kGroups>
+template <int kBlock>
 __device__ __forceinline__ void sum_groups(float* part, int g, int lt,
                                            const Receiver (&rc)[kRecv],
                                            const float (&fx)[kRecv],
                                            const float (&fy)[kRecv],
                                            float* out, int npad, int b) {
+  using C = Cta<kBlock>;
 #pragma unroll
   for (int i = 0; i < kRecv; ++i) {
-    const int rr = lt + i * kGroupThreads;
+    const int rr = lt + i * C::kGroupThreads;
     part[(2 * g) * kBlock + rr] = rc[i].act ? fx[i] : 0.0f;
     part[(2 * g + 1) * kBlock + rr] = rc[i].act ? fy[i] : 0.0f;
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < 2 * kBlock; o += kGroups * kGroupThreads) {
+  for (int o = threadIdx.x; o < 2 * kBlock; o += C::kThreads) {
     const int c = o / kBlock, rr = o % kBlock;     // c: 0 fx, 1 fy
     float sum = part[c * kBlock + rr];
 #pragma unroll
-    for (int q = 1; q < kGroups; ++q) sum += part[(2 * q + c) * kBlock + rr];
+    for (int q = 1; q < C::kGroups; ++q) {
+      sum += part[(2 * q + c) * kBlock + rr];
+    }
     out[c * npad + b * kBlock + rr] = sum;
   }
 }

@@ -24,7 +24,6 @@
 namespace csf {
 
 constexpr int kSrcCols = 16;
-constexpr int kBlock = 128;        // receivers per block
 
 // source pack columns
 constexpr int kSX = 0, kSY = 1, kSC = 2, kSS = 3, kF0 = 4, kE0 = 5, kE1 = 6,
@@ -271,6 +270,26 @@ inline void with_flag(bool v, F&& f) {
     f(std::true_type{});
   } else {
     f(std::false_type{});
+  }
+}
+
+// Call f(std::integral_constant<int, block>{}) for a receiver block the
+// kernels are compiled for (64, 128, 256) and return true; false for any
+// other block, which the launchers refuse.
+template <typename F>
+inline bool with_block(int block, F&& f) {
+  switch (block) {
+    case 64:
+      f(std::integral_constant<int, 64>{});
+      return true;
+    case 128:
+      f(std::integral_constant<int, 128>{});
+      return true;
+    case 256:
+      f(std::integral_constant<int, 256>{});
+      return true;
+    default:
+      return false;
   }
 }
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
+import warnings
 import weakref
 from dataclasses import dataclass
 
@@ -40,6 +41,7 @@ from cyclistsocialforce_tpu_torch.ops import forces as F
 from cyclistsocialforce_tpu_torch.ops import navigation as nav
 from cyclistsocialforce_tpu_torch.ops import neighbors as NB
 from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+from cyclistsocialforce_tpu_torch.ops import spline as spl
 from cyclistsocialforce_tpu_torch.params import pair_hi
 from cyclistsocialforce_tpu_torch.state import (PSI, STATE_DIM, THETA, V, X,
                                                 Y, AgentState)
@@ -118,9 +120,192 @@ def dest_force_hm(params, state: AgentState):
     return fx, fy, new_state
 
 
+# ---- the spline (path-planning) destination force ----
+
+# local constants of the reference implementation (vehicle.py:1443-1448)
+SPL_N_FWD = 4          # most forward destinations in the spline
+SPL_N_PNTS = 20        # interpolated spline points
+SPL_IPRED = 3          # look-ahead for normal riding
+SPL_IPRED_LAST = 5     # look-ahead for the final destination
+SPL_THETA_COMF = 10.0 * (2.0 * math.pi / 360.0)   # comfort lean ~10 deg
+SPL_V_MIN_STABLE = 2.5                            # vehicle.py:1534
+
+
+def spline_lookback(params):
+    """The last-destination spline's 1 s lookback in steps, floor(1 /
+    t_s) (reference vehicle.py:1486), when every agent shares t_s; None
+    when t_s differs between agents (`dest_force_spline` then looks back
+    per agent). Reads per-agent t_s on the host: an engine calls it once,
+    when it is built, never inside a step."""
+    ts = _values(params, "t_s")
+    if all(t == ts[0] for t in ts):
+        return int(math.floor(1.0 / ts[0]))
+    return None
+
+
+def _ring_row(pos_hist, step):
+    """Every agent's [N, 2] ring entry of global step `step` (a 0-d device
+    tensor): one index_select at slot step % H, no host read."""
+    slot = torch.remainder(step, pos_hist.shape[1]).long().reshape(1)
+    return pos_hist.index_select(1, slot)[:, 0]
+
+
+def dest_force_spline(params, state: AgentState, lookback="auto"):
+    """Spline path-planning destination force of the BMD2023 2D model
+    (reference TwoDBicycle.calcDestinationForce, vehicle.py:1416-1558;
+    the JAX package's `engine.dest_force_spline`): a parametric cubic
+    through recent positions and upcoming queue destinations, the force
+    along the spline's look-ahead, the desired speed limited by the
+    spline's curvature radius R through a ~10 deg comfort lean, v =
+    sqrt(theta_comf g R).
+
+    Branches, branchless: step 0 pushes along the heading; "arrived" pushes
+    nothing; a next destination that is not the last fits the previous and
+    current positions and up to 4 forward destinations; the last
+    destination fits the positions 1 s back, one step back and now, and
+    the destination; a look-ahead past the spline's end, or a non-finite
+    spline force (duplicate support points), falls back to the straight
+    line after a second pass of the destination-queue update and the
+    navigation FSM (the reference's quirk, vehicle.py:1556). The JAX
+    package runs that second pass under `lax.cond` when any active agent
+    needs it; here it runs every step and `torch.where` keeps its rows
+    (the same rows, so the same results), because the step must read
+    nothing back to the host.
+
+    lookback : the 1 s lookback in steps, `spline_lookback(params)`, which
+        an engine decides once when it is built (None: per agent, from
+        each agent's t_s, by a one-hot contraction over the ring); "auto"
+        decides it here (a host read of per-agent t_s)."""
+    if isinstance(lookback, str):
+        lookback = spline_lookback(params)
+    n = state.n
+    s = state.s
+    dtype, dev = s.dtype, s.device
+    npar = nav_params_view(params, s)
+    g = _per_agent(params.g, n, s)
+    hist = state.hist_len
+    if lookback is not None and hist < lookback + 1:
+        warnings.warn(
+            f"spline destination force: pos_hist ring buffer "
+            f"(hist_len={hist}) is shorter than the 1 s lookback "
+            f"({lookback + 1} samples); the last-destination spline will "
+            f"read wrapped (stale) samples -- build the state with "
+            f"make_state(hist_len>={lookback + 1})", stacklevel=2)
+
+    # ring lookbacks at the global step clock (slot t % H holds every
+    # agent's position at global step t)
+    tg = state.t_glob
+    ph = state.pos_hist
+    prev = _ring_row(ph, tg - 1)
+    if lookback is not None:
+        back = _ring_row(ph, tg - torch.clamp(tg, max=lookback))
+    else:
+        t_s = _per_agent(params.t_s, n, s)
+        lb = torch.floor(1.0 / t_s).to(torch.int32)       # vehicle.py:1486
+        jb = torch.remainder(tg - torch.minimum(tg, lb), hist)
+        oh = torch.arange(hist, device=dev)[None, :] == jb[:, None]
+        back = torch.sum(torch.where(oh[:, :, None], ph, 0.0), dim=1)
+
+    pos = s[:, :2]
+    v = s[:, V]
+    i = state.i
+    dq, nq = state.destqueue, state.nq
+
+    # first pass: destination-queue update and navigation FSM
+    dest1, ptr1, istop1, dstop1 = nav.update_destination(
+        pos, state.dest, dq, state.destpointer, nq, state.znav, i,
+        state.i_stopsignal, state.d_stopsignal, npar.d_arrived_inter)
+    ddest1 = nav.dest_distance(pos, dq, ptr1)
+    vd1, znav1, znavp1 = nav.update_nav_state(
+        v, ddest1, dest1[:, 2], state.znav, state.znavparams, i, npar)
+
+    # support points: not-last (prev, current, dq[ptr1 .. ptr1 + fwd - 1]),
+    # fwd in 2..4; last (1 s back, one step back, current, destination)
+    is_last = ptr1 >= nq - 1
+    fwd = torch.clamp(nq - ptr1, max=SPL_N_FWD)
+    didx = torch.clamp(ptr1[:, None] + torch.arange(SPL_N_FWD, device=dev),
+                       0, dq.shape[1] - 1)
+    dq_sel = torch.gather(dq[:, :, :2], 1,
+                          didx.long()[:, :, None].expand(-1, -1, 2))
+    pts_nl = torch.cat([prev[:, None], pos[:, None], dq_sel], dim=1)
+    pts_last = torch.cat([back[:, None], prev[:, None], pos[:, None],
+                          dest1[:, None, :2],
+                          torch.zeros((n, 2, 2), dtype=dtype, device=dev)],
+                         dim=1)
+    pts6 = torch.where(is_last[:, None, None], pts_last, pts_nl)   # [N, 6, 2]
+    m_valid = torch.where(is_last, 4, 2 + fwd)
+    t_sites, moments = spl.fit_masked_banded(pts6, m_valid)
+
+    # positions at the SPL_N_PNTS uniform parameters for the nearest-sample
+    # search, then the derivatives at the two parameters the force needs
+    q20 = spl.uniform_grid(SPL_N_PNTS, dtype, dev)
+    S20 = spl.eval_positions(t_sites, pts6, moments, q20)          # [N, 20, 2]
+    d2 = ((S20[..., 0] - pos[:, 0, None]) ** 2
+          + (S20[..., 1] - pos[:, 1, None]) ** 2)
+    # torch.argmin takes the first minimum, as jnp.argmin does
+    i_spl = torch.where(is_last, torch.argmin(d2, dim=1), 1)
+    ipred = i_spl + torch.where(dest1[:, 2] > 0, SPL_IPRED_LAST, SPL_IPRED)
+    ip = torch.clamp(ipred, max=SPL_N_PNTS - 1)
+    rows = torch.arange(SPL_N_PNTS, device=dev)
+    q_i = torch.sum(torch.where(rows == i_spl[:, None], q20, 0.0), dim=1)
+    q_p = torch.sum(torch.where(rows == ip[:, None], q20, 0.0), dim=1)
+    S2, dS2, d2S2 = spl.spline_eval(t_sites, pts6, moments,
+                                    torch.stack([q_i, q_p], dim=1))
+
+    dx, dy = dS2[:, 0, 0], dS2[:, 0, 1]
+    d2x, d2y = d2S2[:, 0, 0], d2S2[:, 0, 1]
+    R = torch.sqrt(dx**2 + dy**2) ** 3 / torch.abs(dx * d2y - dy * d2x)
+    v_curve = torch.clamp(torch.sqrt(SPL_THETA_COMF * g * R),
+                          min=SPL_V_MIN_STABLE)
+    v_spl = torch.minimum(v_curve, vd1)
+    seg = S2[:, 1] - S2[:, 0]
+    seg_len = torch.sqrt(seg[:, 0] ** 2 + seg[:, 1] ** 2)
+    f_spl = v_spl[:, None] * seg / torch.where(seg_len > 0, seg_len,
+                                               1.0)[:, None]
+
+    # the straight-line fallback (precedence: step 0, arrived, fallback,
+    # spline); inactive rows stay out of it, as the JAX gate keeps them
+    use_fb = (((ipred >= SPL_N_PNTS) | ~torch.isfinite(f_spl).all(dim=1))
+              & ~znav1[:, 2] & (i > 0))
+    use_fb = use_fb & state.active
+    fx = torch.where(i == 0, vd1 * torch.cos(s[:, PSI]),
+                     torch.where(znav1[:, 2], 0.0, f_spl[:, 0]))
+    fy = torch.where(i == 0, vd1 * torch.sin(s[:, PSI]),
+                     torch.where(znav1[:, 2], 0.0, f_spl[:, 1]))
+
+    # second pass of the queue update and FSM, then the straight line
+    dest2, ptr2, istop2, dstop2 = nav.update_destination(
+        pos, dest1, dq, ptr1, nq, znav1, i, istop1, dstop1,
+        npar.d_arrived_inter)
+    ddest2 = nav.dest_distance(pos, dq, ptr2)
+    vd2, znav2, znavp2 = nav.update_nav_state(
+        v, ddest2, dest2[:, 2], znav1, znavp1, i, npar)
+    fbx, fby = F.dest_force_straight(pos[:, 0], pos[:, 1], dest2[:, 0],
+                                     dest2[:, 1], vd2, ddest2)
+
+    def sel(a, b):
+        return torch.where(use_fb.reshape((-1,) + (1,) * (b.ndim - 1)), a, b)
+
+    new_state = state.replace(
+        dest=sel(dest2, dest1), destpointer=sel(ptr2, ptr1),
+        znav=sel(znav2, znav1), znavparams=sel(znavp2, znavp1),
+        i_stopsignal=sel(istop2, istop1), d_stopsignal=sel(dstop2, dstop1))
+    return sel(fbx, fx), sel(fby, fy), new_state
+
+
 DEST_FORCES = {"straight": dest_force_straight,
                "direct": dest_force_straight,
-               "hm": dest_force_hm}
+               "hm": dest_force_hm,
+               "spline": dest_force_spline}
+
+
+def dest_force_kw(dest_force, params) -> dict:
+    """What an engine decides once, when it is built, for its destination
+    force: the spline force's lookback (`spline_lookback`); nothing for
+    the others."""
+    if dest_force is dest_force_spline:
+        return {"lookback": spline_lookback(params)}
+    return {}
 
 
 def rep_tile_twod(params, src, recv):
@@ -182,8 +367,9 @@ class NeighborConfig:
         exp(-rho/sigma), sigma <= ~5.5 m, so 50-60 m bounds the dropped
         force near 1e-4. The legacy field needs ~100 m: its forward decay
         is much slower for fast sources.
-    block : receivers per block. The CUDA kernels take 128 and raise for
-        any other value; CPU tensors (the plain version) take any.
+    block : receivers per block. The CUDA kernels take 64, 128 and 256
+        (`ops.pair_forces.KERNEL_BLOCKS`) and raise for any other value;
+        CPU tensors (the plain version) take any.
     block_src : sources per block (0: `block`; must divide `block`, and
         be a multiple of 8).
     kb : capacity of the neighbor-block table (overflow drops the
@@ -511,7 +697,7 @@ class ChunkRunner:
         """Capture `_body` into `self.graph`; its result, which lives in
         the graph's memory, becomes `self.state_out`."""
         device = self.state_in.device
-        _check_params_on(self.engine.params, device)
+        self.engine.check_params_on(device)
         with torch.cuda.device(device):
             # Warm-up on a side stream, as a capture needs: the kernel
             # library builds and loads, CUDA loads every kernel the chunk
@@ -563,21 +749,26 @@ class Engine(nn.Module):
     engine's attributes: assigning one of them (`params`, `neighbors`,
     ...) empties both caches, and the next `simulate` captures anew."""
 
+    # may `simulate` keep the rows in cell-sorted order within a chunk
+    sorted_resident = True
+
     # what a captured chunk and the kept pack columns read from the engine
     _FROZEN_BY_A_CAPTURE = frozenset((
-        "params", "model_step", "state_widths", "dest_force", "rep_force",
-        "pair_family", "neighbors", "full_fov", "uniform_pair",
+        "params", "model_step", "state_widths", "dest_force", "dest_kw",
+        "rep_force", "pair_family", "neighbors", "full_fov", "uniform_pair",
         "priority_p2r", "rep_chunk"))
 
     def __init__(self, params, model_step, state_widths, dest_force,
                  rep_force, pair_family: str, neighbors, full_fov: bool,
                  uniform_pair, priority_p2r: bool = False,
-                 rep_chunk: int | None = None):
+                 rep_chunk: int | None = None, dest_kw=None):
         super().__init__()
         self.params = params
         self.model_step = model_step
         self.state_widths = state_widths
         self.dest_force = dest_force
+        # what the destination force decided once (`dest_force_kw`)
+        self.dest_kw = dest_kw if dest_kw is not None else {}
         self.rep_force = rep_force
         self.pair_family = pair_family
         self.neighbors = neighbors
@@ -632,7 +823,9 @@ class Engine(nn.Module):
                 "rep_reduce and combine_forces hooks are not ported")
         return cls(params=params, model_step=model.step,
                    state_widths=getattr(model, "STATE_WIDTHS", None),
-                   dest_force=DEST_FORCES[dest], rep_force=REP_FORCES[rep],
+                   dest_force=DEST_FORCES[dest],
+                   dest_kw=dest_force_kw(DEST_FORCES[dest], params),
+                   rep_force=REP_FORCES[rep],
                    pair_family=rep, neighbors=neighbors,
                    full_fov=_hfov_is_full(params),
                    uniform_pair=(_uniform_pair_params(params)
@@ -642,12 +835,14 @@ class Engine(nn.Module):
 
     def with_params(self, params):
         """Engine with `params` swapped in and the fields derived from
-        them (`full_fov`, `uniform_pair`) recomputed: the kernels take
-        both as compile-time forms, so stale values would apply the old
-        constants or FOV elision to the new parameters."""
+        them (`full_fov`, `uniform_pair`, `dest_kw`) recomputed: the
+        kernels take the first two as compile-time forms, so stale values
+        would apply the old constants or FOV elision to the new
+        parameters, and the spline force's lookback follows t_s."""
         return type(self)(
             params=params, model_step=self.model_step,
             state_widths=self.state_widths, dest_force=self.dest_force,
+            dest_kw=dest_force_kw(self.dest_force, params),
             rep_force=self.rep_force, pair_family=self.pair_family,
             neighbors=self.neighbors, full_fov=_hfov_is_full(params),
             uniform_pair=(_uniform_pair_params(params)
@@ -824,12 +1019,17 @@ class Engine(nn.Module):
 
     # ---- one simulation step ----
 
+    def destination_forces(self, state: AgentState):
+        """(fx, fy, state) of the destination force, the state carrying
+        its queue and navigation-FSM updates."""
+        return self.dest_force(self.params, state, **self.dest_kw)
+
     def calc_forces(self, state: AgentState, nbr_cache=None,
                     presorted: bool = False):
         """Total social force per agent: (fx, fy, state), the state
         carrying the navigation-FSM updates of the destination force
         (reference intersection.py:747-864)."""
-        fdx, fdy, state = self.dest_force(self.params, state)
+        fdx, fdy, state = self.destination_forces(state)
         if state.n > 1:
             if self.neighbors is not None:
                 frx, fry = self.repulsive_sum_neighbors(
@@ -889,15 +1089,28 @@ class Engine(nn.Module):
             overflow,
         ])
 
+    def check_state(self, state: AgentState):
+        """Reject a state built for another model."""
+        _check_state_widths(self.state_widths, state)
+
+    def check_params_on(self, device):
+        """Raise unless every per-agent parameter tensor lies on `device`
+        (what a captured step reads)."""
+        _check_params_on(self.params, device)
+
+    def dynamics(self, state: AgentState, fx, fy) -> AgentState:
+        """One dynamics step of every agent under the forces (fx, fy)."""
+        return self.model_step(self.params, state, fx, fy)
+
     def step_with_forces(self, state: AgentState, nbr_cache=None,
                          presorted: bool = False):
         """One full step; returns (state, fx, fy) with the applied
         forces."""
-        _check_state_widths(self.state_widths, state)
+        self.check_state(state)
         before = state
         fx, fy, state = self.calc_forces(state, nbr_cache,
                                          presorted=presorted)
-        new = self.model_step(self.params, state, fx, fy)
+        new = self.dynamics(state, fx, fy)
         return self.finish_step(before, new), fx, fy
 
     def step(self, state: AgentState) -> AgentState:
@@ -1024,8 +1237,8 @@ class Engine(nn.Module):
 
     def _simulate(self, state, n_steps, mode, sorted_resident, runner_cls):
         """`simulate` in record mode `mode` (`record_buffers`), on the
-        sorted-resident path where `sorted_resident` allows it and N is a
-        multiple of the block; the chunks through this engine's
+        sorted-resident path where `sorted_resident` and the engine's
+        class allow it and N is a multiple of the block; the chunks through this engine's
         `runner_cls` (`ChunkRunner`), or with None as eager loops."""
         k = self.neighbors.rebuild_every if self.neighbors is not None else 1
         rows = record_buffers(mode, n_steps, state)
@@ -1034,7 +1247,8 @@ class Engine(nn.Module):
             return state, self._records(mode, rows)
 
         n_chunks, rem = divmod(n_steps, k)
-        presorted = sorted_resident and state.n % self.neighbors.block == 0
+        presorted = (sorted_resident and self.sorted_resident
+                     and state.n % self.neighbors.block == 0)
         ident = torch.arange(state.n, device=state.device)
         for c in range(n_chunks):
             cache = self.neighbor_cache(state)

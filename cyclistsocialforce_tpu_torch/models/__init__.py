@@ -5,10 +5,21 @@ Each model module exposes ``N_STATES``, the default force names
 ``step(params, state, fx, fy) -> state``.
 """
 
-from cyclistsocialforce_tpu_torch.models import bicycle2d
+from cyclistsocialforce_tpu_torch.models import bicycle2d, bicycle_twod
 
 MODELS = {
     "bicycle2d": bicycle2d,   # reference "planartwowheel" / Bicycle
+    "twod": bicycle_twod,     # reference TwoDBicycle ("2D model")
 }
 
-__all__ = ["MODELS", "bicycle2d"]
+
+def prepare(model, params, state):
+    """Model-specific initialization of the state's dynamics latents (the
+    reference's Dynamics.__init__ transforms): the model's own `prepare`
+    where it has one; the state unchanged for bicycle2d and twod, which
+    keep none."""
+    fn = getattr(model, "prepare", None)
+    return fn(params, state) if fn is not None else state
+
+
+__all__ = ["MODELS", "prepare", "bicycle2d", "bicycle_twod"]

@@ -11,13 +11,14 @@ import. A missing nvcc or a failed compile raises.
 
 The three kernels (K1 `pair_forces.cu`, K2 `pair_forces_unrolled.cu`, K3
 `pair_forces_db.cu`) share one per-pair math (`pair_math.cuh`) and one
-CTA shape (`pair_groups.cuh`): a receiver block is 8 groups of 64 threads,
-2 receivers per thread, whose partial sums are added in a fixed order.
-K1 hands whole table slots to the groups; K2 stages a row's tiles in
-shared memory in rounds of 96 KB (any kb) and splits a round's rows
-evenly over the groups; K3 streams 128-row tiles through a 4-slot ring,
-every group on 16 rows of each tile, the tile screen voted across the
-groups.
+CTA shape (`pair_groups.cuh`), compiled for receiver blocks of 64, 128
+and 256: a block of 128 is 8 groups of 64 threads (64: 8 groups of 32,
+256: 4 groups of 128), 2 receivers per thread, whose partial sums are
+added in a fixed order. K1 hands whole table slots to the groups; K2
+stages a row's tiles in shared memory in rounds of 96 KB (any kb) and
+splits a round's rows evenly over the groups; K3 streams block-row tiles
+through a 4-slot ring, every group on its strip of each tile, the tile
+screen voted across the groups.
 """
 
 from __future__ import annotations
@@ -58,12 +59,13 @@ def _nvcc() -> str:
 def _declare(lib):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     field = [f] * 7                     # e_0, e_1, sigma_0..3, cos(hfov/2)
-    lib.csf_pair_forces_twod.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                         i, i, f, *field, i, p]
-    lib.csf_pair_forces_unrolled.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                             i, i, *field, i, p]
-    lib.csf_pair_forces_db.argtypes = [p, p, p, p, p, i, i, i, i, i, f, i,
-                                       p]
+    # nbr, count, src, recv, out; n_blocks, kb, block; ...; device, stream
+    head = [p] * 5 + [i] * 3
+    lib.csf_pair_forces_twod.argtypes = [*head, i, i, i, i, i, i, i, f,
+                                         *field, i, p]
+    lib.csf_pair_forces_unrolled.argtypes = [*head, i, i, i, i, i, *field,
+                                             i, p]
+    lib.csf_pair_forces_db.argtypes = [*head, i, i, i, f, i, p]
     for fn in (lib.csf_pair_forces_twod, lib.csf_pair_forces_unrolled,
                lib.csf_pair_forces_db):
         fn.restype = i

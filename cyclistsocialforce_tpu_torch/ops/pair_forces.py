@@ -16,8 +16,8 @@ legacy v0.1 elliptic field, by its column 13.
                                   tile staged before use, no screen
   pair_forces_neighbors_db        K3 `_pair_kernel_db`,
                                   `csrc/pair_forces_db.cu`: a 4-slot ring
-                                  of 128-row tiles, the tile screen at the
-                                  cutoff, per-source field parameters
+                                  of block-row tiles, the tile screen at
+                                  the cutoff, per-source field parameters
 
 Packing layout (built by `engine.Engine.pack_pair_fields`, cell-sorted):
   src_pack  [N_src, 16]: x, y, cos psi, sin psi, f_0 * emit, e_0, e_1,
@@ -32,7 +32,8 @@ row, whose columns 4-7 then hold amp * emit (amp = p_0/p_decay), e,
 
 Each wrapper runs its CUDA kernel on CUDA tensors and the plain version,
 in the matching form, on CPU tensors; it raises for any other input,
-and on CUDA tensors for a receiver `block` other than the kernels' 128.
+and on CUDA tensors for a receiver `block` the kernels are not compiled
+for (they take `KERNEL_BLOCKS`: 64, 128 and 256).
 """
 
 from __future__ import annotations
@@ -266,18 +267,20 @@ def _on_cuda(name, nbr, valid, src_pack, recv_pack) -> bool:
     return True
 
 
-KERNEL_BLOCK = 128      # receivers per block of the CUDA kernels (kBlock)
+# the receiver blocks the CUDA kernels are compiled for (kBlock, a template
+# parameter in csrc/)
+KERNEL_BLOCKS = (64, 128, 256)
 
 
 def _check_kernel_inputs(name, nbr, valid, src_pack, recv_pack, block,
                          block_src, count=None):
     _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src)
-    if block != KERNEL_BLOCK:
+    if block not in KERNEL_BLOCKS:
         raise ValueError(
-            f"{name}: the CUDA kernel takes receiver blocks of "
-            f"{KERNEL_BLOCK} (kBlock in csrc/, a compile-time constant), "
-            f"got block = {block}: use block = {KERNEL_BLOCK} on CUDA "
-            f"tensors (any block runs the plain version on CPU tensors)")
+            f"{name}: the CUDA kernels take receiver blocks of "
+            f"{KERNEL_BLOCKS} (kBlock in csrc/, a template parameter), "
+            f"got block = {block}: use one of them on CUDA tensors (any "
+            f"block runs the plain version on CPU tensors)")
     if count is not None and (
             count.dtype != torch.int32 or count.device != nbr.device
             or tuple(count.shape) != (nbr.shape[0],)
@@ -328,7 +331,7 @@ def _launch(name, symbol, nbr, valid, count, src_pack, recv_pack, block,
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, symbol)(
         nbr.data_ptr(), count.data_ptr(), src_pack.data_ptr(),
-        recv_pack.data_ptr(), out.data_ptr(), bcount, kb, *args,
+        recv_pack.data_ptr(), out.data_ptr(), bcount, kb, block, *args,
         device.index, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed "
@@ -348,10 +351,11 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
     valid entries per table row, saves the kernel's wrapper a reduction
     of `valid` when the caller keeps it with the table.
 
-    The kernel takes float32 packs, an int32 table and block = 128. It
-    splits each receiver block's table slots over 8 thread groups (two
-    receivers per thread) and adds the groups' sums in a fixed order, so
-    a call gives the same result every time. It decides every pair (FOV
+    The kernel takes float32 packs, an int32 table and a block in
+    `KERNEL_BLOCKS`. It splits each receiver block's table slots over its
+    thread groups (8 at block 128, two receivers per thread) and adds the
+    groups' sums in a fixed order, so a call gives the same result every
+    time. It decides every pair (FOV
     cone, priority to the right, the sign(sin phi) jump) with the plain
     version's rounding, and evaluates the smooth rest of the field with
     fused multiply-adds and the GPU's approximate exp2 and rsqrt: within
@@ -388,12 +392,12 @@ def pair_forces_neighbors_unrolled(nbr, valid, src_pack, recv_pack, *,
     arguments and result as in `pair_forces_neighbors_ref`; `count` as in
     `pair_forces_neighbors`.
 
-    The kernel takes float32 packs, an int32 table and block = 128. It
-    stages a receiver block's source tiles in shared memory by bulk
+    The kernel takes float32 packs, an int32 table and a block in
+    `KERNEL_BLOCKS`. It stages a receiver block's source tiles in shared memory by bulk
     copies, each tile reporting its own arrival, in rounds of at most
     96 KB (the main path's kb = 19 at block_src = 64 is one round), so
-    any kb is taken. The block's 8 thread groups (two receivers per
-    thread) split a round's source rows evenly and wait only for the
+    any kb is taken. The block's thread groups (8 at block 128, two
+    receivers per thread) split a round's source rows evenly and wait only for the
     tiles they read; their sums are added in a fixed order, so a call
     gives the same result every time. Per pair it is K1's math: every
     decision (FOV cone, priority to the right, the sign(sin phi) jump)
@@ -423,11 +427,11 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
                              priority_p2r: bool = False,
                              mixed: bool = False,
                              cutoff: float = float("inf"), count=None):
-    """K3: block-sparse pair sum through a ring of 128-row source tiles,
-    each skipped when no pair of it lies within `cutoff` (the tile
+    """K3: block-sparse pair sum through a ring of `block`-row source
+    tiles, each skipped when no pair of it lies within `cutoff` (the tile
     screen, always on), with the field parameters read per source row
     (with `mixed`, each row's own family). Source and receiver blocks
-    are both `block` = 128 agents. The CUDA kernel on CUDA tensors, the
+    are both `block` agents (one of `KERNEL_BLOCKS` on CUDA tensors). The CUDA kernel on CUDA tensors, the
     plain version (screened, per-source columns) on CPU tensors; result
     as in `pair_forces_neighbors_ref`; `count` as in
     `pair_forces_neighbors`.
@@ -435,12 +439,12 @@ def pair_forces_neighbors_db(nbr, valid, src_pack, recv_pack, *,
     The kernel takes float32 packs and an int32 table. Tiles stream
     through a 4-slot ring in shared memory: a bulk copy fills a slot and
     reports to the slot's barrier, and the last warp to finish a tile
-    starts the copy of the tile 4 slots on. Each of the block's 8 thread
-    groups (two receivers per thread) takes 16 rows of every tile. A
-    tile is skipped exactly when the plain version skips it: every group
-    votes on its rows (inactive and pad rows included), one group in
-    range admits the tile for all, and a group out of range waits for
-    the others' votes. The groups' sums are added in a fixed order, so a
+    starts the copy of the tile 4 slots on. Each of the block's thread
+    groups (8 at block 128, two receivers per thread) takes its strip of
+    every tile (16 rows at block 128). A tile is skipped exactly when the
+    plain version skips it: every group votes on its rows (inactive and
+    pad rows included), one group in range admits the tile for all, and
+    a group out of range waits for the others' votes. The groups' sums are added in a fixed order, so a
     call gives the same result every time; per pair it is K1's math
     (decisions rounded as the plain version's, the smooth rest fused,
     within a few float32 ulps of each pair force)."""

@@ -1,7 +1,7 @@
 """Parameter dataclasses of the PyTorch port.
 
-Counterpart of `cyclistsocialforce_tpu.params` for the vehicle and
-bicycle families. Validation runs once, on the host, in `create()` with
+Counterpart of `cyclistsocialforce_tpu.params` for the vehicle, bicycle
+and inverted-pendulum bicycle families. Validation runs once, on the host, in `create()` with
 the JAX package's rules (reference parameters.py:421-935), including
 `calib_mode` (clamp and warn instead of raise).
 
@@ -245,8 +245,119 @@ class BicycleParams(VehicleParams):
                               **fields, **kw)
 
 
+@dataclass(frozen=True)
+class InvPendulumBicycleParams(BicycleParams):
+    """Inverted-pendulum bicycle (reference parameters.py:1414-1970;
+    defaults parameters.py:1429-1471, with the combined parameter
+    tau_1_squared = (I_bike + m h^2) / (m g h)). The twod model runs on
+    them as the reference's TwoDBicycle does. The JAX package's optional
+    ZOH propagator tables (`create(zoh_lut=...)`, `create(zoh_poly=...)`)
+    belong to the invpendulum model and are not ported."""
+
+    v_max_riding: Any = (-1.0, 7.0)
+    a_max: Any = (-3.0, 1.0)
+    a_desired_default: Any = (-1.0, 0.5)
+    h: Any = 1.0
+    m: Any = 87.0
+    i_bike_longlong: Any = 3.28
+    i_steer_vertvert: Any = 0.07
+    c_steer: Any = 50.0
+    k_d0_r2: Any = -600.0
+    k_d1_r2: Any = 0.2
+    k_p_r1: Any = 0.25
+    k_i0_r1: Any = 0.2
+    v_max_walk: Any = 1.5
+    delta_max_walk: Any = 0.174
+    tau_1_squared: Any = (3.28 + 87.0 * 1.0**2) / (87.0 * 9.81 * 1.0)
+
+    @classmethod
+    def create(cls, calib_mode: bool = False, verbose: bool = True,
+               zoh_lut: int = 0, zoh_poly: int = 0, **kw):
+        if zoh_lut or zoh_poly:
+            raise NotImplementedError(
+                "the ZOH propagator tables (zoh_lut, zoh_poly) come with the "
+                "invpendulum model, which is not ported yet (ROADMAP Queue "
+                "1 item 6)")
+        h = _chk_nonneg("h", kw.pop("h", cls.h))
+        m = _chk_nonneg("m", kw.pop("m", cls.m))
+        ibl = _chk_nonneg("i_bike_longlong",
+                          kw.pop("i_bike_longlong", cls.i_bike_longlong))
+        isv = _chk_nonneg("i_steer_vertvert",
+                          kw.pop("i_steer_vertvert", cls.i_steer_vertvert))
+        c_steer = _chk_nonneg("c_steer", kw.pop("c_steer", cls.c_steer))
+        k_d0_r2 = np.asarray(kw.pop("k_d0_r2", cls.k_d0_r2), dtype=float)
+        if np.any(k_d0_r2 >= 0):
+            raise ValueError("k_d0_r2 must be <0 to stabilize the "
+                             "lean/steer angle loop.")
+        k_d1_r2 = np.asarray(kw.pop("k_d1_r2", cls.k_d1_r2), dtype=float)
+        k_p_r1 = _chk_nonneg("k_p_r1", kw.pop("k_p_r1", cls.k_p_r1))
+        k_i0_r1 = _chk_nonneg("k_i0_r1", kw.pop("k_i0_r1", cls.k_i0_r1))
+        v_max_walk = _chk_nonneg("v_max_walk",
+                                 kw.pop("v_max_walk", cls.v_max_walk))
+        delta_max_walk = _chk_range(
+            "delta_max_walk", kw.pop("delta_max_walk", cls.delta_max_walk),
+            0.0, np.pi, lo_open=True)
+        g = kw.get("g", cls.g)
+        kw.setdefault("v_max_riding", cls.v_max_riding)
+        kw.setdefault("a_max", cls.a_max)
+        kw.setdefault("a_desired_default", cls.a_desired_default)
+        tau_1_squared = (ibl + m * h**2) / (m * np.asarray(g) * h)
+        return super().create(
+            calib_mode=calib_mode, verbose=verbose, h=h, m=m,
+            i_bike_longlong=ibl, i_steer_vertvert=isv, c_steer=c_steer,
+            k_d0_r2=k_d0_r2, k_d1_r2=k_d1_r2, k_p_r1=k_p_r1, k_i0_r1=k_i0_r1,
+            v_max_walk=v_max_walk, delta_max_walk=delta_max_walk,
+            tau_1_squared=tau_1_squared, **kw)
+
+    # ---- speed-scheduled model and controller parameters ----
+
+    def timevarying_combined_params(self, v):
+        """Speed-dependent combined lean-dynamics parameters (K, K tau_2,
+        tau_3), reference parameters.py:1832-1855."""
+        K_tau_2 = (v * self.l_2) / (self.g * self.l)
+        K = (v * v) / (self.g * self.l)
+        tau_3 = self.l / v
+        return K, K_tau_2, tau_3
+
+    # fitted polynomial-in-1/v full-state feedback gain schedule
+    # (reference parameters.py:1857-1892)
+    _KX_POLY = (
+        (3.48203226e02, -5.12057324e03, 1.58364873e04, -1.98073306e04),
+        (-4.51700000e01, 0.00000000e00, 0.00000000e00, 0.00000000e00),
+        (-9.16379250e02, 1.31769807e04, -6.57341643e04, 8.22163589e04),
+        (3.20214069e02, -4.69953797e03, 1.66378680e04, -2.43114309e04),
+        (2.87549256e-08, -2.27913445e03, 0.00000000e00, 0.00000000e00),
+    )
+    _KU_POLY = (-3.38638984e-09, -2.27913445e03, 0.00000000e00,
+                0.00000000e00)
+
+    def fullstate_feedback_gains(self, v):
+        """Speed-scheduled full-state feedback gains (K_x [..., 5], K_u
+        [...]) for speeds v [...]: a polynomial in 1/v (reference
+        parameters.py:1857-1892)."""
+        v = torch.as_tensor(v, dtype=torch.float64)
+        vdata = torch.stack([torch.ones_like(v), v**-1.0, v**-2.0, v**-3.0],
+                            dim=-1)
+        kx = torch.tensor(self._KX_POLY, dtype=vdata.dtype,
+                          device=vdata.device)
+        ku = torch.tensor(self._KU_POLY, dtype=vdata.dtype,
+                          device=vdata.device)
+        K_x = torch.sum(vdata[..., None, :] * kx, dim=-1)
+        K_u = torch.sum(vdata * ku, dim=-1)
+        return K_x, K_u
+
+    def min_stable_speed_inner(self):
+        """Minimum speed for inner-loop stability (reference
+        parameters.py:1955-1970)."""
+        x = self.k_d0_r2
+        y = self.c_steer * self.g * (self.l_1 + self.l_2)
+        z = y * self.k_d1_r2
+        return (-y - (y**2 - 4 * x * z) ** 0.5) / (2 * x)
+
+
 PARAM_CLASSES = {"VehicleParams": VehicleParams, "CarParams": CarParams,
-                 "BicycleParams": BicycleParams}
+                 "BicycleParams": BicycleParams,
+                 "InvPendulumBicycleParams": InvPendulumBicycleParams}
 
 
 def pair_lo(pair):

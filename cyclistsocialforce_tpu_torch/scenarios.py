@@ -5,22 +5,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cyclistsocialforce_tpu_torch.models import bicycle2d
+from cyclistsocialforce_tpu_torch.models import MODELS
 from cyclistsocialforce_tpu_torch.state import AgentState, make_state
 
 
 def build_population(n_agents: int, density=None, hist_len: int = 128,
                      pad_to_block=None, dtype=torch.float32,
-                     device="cuda") -> AgentState:
-    """Random bicycle2d crowd, drawn exactly as the JAX package's
-    `__graft_entry__._build` draws it (numpy `default_rng(0)`, the same
-    draws in the same order: positions, heading, speed, destinations).
+                     device="cuda", model="bicycle2d") -> AgentState:
+    """Random crowd, drawn exactly as the JAX package's
+    `__graft_entry__._build(model_name=...)` draws it (numpy
+    `default_rng(0)`, the same draws in the same order: positions,
+    heading, speed, destinations), sized for `model` (a `models.MODELS`
+    name or module) with `make_state(model=...)`.
 
     density : agents/m^2, uniform over a square; None gives the legacy
         1.5 sqrt(N) box (an extreme crowd).
+    hist_len : the position ring's length; the spline destination force
+        (twod) needs >= 1/t_s + 1 (128 at t_s = 0.01).
     pad_to_block : round the population up to a multiple of this block
         with INACTIVE pad agents (they emit no force and stay frozen).
     """
+    if isinstance(model, str):
+        model = MODELS[model]
     n_pad = 0
     if pad_to_block:
         n_pad = -(-n_agents // pad_to_block) * pad_to_block - n_agents
@@ -36,7 +42,7 @@ def build_population(n_agents: int, density=None, hist_len: int = 128,
     s0[:, 1] = rng.uniform(-side, side, n)
     s0[:, 2] = rng.uniform(-np.pi, np.pi, n)
     s0[:, 3] = rng.uniform(1.0, 6.0, n)
-    state = make_state(s0, dtype=dtype, hist_len=hist_len, model=bicycle2d,
+    state = make_state(s0, dtype=dtype, hist_len=hist_len, model=model,
                        device=device)
 
     dests = np.zeros((n, 3))

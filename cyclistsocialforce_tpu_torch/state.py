@@ -156,7 +156,6 @@ def make_state(s0, queue_size: int = 16, hist_len: int = 128,
     )
 
 
-
 def set_destinations(state: AgentState, agent: int, x, y, stop=None,
                      reset: bool = False) -> AgentState:
     """Append (or, with `reset`, reset to) a destination list for one
@@ -197,6 +196,32 @@ def set_destinations(state: AgentState, agent: int, x, y, stop=None,
     destqueue[agent, start:start + m] = new
     nq[agent] = start + m
     return state.replace(destqueue=destqueue, nq=nq)
+
+
+def set_spline_destinations(state: AgentState, agent: int, x, y,
+                            npoints: int, stop: bool = False,
+                            reset: bool = False) -> AgentState:
+    """Set intermediate destinations along a cubic spline through the
+    given waypoints, starting at the agent's current position (reference
+    Vehicle.setSplineDestinations, vehicle.py:649-693); the resampling is
+    `trajectory.generate_spline_prototype`. `stop` flags the last one as a
+    stop destination. Out of place: returns the new state."""
+    from cyclistsocialforce_tpu_torch.trajectory import \
+        generate_spline_prototype
+
+    x = np.asarray(x, dtype=float)
+    y = np.asarray(y, dtype=float)
+    if x.size < 3:
+        raise ValueError(
+            "Provide at least 3 points to calculate a cubic trajectory "
+            "prototype")
+    x = np.insert(x, 0, float(state.s[agent, X]))
+    y = np.insert(y, 0, float(state.s[agent, Y]))
+    xi, yi = generate_spline_prototype(x, y, npoints)
+    flags = np.zeros_like(xi)
+    if stop:
+        flags[-1] = 1.0
+    return set_destinations(state, agent, xi, yi, stop=flags, reset=reset)
 
 
 def stop(state: AgentState, agent: int, stoptype: int = 0, stopdest=None,

@@ -13,9 +13,10 @@ with that checkout's own nvcc flags (its `ops/_build.py`), each with
 checkout's sources are built a second time with `-fmad=false` appended,
 to show what the flag would change (`hot_loop_sha` equal: nothing).
 Prints one JSON line per build and kernel: registers and spill of the
-main form's instantiation (K1, K2: uniform, FOV; K3: FOV, per-source
-columns) and of the mixed form (K1: with the tile screen), the range over
-all forms, and the innermost loop of the main form and of its
+main form's instantiation at receiver block 128 (K1, K2: uniform, FOV;
+K3: FOV, per-source columns) and of the mixed form (K1: with the tile
+screen), the range over all forms, that range per receiver block (64,
+128, 256), and the innermost loop of the main form and of its
 priority-to-the-right form: instructions and MUFU operations per pair
 (the loop's MUFU.EX2 count is its pairs: one exponential per twod pair)
 and a hash of the loop's instructions with the addresses left out. The
@@ -36,23 +37,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-# kernel: (source, {form: mangled-name fragment}). Template arguments: K1
-# uniform, fov, priority_p2r, screen, mixed; K2 uniform, fov, priority_p2r,
-# mixed; K3 fov, priority_p2r, mixed
+# kernel: (source, {form: mangled-name pattern}). Template arguments: the
+# receiver block (Li128E; a checkout from before it was a template
+# argument has none), then K1 uniform, fov, priority_p2r, screen, mixed; K2
+# uniform, fov, priority_p2r, mixed; K3 fov, priority_p2r, mixed
+BLOCK_ARG = "(?:Li128E)?"
 KERNELS = {
     "k1": ("pair_forces.cu", {
-        "main": "pair_forces_twod_kernelILb1ELb1ELb0ELb0ELb0E",
-        "p2r": "pair_forces_twod_kernelILb1ELb1ELb1ELb0ELb0E",
-        "mixed": "pair_forces_twod_kernelILb0ELb1ELb0ELb1ELb1E"}),
+        "main": f"pair_forces_twod_kernelI{BLOCK_ARG}Lb1ELb1ELb0ELb0ELb0E",
+        "p2r": f"pair_forces_twod_kernelI{BLOCK_ARG}Lb1ELb1ELb1ELb0ELb0E",
+        "mixed": f"pair_forces_twod_kernelI{BLOCK_ARG}Lb0ELb1ELb0ELb1ELb1E"}),
     "k2": ("pair_forces_unrolled.cu", {
-        "main": "pair_forces_unrolled_kernelILb1ELb1ELb0ELb0E",
-        "p2r": "pair_forces_unrolled_kernelILb1ELb1ELb1ELb0E",
-        "mixed": "pair_forces_unrolled_kernelILb0ELb1ELb0ELb1E"}),
+        "main": f"pair_forces_unrolled_kernelI{BLOCK_ARG}Lb1ELb1ELb0ELb0E",
+        "p2r": f"pair_forces_unrolled_kernelI{BLOCK_ARG}Lb1ELb1ELb1ELb0E",
+        "mixed": f"pair_forces_unrolled_kernelI{BLOCK_ARG}Lb0ELb1ELb0ELb1E"}),
     "k3": ("pair_forces_db.cu", {
-        "main": "pair_forces_db_kernelILb1ELb0ELb0E",
-        "p2r": "pair_forces_db_kernelILb1ELb1ELb0E",
-        "mixed": "pair_forces_db_kernelILb1ELb0ELb1E"}),
+        "main": f"pair_forces_db_kernelI{BLOCK_ARG}Lb1ELb0ELb0E",
+        "p2r": f"pair_forces_db_kernelI{BLOCK_ARG}Lb1ELb1ELb0E",
+        "mixed": f"pair_forces_db_kernelI{BLOCK_ARG}Lb1ELb0ELb1E"}),
 }
+BLOCKS = (64, 128, 256)
 
 
 def nvcc_flags(csrc):
@@ -159,7 +163,7 @@ def report(out, tag, kernel, so, ptxas):
     funcs, labels = sass_functions(so)
     line = {"build": tag, "kernel": kernel}
     for key in ("main", "p2r"):
-        name = next(n for n in funcs if forms[key] in n)
+        name = next(n for n in funcs if re.search(forms[key], n))
         loop = hot_loop(funcs[name], labels[name])
         (out / f"hot_loop_{kernel}_{key}_{tag}.sass").write_text(
             "\n".join(loop["body"]))
@@ -174,10 +178,16 @@ def report(out, tag, kernel, so, ptxas):
             "hot_loop_sha": hashlib.sha256(text.encode()).hexdigest()[:12]}
     for key in ("main", "mixed"):
         line[f"registers_{key}"], line[f"spill_{key}"] = next(
-            v for n, v in regs.items() if forms[key] in n)
+            v for n, v in regs.items() if re.search(forms[key], n))
     line["registers_all"] = [min(r for r, _ in regs.values()),
                              max(r for r, _ in regs.values())]
     line["spill_all"] = max(s for _, s in regs.values())
+    for block in BLOCKS:
+        per = [v for n, v in regs.items() if f"ILi{block}E" in n]
+        if per:
+            line[f"registers_block{block}"] = [min(r for r, _ in per),
+                                               max(r for r, _ in per)]
+            line[f"spill_block{block}"] = max(s for _, s in per)
     return line
 
 

@@ -4,7 +4,7 @@
 on one CUDA GPU, at `chip_smoke.py`'s shapes.
 
     python3 scripts/kernel_variants.py k2:kStageBytes=200*1024 \\
-        k2:kGroups=4,kMinBlocks=4 k3:kDepth=2 k3:kDepth=8
+        k3:kDepth=2 k3:kDepth=8
 
 A variant is a copy of `csrc/` in which `constexpr int NAME = ...;` of the
 named kernel's source (k1, k2 or k3) is given another value; nothing in

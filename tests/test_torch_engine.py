@@ -100,8 +100,8 @@ def test_step_and_state_round_trip():
 
 
 def test_create_rejects_unported_configurations():
-    """The legacy field (bicycle2d's default) and the dense stage are
-    ported; what is not still raises."""
+    """The legacy field (bicycle2d's default), the dense stage and the
+    spline destination force are ported; what is not still raises."""
     p = BicycleParams.create()
     model = MODELS["bicycle2d"]
     culled = Engine.create(p, model, neighbors=NeighborConfig())
@@ -109,9 +109,11 @@ def test_create_rejects_unported_configurations():
     dense = Engine.create(p, model, rep_force="twod")
     assert dense.neighbors is None and dense.pair_family == "twod"
     assert dense.uniform_pair is not None
+    spline = Engine.create(p, model, rep_force="twod", dest_force="spline",
+                           neighbors=NeighborConfig())
+    assert spline.dest_kw == {"lookback": 100}
     with pytest.raises(NotImplementedError):
-        Engine.create(p, model, rep_force="twod", dest_force="spline",
-                      neighbors=NeighborConfig())
+        Engine.create(p, model, dest_force=lambda *a: None)
     with pytest.raises(NotImplementedError):
         Engine.create(p, model, rep_force=lambda *a: None)
     with pytest.raises(NotImplementedError):

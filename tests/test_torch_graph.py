@@ -1,8 +1,9 @@
 """PyTorch port: the compiled chunk of `Engine.simulate` (`ChunkRunner`:
 static buffers and, on the card, a CUDA graph of the `rebuild_every`
-steps) held to the eager loop bit for bit, and the receiver blocks the
-CUDA kernels do not take (block != 128: the plain version on CPU tensors,
-an error on the card).
+steps) held to the eager loop bit for bit, and the receiver blocks: 64
+and 256 on the card against the plain version, a block the CUDA kernels
+are not compiled for (96: the plain version on CPU tensors, an error on
+the card).
 
 The graph itself runs only on a card. On the CPU the runner's static-
 buffer logic (copy in, run, copy out, clone on return) runs through
@@ -461,21 +462,57 @@ def test_cuda_graph_refuses_parameters_on_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 256])
 @pytest.mark.parametrize("backend", sorted(KERNEL_OF))
-def test_cuda_block_64_raises(cuda_device, backend):
-    """A receiver block the kernels do not take: on CUDA tensors an error
-    that names 128, never the plain version, and no launch counted."""
-    block_src = 64 if backend == "pallas_db" else 32
-    cfg = dict(cutoff=50.0, block=64, block_src=block_src, kb=40,
+def test_cuda_block_matches_plain(cuda_device, backend, block):
+    """Receiver blocks of 64 and 256 (K3: block_src = block; K1 and K2:
+    half the block): each kernel against its plain version on the same
+    table and packs, at the kernels' bar, its launch counted."""
+    block_src = block if backend == "pallas_db" else block // 2
+    eng = TE.Engine.create(BicycleParams.create(), bicycle2d,
+                           rep_force="twod",
+                           neighbors=TE.NeighborConfig(
+                               cutoff=50.0, block=block, block_src=block_src,
+                               kb=80, backend=backend))
+    st = crowd(4096, block, cuda_device)
+    cache = eng.neighbor_cache(st)
+    assert not cache[3].any()
+    src, recv = eng.pack_pair_fields(TE.permute_state(st, cache[0]))
+    PF.reset_launches()
+    got = eng.pair_kernel_dispatch(cache[1], cache[2], src, recv, cache[4])
+    torch.cuda.synchronize()
+    assert PF.launch_counts() == tuple(
+        int(fn is KERNEL_OF[backend]) for fn in PF.KERNELS)
+    kw = dict(block=block, block_src=block_src, fov=not eng.full_fov)
+    if backend == "pallas_db":
+        kw.update(screen=True, cutoff=50.0)
+    elif backend == "pallas":
+        kw.update(screen=eng.neighbors.screen, cutoff=50.0)
+    if backend != "pallas_db":
+        kw["uniform"] = eng.uniform_pair
+    want = PF.pair_forces_neighbors_ref(cache[1], cache[2], src, recv, **kw)
+    err = (got - want).abs()
+    assert (err <= ATOL + RTOL * want.abs()).all(), float(err.max())
+    assert want.abs().max() > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", sorted(KERNEL_OF))
+def test_cuda_block_96_raises(cuda_device, backend):
+    """A receiver block the kernels are not compiled for: on CUDA tensors
+    an error that names the blocks they take, never the plain version,
+    and no launch counted."""
+    block_src = 96 if backend == "pallas_db" else 32
+    cfg = dict(cutoff=50.0, block=96, block_src=block_src, kb=40,
                backend=backend)
     eng = TE.Engine.create(BicycleParams.create(), bicycle2d,
                            rep_force="twod",
                            neighbors=TE.NeighborConfig(**cfg))
-    st = crowd(2048, 64, cuda_device)
+    st = crowd(2016, 96, cuda_device)
     PF.reset_launches()
-    with pytest.raises(ValueError, match="128.*block = 64"):
+    with pytest.raises(ValueError, match=r"\(64, 128, 256\).*block = 96"):
         eng.repulsive_sum_neighbors(st)
-    with pytest.raises(ValueError, match="128.*block = 64"):
+    with pytest.raises(ValueError, match=r"\(64, 128, 256\).*block = 96"):
         eng.simulate(st, 3, record=False)
     assert PF.launch_counts() == (0, 0, 0)
     fx, _ = eng.repulsive_sum_neighbors(st.to("cpu"))  # the CPU takes it
