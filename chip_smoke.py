@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-It drives six paths: the main path through K1 (`csrc/pair_forces.cu`,
+It drives seven paths: the main path through K1 (`csrc/pair_forces.cu`,
 twod field, unscreened), the same path through K2
 (`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled"), a crowd with
 per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
 "pallas_db"), bicycle2d's default legacy field through K1's
 mixed-family form (tile screen, the NeighborConfig default), the twod
-model (spline destination force) through K1's main form, and a
-MixedEngine of bicycle2d and twod riders through K1's two-family form.
+model (spline destination force) through K1's main form, a MixedEngine
+of bicycle2d and twod riders through K1's two-family form, and the
+inverted-pendulum model (the ZOH propagator as a piecewise quintic)
+through K1's main form.
 Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
@@ -67,6 +69,11 @@ non-zero):
                on the rest, NeighborConfig(cutoff=100, block=128,
                block_src=64, kb=<audited max + 2>, rebuild_every=20): 240
                K1 launches in the mixed form, rows in original order;
+  9d. slice_invpendulum  240 steps of the 100,000 riders as invpendulum
+               riders (`bench.py:main_row("invpendulum")`:
+               InvPendulumBicycleParams.create(zoh_poly=32), the spline
+               destination force, position ring of 128, `prepare`, the main
+               path's NeighborConfig): 240 K1 launches, sorted-resident;
  10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
@@ -86,29 +93,43 @@ non-zero):
                rider (both spline branches run), 45 steps: the card in
                float64 against the CPU in float64 under both tiers, the
                card's float32 run reported (see TWOD_FLOAT32);
- 13. graph_parity  on each of the six paths 45 steps (two chunks and a
+ 12c. parity_invpendulum  the slice_invpendulum path on PARITY_IP_N riders
+               with TWOD_QUEUE destinations, 45 steps, with the poly
+               propagator and with the exact one: the card in float64
+               against the CPU in float64 with the pair stage in float32
+               (the card's arithmetic) under both tiers and against the
+               CPU's plain float64 run under the cap (IP_STEER), the
+               float32 run reported; then the poly's evaluation at
+               100,000 speeds with TF32 allowed, bit-equal to TF32 off,
+               and a float64 evaluation of the fit within float32's
+               rounding bound on each rider's own segment;
+ 13. graph_parity  on each of the seven paths 45 steps (two chunks and a
                5-step tail) with `graph=False` and with the graph from the
                same 100,000-rider state: every field of the final state
                bit-equal, again with `record_metrics=True`, and with
                `record=True` on 4,096-rider crowds of `slice`,
-               `slice_twod` and `slice_mixed`; on those three one eager
-               chunk with every host synchronisation an error;
+               `slice_twod`, `slice_mixed`, `slice_invpendulum` and of
+               invpendulum with the exact propagator, planarpoint and
+               planarbicycle (`graph_parity_models`); one eager chunk of
+               each of those seven with every host synchronisation an
+               error (at full width where it is a path);
  14. metrics   `simulate(state, 240, record=False, record_metrics=True)` on
                the main path: [240, 8], finite, 100,000 active and no
                overflow in every row, speeds within the model's limits;
  15. aliasing  two `simulate` calls on one engine from two states: the
                first call's state and records are unchanged by the second;
  16. profile   one torch.profiler window of 40 graphed steps of the main
-               path, `slice_twod` and `slice_mixed`: device kernels and
-               host launches
-               per step, device-busy ms per step, the card's idle share,
-               the kernels that take most of the time, and the device
-               kernels per step that the twod step adds.
+               path, `slice_twod`, `slice_mixed` and `slice_invpendulum`:
+               device kernels and host launches per step, device-busy ms
+               per step, the card's idle share, the kernels that take most
+               of the time, and the device kernels per step that the twod
+               step adds to the main path's and the invpendulum step to
+               twod's.
 
 Then the wall seconds of each phase and of the script, a JSON line with
 the kernels' launch counts (each from its own path, with every count set
 to 0 just before it: the replayed launches, and the warm-up's beside
-them; K1's on each of its four paths under `paths`), the block-64 and
+them; K1's on each of its five paths under `paths`), the block-64 and
 block-256 forms under `blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
@@ -117,6 +138,7 @@ kernel's, same work, same call), the nvidia-smi line, and last
 non-zero before printing any result.
 """
 
+import functools
 import json
 import math
 import statistics
@@ -200,6 +222,29 @@ PARITY_TWOD_N = 4096
 # twod on the second, drawn as one crowd; the parity run's crowd is
 # 2 x PARITY_MIXED_HALF riders
 PARITY_MIXED_HALF = 2048
+# the invpendulum path (`bench.py:main_row("invpendulum")`): the
+# piecewise-quintic ZOH propagator of IP_ZOH_POLY speed segments; its
+# parity crowd (PARITY_IP_N riders with TWOD_QUEUE destinations) runs once
+# with it and once with the exact per-rider exponential
+IP_ZOH_POLY, PARITY_IP_N = 32, 2048
+# IP_STEER: the invpendulum steer loop turns K1's float32 pair forces
+# into steer angles ~5e-3 rad from the float64 run's after 45 steps for a
+# few riders: on the CPU, the plain version with only its pair stage in
+# float32 (`float32_pairs`) leaves 4 of 2,048 riders of the parity crowd
+# over 1e-3 rad (max 5.0e-3 rad; positions within 3.4e-4 m), for both
+# propagators (`parity_invpendulum`'s `cpu_float32_pairs_vs_float64`), as
+# the card's float64 run does. So the card is held to that CPU run under both tiers and to the
+# plain float64 run under the cap, as `parity_legacy` is
+# POLY_HORNER: the poly's float32 evaluation on the card against a
+# float64 evaluation of the same fit (numpy, `poly_float32_excess`), per
+# rider and output within the float32 rounding bound of the rider's own
+# segment s: eps32 (3 (deg + 1) sum_d |c_sd| + 4 max(x, 1) sum_d d |c_sd|)
+# -- the Horner chain's rounding, 2 (deg + 1) eps sum |c_sd| for u in
+# [0, 1], with the coefficients' own rounding, and the local coordinate
+# u = x - s off by a few ulps of x (CUDA divides by a scalar through its
+# reciprocal) times p'(u). A rider whose x lies within 16 ulps of a
+# segment boundary may take either segment, and is held to the nearer of
+# the two evaluations. The TF32 check itself is bit for bit
 # the bound of a call: the largest of its operations over the H100's FP32
 # peak and bytes over its memory rate (NVIDIA's data sheet, SXM part at
 # 700 W), and its special-function (MUFU) operations over the MUFU rate:
@@ -276,12 +321,9 @@ def make_twod_engine(params=None, **kw):
     """The twod model (spline destination force, twod field) on the main
     path's NeighborConfig, `bench.py`'s main_row("twod") configuration,
     with `kw` changed."""
-    from cyclistsocialforce_tpu_torch import Engine
-    from cyclistsocialforce_tpu_torch.models import MODELS
     from cyclistsocialforce_tpu_torch.params import BicycleParams
 
-    return Engine.create(params or BicycleParams.create(), MODELS["twod"],
-                         neighbors=neighbor_config(**kw))
+    return make_model_engine("twod", params or BicycleParams.create(), **kw)
 
 
 def make_mixed_engine(n, **kw):
@@ -302,14 +344,56 @@ def make_mixed_engine(n, **kw):
         neighbors=NeighborConfig(**{**cfg, **kw}))
 
 
-def twod_crowd(n, dtype, device, pad=BLOCK):
-    """The bench crowd sized for twod (`build_population(model="twod")`,
-    the position ring TWOD_HIST long), padded to a multiple of `pad`
-    (None: not padded)."""
+@functools.lru_cache(maxsize=None)
+def ip_params(exact=False):
+    """`bench.py:main_row("invpendulum")`'s parameters: the reference's
+    InvPendulumBicycle with the piecewise-quintic ZOH propagator of
+    IP_ZOH_POLY segments (exact=True: the exact per-rider exponential)."""
+    from cyclistsocialforce_tpu_torch.params import InvPendulumBicycleParams
+
+    return InvPendulumBicycleParams.create(
+        zoh_poly=0 if exact else IP_ZOH_POLY)
+
+
+def graph_parity_models():
+    """name -> (model, params) of the models that graph_parity runs on a
+    GRAPH_PARITY_RECORD_N-rider crowd of their own (beside the paths):
+    invpendulum with the exact propagator, planarpoint, planarbicycle."""
+    from cyclistsocialforce_tpu_torch.params import (PlanarBicycleParams,
+                                                     PlanarPointBicycleParams)
+
+    return {"invpendulum_exact": ("invpendulum", ip_params(exact=True)),
+            "planarpoint": ("planarpoint", PlanarPointBicycleParams.create()),
+            "planarbicycle": ("planarbicycle",
+                              PlanarBicycleParams.create())}
+
+
+def make_model_engine(model, params, **kw):
+    """`model` (a `models.MODELS` name) on `params` and the main path's
+    NeighborConfig, with `kw` changed."""
+    from cyclistsocialforce_tpu_torch import Engine
+    from cyclistsocialforce_tpu_torch.models import MODELS
+
+    return Engine.create(params, MODELS[model],
+                         neighbors=neighbor_config(**kw))
+
+
+def model_crowd(model, params, n, dtype, device, pad=BLOCK):
+    """The bench crowd sized for `model` (`build_population(model=...)`,
+    the position ring TWOD_HIST long) after the model's `prepare` on
+    `params`, padded to a multiple of `pad` (None: not padded)."""
+    from cyclistsocialforce_tpu_torch.models import MODELS, prepare
     from cyclistsocialforce_tpu_torch.scenarios import build_population
 
-    return build_population(n, DENSITY, TWOD_HIST, pad, dtype, device,
-                            model="twod")
+    st = build_population(n, DENSITY, TWOD_HIST, pad, dtype, device,
+                          model=model)
+    return prepare(MODELS[model], params, st)
+
+
+def twod_crowd(n, dtype, device, pad=BLOCK):
+    """The bench crowd sized for twod (`model_crowd`; twod keeps no
+    latents), padded to a multiple of `pad` (None: not padded)."""
+    return model_crowd("twod", None, n, dtype, device, pad)
 
 
 def with_queues(state):
@@ -868,9 +952,10 @@ def phase_graph_parity(paths, record_cases):
     GRAPH_PARITY_STEPS steps from its 100,000-rider state (`paths`: name
     -> (engine, state)) without records and with the per-step metrics;
     with the [T, N, 8] record on the GRAPH_PARITY_RECORD_N-rider crowds of
-    `record_cases` (name -> (engine, state)). And on each path of
-    `record_cases` one eager chunk at full width with every host
-    synchronisation an error (what a capture would refuse)."""
+    `record_cases` (name -> (engine, state)). And for each of
+    `record_cases` one eager chunk with every host synchronisation an
+    error (what a capture would refuse): at full width where it is a
+    path, else on its own crowd."""
     import torch
 
     from cyclistsocialforce_tpu_torch.engine import permute_state
@@ -898,7 +983,7 @@ def phase_graph_parity(paths, record_cases):
                                  f"{differ}")
 
     for name in record_cases:
-        engine, state = paths[name]
+        engine, state = paths.get(name, record_cases[name])
         cache = engine.neighbor_cache(state)
         presorted = engine.sorted_resident
         st = permute_state(state, cache[0]) if presorted else state
@@ -1145,16 +1230,37 @@ def phase_parity_legacy(engine):
                              f"{vs32['failed']}, float64 cap {over_cap}")
 
 
-def phase_parity_queues(phase, engine, n, pad):
-    """`engine` on an n-rider crowd with destination queues (`with_queues`),
-    PARITY_STEPS steps from one initial state, the final states against
-    the plain version on the CPU in float64: the card's graphed run in
-    float64 (K1 in float32 inside) held to both tiers of `parity`, and the
-    card's float32 graphed run reported beside it (see TWOD_FLOAT32)."""
+def float32_pairs(engine):
+    """A twin of `engine` whose pair stage takes float32 packs on any
+    device, as K1 does on the card (`engine.pair_kernel_dispatch` casts
+    there): on the CPU, the plain version with the card's arithmetic."""
+    twin = engine.with_params(engine.params)
+    dispatch = twin.pair_kernel_dispatch
+
+    def float32_dispatch(nbr, valid, src, recv, count=None):
+        return dispatch(nbr, valid, src.float(), recv.float(),
+                        count).to(src.dtype)
+
+    twin.pair_kernel_dispatch = float32_dispatch
+    return twin
+
+
+def phase_parity_queues(phase, engine, n, pad, make_crowd=twod_crowd,
+                        pairs32=False, **info):
+    """`engine` on an n-rider crowd (`make_crowd(n, dtype, device, pad)`)
+    with destination queues (`with_queues`), PARITY_STEPS steps from one
+    initial state, the final states against the plain version on the CPU
+    in float64: the card's graphed run in float64 (K1 in float32 inside)
+    held to both tiers of `parity`, and the card's float32 graphed run
+    reported beside it (see TWOD_FLOAT32). With `pairs32` (see
+    IP_STEER) the card's float64 run is held to both tiers against the
+    CPU float64 run whose pair stage is float32 (`float32_pairs`), and to
+    the cap against the plain float64 run. `info` goes into every
+    line."""
     import torch
 
     def crowd(dtype, device):
-        return with_queues(twod_crowd(n, dtype, device, pad))
+        return with_queues(make_crowd(n, dtype, device, pad))
 
     card32, card64 = crowd(torch.float32, "cuda"), crowd(torch.float64,
                                                          "cuda")
@@ -1167,16 +1273,119 @@ def phase_parity_queues(phase, engine, n, pad):
                              record=False)
     cpu_s = time.perf_counter() - t0
     info = dict(steps=PARITY_STEPS, rebuild_every=REBUILD, n=n,
-                cpu_run_s=cpu_s)
+                cpu_run_s=cpu_s, **info)
     vs64 = parity_errors(fin64, ref)
     vs32 = parity_errors(fin32, ref)
-    emit(phase, runs="card float64 graphed vs CPU float64 plain "
-         "(enforced)", **info, **vs64)
+    failed = vs64["failed"]
+    if pairs32:
+        ref32, _ = float32_pairs(engine).simulate(
+            crowd(torch.float64, "cpu"), PARITY_STEPS, record=False)
+        held = parity_errors(fin64, ref32)
+        base = parity_errors(ref32, ref)
+        over_cap = [k for k in vs64["failed"]
+                    if k not in vs64["max"] or vs64["max"][k] > PARITY_CAP[k]]
+        emit(phase, runs="card float64 graphed vs CPU float64 plain with "
+             "float32 pairs (enforced)", **info, **held)
+        emit(phase, runs="card float64 graphed vs CPU float64 plain "
+             "(enforced: the cap)", **info, **vs64, over_cap=over_cap,
+             cpu_float32_pairs_vs_float64={
+                 k: base[k] for k in ("max", "p99.9", "n_over_tol",
+                                      "failed")})
+        failed = held["failed"] + over_cap
+    else:
+        emit(phase, runs="card float64 graphed vs CPU float64 plain "
+             "(enforced)", **info, **vs64)
     emit(phase, runs="card float32 graphed vs CPU float64 plain "
          "(reported)", **info,
          **{k: vs32[k] for k in ("max", "p99.9", "n_over_tol", "failed")})
-    if vs64["failed"]:
-        raise AssertionError(f"{phase} failed: {vs64['failed']}")
+    if failed:
+        raise AssertionError(f"{phase} failed: {failed}")
+
+
+def phase_parity_invpendulum():
+    """The slice_invpendulum configuration on a PARITY_IP_N-rider crowd
+    with destination queues, once with the piecewise-polynomial
+    propagator and once with the exact one: the card in float64 against
+    the CPU in float64 with float32 pairs under both tiers and against
+    the plain float64 run under the cap (IP_STEER), the card's float32
+    run reported (`phase_parity_queues`). Then the polynomial's
+    evaluation on the card with TF32 allowed: bit for bit the evaluation
+    with TF32 off, and a float64 evaluation of the fit within the float32
+    bound of each rider's segment (POLY_HORNER)."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.ops.piecewise import \
+        eval_piecewise_poly
+
+    for exact in (False, True):
+        params = ip_params(exact)
+
+        def crowd(n, dtype, device, pad, params=params):
+            return model_crowd("invpendulum", params, n, dtype, device, pad)
+
+        phase_parity_queues(
+            "parity_invpendulum", make_model_engine("invpendulum", params),
+            PARITY_IP_N, BLOCK, crowd, pairs32=True,
+            propagator="exact" if exact else f"zoh_poly={IP_ZOH_POLY}")
+
+    poly = ip_params().ip_zoh_poly
+    v = torch.as_tensor(np.random.default_rng(TWOD_QUEUE_SEED).uniform(
+        0.5, 7.5, N_AGENTS), dtype=torch.float32)
+    flags = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for allow in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        try:
+            out[allow] = torch.stack(eval_piecewise_poly(poly, v.cuda(), 30))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    same = torch.equal(out[True], out[False])
+    excess = poly_float32_excess(poly, v.double().numpy(),
+                                 out[True].cpu().double().numpy())
+    over = int((excess > 1.0).sum())
+    emit("parity_invpendulum", check="ip_zoh_poly evaluation with TF32 "
+         "allowed", n=N_AGENTS, tf32_on_equals_off=same,
+         max_err_over_bound=float(excess.max()),
+         card_vs_float64_over_bound=over)
+    if not same or over:
+        raise AssertionError(f"parity_invpendulum: the poly evaluation with "
+                             f"TF32 allowed: equal to TF32 off {same}, "
+                             f"{over} values beyond the float32 bound")
+
+
+def poly_float32_excess(poly, v, got):
+    """Per output and rider, |got - the fit at v in float64| over the
+    float32 rounding bound of the rider's segment (POLY_HORNER): values
+    over 1 are out of bound. `v` [N] and `got` [n_out, N] are float64
+    numpy arrays; a rider near a segment boundary takes the nearer of its
+    two segments' evaluations."""
+    import numpy as np
+
+    coeffs, lo, seg_dv = poly
+    n_seg = len(coeffs)
+    n_out = got.shape[0]
+    c = np.asarray(coeffs).reshape(n_seg, n_out, -1)          # [S, M, D]
+    deg1 = c.shape[2]
+    eps = float(np.finfo(np.float32).eps)
+    x = np.clip((v - lo) / seg_dv, 0.0, n_seg - 1e-6)
+    scale = np.maximum(x, 1.0)
+    slack = 16 * eps * scale
+    horner = np.abs(c).sum(axis=2)                             # [S, M]
+    slope = (np.abs(c) * np.arange(deg1)).sum(axis=2)          # [S, M]
+    best = None
+    for side in (-1.0, 1.0):
+        seg = np.clip(np.floor(x + side * slack), 0, n_seg - 1).astype(int)
+        u = x - seg
+        cs = c[seg]                                            # [N, M, D]
+        want = cs[:, :, deg1 - 1]
+        for d in range(deg1 - 2, -1, -1):
+            want = want * u[:, None] + cs[:, :, d]
+        bound = eps * (3 * deg1 * horner[seg]
+                       + 4 * scale[:, None] * slope[seg])       # [N, M]
+        ratio = (np.abs(got.T - want) / bound).T
+        best = ratio if best is None else np.minimum(best, ratio)
+    return best
 
 
 def parity_errors(a, b):
@@ -1241,6 +1450,9 @@ def main():
     leg_engine, leg_db_engine = phase_legacy_config(state)
     twod_engine = make_twod_engine()
     twod_state = twod_crowd(N_AGENTS, torch.float32, "cuda")
+    ip_engine = make_model_engine("invpendulum", ip_params())
+    ip_state = model_crowd("invpendulum", ip_params(), N_AGENTS,
+                           torch.float32, "cuda")
     mixed_state = twod_crowd(N_AGENTS, torch.float32, "cuda", pad=None)
     mixed_engine = audited_engine(
         lambda **kw: make_mixed_engine(N_AGENTS, **kw), "slice_mixed",
@@ -1268,10 +1480,12 @@ def main():
              "slice_db": (db_engine, state),
              "slice_legacy": (leg_engine, state),
              "slice_twod": (twod_engine, twod_state),
-             "slice_mixed": (mixed_engine, mixed_state)}
+             "slice_mixed": (mixed_engine, mixed_state),
+             "slice_invpendulum": (ip_engine, ip_state)}
     k1, k2, k3 = PF.KERNELS
     kernel_of = {"slice": k1, "slice_unrolled": k2, "slice_db": k3,
-                 "slice_legacy": k1, "slice_twod": k1, "slice_mixed": k1}
+                 "slice_legacy": k1, "slice_twod": k1, "slice_mixed": k1,
+                 "slice_invpendulum": k1}
     launches = {path: timed(path, phase_slice, path, *paths[path],
                             kernel_of[path]) for path in paths}
     timed("parity", phase_parity)
@@ -1285,9 +1499,17 @@ def main():
                          "parity_mixed",
                          twod_crowd(n_mixed, torch.float32, "cuda", None)),
           n_mixed, None)
+    timed("parity_invpendulum", phase_parity_invpendulum)
     small_mixed = twod_crowd(GRAPH_PARITY_RECORD_N, torch.float32, "cuda",
                              None)
+    model_cases = {name: (make_model_engine(model, params), model_crowd(
+        model, params, GRAPH_PARITY_RECORD_N, torch.float32, "cuda"))
+        for name, (model, params) in graph_parity_models().items()}
+    model_cases["slice_invpendulum"] = (ip_engine, model_crowd(
+        "invpendulum", ip_params(), GRAPH_PARITY_RECORD_N, torch.float32,
+        "cuda"))
     timed("graph_parity", phase_graph_parity, paths, {
+        **model_cases,
         "slice": (engine, build_population(
             GRAPH_PARITY_RECORD_N, DENSITY, HIST_LEN, BLOCK, torch.float32,
             "cuda")),
@@ -1299,9 +1521,12 @@ def main():
     timed("metrics", phase_metrics, engine, state)
     timed("aliasing", phase_aliasing, engine, state)
     per_step = {path: timed("profile", phase_profile, path, *paths[path])
-                for path in ("slice", "slice_twod", "slice_mixed")}
+                for path in ("slice", "slice_twod", "slice_mixed",
+                             "slice_invpendulum")}
     emit("profile", twod_device_activities_per_step_over_slice=(
-        per_step["slice_twod"] - per_step["slice"]))
+        per_step["slice_twod"] - per_step["slice"]),
+        invpendulum_device_activities_per_step_over_twod=(
+        per_step["slice_invpendulum"] - per_step["slice_twod"]))
     emit("phase_seconds", **seconds)
     emit("total", seconds=time.perf_counter() - t_start)
 

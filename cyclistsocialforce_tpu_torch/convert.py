@@ -30,27 +30,38 @@ def state_to_numpy(st: AgentState) -> dict:
             for f in dataclasses.fields(AgentState)}
 
 
+def _leaf_from_jax(cls, name, value, device):
+    """One JAX params field in the port's leaf form (`params.to_leaf`): None
+    stays None, a static field (`ip_zoh_poly`) the same tuple, a
+    population-shared table (`ip_zoh_lut`: table, v_lo, dv) a float64
+    tensor on `device` with its two floats, and a per-rider pole set (the
+    JAX population's tuple of [N] arrays) an [N, k] tensor."""
+    if value is None or name in getattr(cls, "STATIC_FIELDS", ()):
+        return value
+    if name in getattr(cls, "POPULATION_SHARED", ()):
+        tab, v_lo, dv = value
+        return (torch.from_numpy(np.array(tab, dtype=np.float64)).to(device),
+                float(v_lo), float(dv))
+    if isinstance(value, (tuple, list)) and any(np.ndim(v) for v in value):
+        value = np.stack([np.asarray(v) for v in value], axis=-1)
+    leaf = to_leaf(name, np.asarray(value))
+    return leaf.to(device) if isinstance(leaf, torch.Tensor) else leaf
+
+
 def params_from_jax(p, device="cuda"):
     """The port's params of the same class and values as a JAX
     `VehicleParams` / `CarParams` / `BicycleParams` /
-    `InvPendulumBicycleParams` (no re-validation). Per-agent leaves become
-    float64 tensors on `device`."""
+    `PlanarPointBicycleParams` / `PlanarBicycleParams` /
+    `InvPendulumBicycleParams` (no re-validation), its ZOH tables
+    included. Per-agent leaves become float64 (poles complex128) tensors
+    on `device`."""
     name = type(p).__name__
     if name not in PARAM_CLASSES:
         raise NotImplementedError(f"params class {name} is not ported")
-    if (getattr(p, "ip_zoh_lut", None) is not None
-            or getattr(p, "ip_zoh_poly", None) is not None):
-        raise NotImplementedError(
-            "the ZOH propagator tables come with the invpendulum model, "
-            "which is not ported yet (ROADMAP Queue 1 item 6)")
     cls = PARAM_CLASSES[name]
-    vals = {}
-    for f in dataclasses.fields(cls):
-        leaf = to_leaf(f.name, np.asarray(getattr(p, f.name)))
-        if isinstance(leaf, torch.Tensor):
-            leaf = leaf.to(device)
-        vals[f.name] = leaf
-    return cls(**vals)
+    return cls(**{f.name: _leaf_from_jax(cls, f.name, getattr(p, f.name),
+                                         device)
+                  for f in dataclasses.fields(cls)})
 
 
 def group_specs_from_jax(mixed_engine, device="cuda") -> list:

@@ -600,10 +600,14 @@ def _copy_state(dst: AgentState, src: AgentState):
 
 def _check_params_on(params, device):
     """A CUDA-graph capture takes no host-to-device copy: every per-agent
-    parameter tensor must already lie on the state's device."""
+    parameter tensor, and a shared table's (`ip_zoh_lut`), must already
+    lie on the state's device."""
     for f in dataclasses.fields(params):
-        v = getattr(params, f.name)
-        if isinstance(v, torch.Tensor) and v.device != device:
+        val = getattr(params, f.name)
+        parts = val if isinstance(val, tuple) else (val,)
+        v = next((t for t in parts if isinstance(t, torch.Tensor)
+                  and t.device != device), None)
+        if v is not None:
             raise ValueError(
                 f"params.{f.name} is on {v.device} but the state is on "
                 f"{device}: a graphed simulate copies nothing from the "
@@ -756,12 +760,13 @@ class Engine(nn.Module):
     _FROZEN_BY_A_CAPTURE = frozenset((
         "params", "model_step", "state_widths", "dest_force", "dest_kw",
         "rep_force", "pair_family", "neighbors", "full_fov", "uniform_pair",
-        "priority_p2r", "rep_chunk"))
+        "priority_p2r", "rep_chunk", "step_constants"))
 
     def __init__(self, params, model_step, state_widths, dest_force,
                  rep_force, pair_family: str, neighbors, full_fov: bool,
                  uniform_pair, priority_p2r: bool = False,
-                 rep_chunk: int | None = None, dest_kw=None):
+                 rep_chunk: int | None = None, dest_kw=None,
+                 step_constants=None):
         super().__init__()
         self.params = params
         self.model_step = model_step
@@ -776,6 +781,8 @@ class Engine(nn.Module):
         self.uniform_pair = uniform_pair
         self.priority_p2r = priority_p2r
         self.rep_chunk = rep_chunk
+        # the model's `step_constants` hook, or None (`kept_constants`)
+        self.step_constants = step_constants
         self._columns = {}    # (name, values, n, dtype, device) -> [n]
         self._runners = {}    # captured program -> ChunkRunner
 
@@ -831,7 +838,8 @@ class Engine(nn.Module):
                    uniform_pair=(_uniform_pair_params(params)
                                  if rep == "twod" else None),
                    priority_p2r=(priority_rule == "p2r"),
-                   rep_chunk=rep_chunk)
+                   rep_chunk=rep_chunk,
+                   step_constants=getattr(model, "step_constants", None))
 
     def with_params(self, params):
         """Engine with `params` swapped in and the fields derived from
@@ -847,7 +855,8 @@ class Engine(nn.Module):
             neighbors=self.neighbors, full_fov=_hfov_is_full(params),
             uniform_pair=(_uniform_pair_params(params)
                           if self.pair_family == "twod" else None),
-            priority_p2r=self.priority_p2r, rep_chunk=self.rep_chunk)
+            priority_p2r=self.priority_p2r, rep_chunk=self.rep_chunk,
+            step_constants=self.step_constants)
 
     # ---- the dense pair stage ----
 
@@ -1098,9 +1107,25 @@ class Engine(nn.Module):
         (what a captured step reads)."""
         _check_params_on(self.params, device)
 
+    def kept_constants(self, hook, params, state: AgentState,
+                       group: int = 0) -> dict:
+        """The keyword tensors of a model step that no step changes
+        (`hook(params, dtype, device)`, a model's `step_constants`, or {}
+        without one), built once per group, dtype and device and kept in
+        `_columns` with the pack columns: a captured chunk reads them by
+        address, so they live as long as the engine's runners."""
+        if hook is None:
+            return {}
+        key = ("step_constants", group, state.s.dtype, state.device)
+        if key not in self._columns:
+            self._columns[key] = hook(params, state.s.dtype, state.device)
+        return self._columns[key]
+
     def dynamics(self, state: AgentState, fx, fy) -> AgentState:
         """One dynamics step of every agent under the forces (fx, fy)."""
-        return self.model_step(self.params, state, fx, fy)
+        return self.model_step(self.params, state, fx, fy,
+                               **self.kept_constants(self.step_constants,
+                                                     self.params, state))
 
     def step_with_forces(self, state: AgentState, nbr_cache=None,
                          presorted: bool = False):

@@ -178,8 +178,11 @@ class MixedEngine(eng.Engine):
         """Each group's model step on its slice."""
         return _merge_groups(state, [
             g.model.step(g.params, state_slice(state, g.lo, g.hi),
-                         fx[g.lo:g.hi], fy[g.lo:g.hi])
-            for g in self.groups])
+                         fx[g.lo:g.hi], fy[g.lo:g.hi],
+                         **self.kept_constants(
+                             getattr(g.model, "step_constants", None),
+                             g.params, state, i))
+            for i, g in enumerate(self.groups)])
 
     # ---- the dense pair stage ----
 

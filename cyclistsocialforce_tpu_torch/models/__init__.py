@@ -5,11 +5,16 @@ Each model module exposes ``N_STATES``, the default force names
 ``step(params, state, fx, fy) -> state``.
 """
 
-from cyclistsocialforce_tpu_torch.models import bicycle2d, bicycle_twod
+from cyclistsocialforce_tpu_torch.models import (bicycle2d, bicycle_twod,
+                                                 invpendulum, planarbicycle,
+                                                 planarpoint)
 
 MODELS = {
-    "bicycle2d": bicycle2d,   # reference "planartwowheel" / Bicycle
-    "twod": bicycle_twod,     # reference TwoDBicycle ("2D model")
+    "bicycle2d": bicycle2d,          # reference "planartwowheel" / Bicycle
+    "twod": bicycle_twod,            # reference TwoDBicycle ("2D model")
+    "planarpoint": planarpoint,      # reference PlanarPointBicycle
+    "invpendulum": invpendulum,      # reference InvPendulumBicycle
+    "planarbicycle": planarbicycle,  # reference PlanarBicycle
 }
 
 
@@ -22,4 +27,5 @@ def prepare(model, params, state):
     return fn(params, state) if fn is not None else state
 
 
-__all__ = ["MODELS", "prepare", "bicycle2d", "bicycle_twod"]
+__all__ = ["MODELS", "prepare", "bicycle2d", "bicycle_twod", "invpendulum",
+           "planarbicycle", "planarpoint"]

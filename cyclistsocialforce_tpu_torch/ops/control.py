@@ -1,7 +1,21 @@
 """Controller primitives of the PyTorch port (counterpart of
-`cyclistsocialforce_tpu.ops.control`; only the PID step is ported so far)."""
+`cyclistsocialforce_tpu.ops.control`): the PID step, Ackermann pole
+placement of single-input systems, the DC gain, and the exact zero- and
+first-order-hold discretizations through the augmented matrix exponential
+(`ops.smallmat.expm_small` where the JAX package calls `jsl.expm`).
+
+Every function is batched over leading axes ([..., n, n] matrices, [..., n]
+vectors) and built on `ops.smallmat`: no host read, no shape that depends
+on the data, so a CUDA graph can capture it."""
 
 from __future__ import annotations
+
+import torch
+
+from cyclistsocialforce_tpu_torch.ops.smallmat import (expm_small,
+                                                       matmul_small,
+                                                       matvec_small,
+                                                       solve_small)
 
 
 def pid_step(e, e_prev, i_prev, kp, ki, kd, dt):
@@ -12,3 +26,127 @@ def pid_step(e, e_prev, i_prev, kp, ki, kd, dt):
     i_new = i_prev + ki * e * dt
     out = kp * e + i_new + d
     return out, e, i_new
+
+
+def poly_from_roots(roots):
+    """Monic polynomial coefficients [..., n + 1] (highest power first) of
+    the roots [..., n]. Complex roots must come in conjugate pairs for a
+    real polynomial; the caller takes the real part."""
+    n = roots.shape[-1]
+    # lowest-power-first accumulation: p <- p * (x - r) = shift(p) - r p
+    c = torch.zeros(roots.shape[:-1] + (n + 1,), dtype=roots.dtype,
+                    device=roots.device)
+    c[..., 0] = 1.0
+    for k in range(n):
+        shifted = torch.cat([torch.zeros_like(c[..., :1]), c[..., :-1]],
+                            dim=-1)
+        c = shifted - roots[..., k:k + 1] * c
+    return torch.flip(c, dims=(-1,))
+
+
+def _ctrb_dual(A, B):
+    """y = ctrb(A, B)^-T e_n of a single-input system (A [..., n, n], B
+    [..., n])."""
+    n = A.shape[-1]
+    cols = [B]
+    for _ in range(n - 1):
+        cols.append(matvec_small(A, cols[-1]))
+    ctrb = torch.stack(cols, dim=-1)
+    en = torch.zeros(A.shape[:-1], dtype=A.dtype, device=A.device)
+    en[..., -1] = 1.0
+    return solve_small(ctrb.transpose(-1, -2), en)
+
+
+def ackermann(A, B, coeffs):
+    """Ackermann gain K = e_n^T ctrb(A, B)^-1 phi(A) [..., n] of a
+    single-input system (A [..., n, n], B [..., n] or [..., n, 1]), phi the
+    desired monic characteristic polynomial `coeffs` [..., n + 1] (highest
+    power first). phi(A) is never formed: K = y^T phi(A) with ctrb^T y =
+    e_n, by Horner on the vector, r <- A^T r + c_k y."""
+    if B.ndim == A.ndim:
+        B = B[..., 0]
+    n = A.shape[-1]
+    y = _ctrb_dual(A, B)
+    At = A.transpose(-1, -2)
+    r = coeffs[..., 0:1] * y                 # monic: coeffs[0] == 1
+    for k in range(1, n + 1):
+        r = matvec_small(At, r) + coeffs[..., k:k + 1] * y
+    return r
+
+
+def dc_gain(Acl, B, C):
+    """Steady-state output y_ss = -C Acl^-1 B [...] of a stable closed
+    loop under a unit step (Acl [..., n, n], B [..., n], C [..., n] or
+    [..., 1, n])."""
+    if B.ndim == Acl.ndim:
+        B = B[..., 0]
+    x_ss = -solve_small(Acl, B)
+    return torch.sum(C.reshape(x_ss.shape) * x_ss, dim=-1)
+
+
+def _augmented_expm(blocks, size, like):
+    """expm of the [..., size, size] matrix holding `blocks`, a list of
+    (row slice, column slice, [..., r, c] values), and zeros elsewhere."""
+    aug = torch.zeros(like.shape[:-2] + (size, size), dtype=like.dtype,
+                      device=like.device)
+    for rows, cols, val in blocks:
+        aug[..., rows, cols] = val
+    return expm_small(aug)
+
+
+def _dt(dt):
+    """dt as a factor of [..., r, c] blocks: a number, or a [...] tensor."""
+    return dt[..., None, None] if isinstance(dt, torch.Tensor) else dt
+
+
+def discretize_foh(A, B, dt):
+    """First-order-hold discretization via the augmented exponential,
+
+        expm([[A, B, 0], [0, 0, I], [0, 0, 0]] dt) -> Ad, P, Q,
+
+    so that x_{k+1} = Ad x_k + P u_k + Q (u_{k+1} - u_k) / dt (python-
+    control's `forced_response` with linearly interpolated inputs). With
+    a constant input the Q term vanishes and (Ad, P) is the ZOH pair.
+    A [..., n, n], B [..., n] or [..., n, m], dt a number or [...];
+    returns [..., n, n], [..., n, m], [..., n, m]."""
+    n = A.shape[-1]
+    B = B[..., None] if B.ndim == A.ndim - 1 else B
+    m = B.shape[-1]
+    h = _dt(dt)
+    eye = torch.eye(m, dtype=A.dtype, device=A.device)
+    e = _augmented_expm(
+        [(slice(0, n), slice(0, n), A * h),
+         (slice(0, n), slice(n, n + m), B * h),
+         (slice(n, n + m), slice(n + m, n + 2 * m),
+          (eye * h).expand(A.shape[:-2] + (m, m)))],
+        n + 2 * m, A)
+    return e[..., :n, :n], e[..., :n, n:n + m], e[..., :n, n + m:]
+
+
+def discretize_zoh(A, B, dt):
+    """Exact zero-order-hold discretization via the augmented exponential,
+    expm([[A, B], [0, 0]] dt) = [[Ad, Bd], [0, I]] (what
+    `ct.forced_response` computes over one sample with a constant input,
+    reference vehicle.py:1835-1842). Shapes as `discretize_foh`."""
+    n = A.shape[-1]
+    B = B[..., None] if B.ndim == A.ndim - 1 else B
+    m = B.shape[-1]
+    h = _dt(dt)
+    e = _augmented_expm([(slice(0, n), slice(0, n), A * h),
+                         (slice(0, n), slice(n, n + m), B * h)], n + m, A)
+    return e[..., :n, :n], e[..., :n, n:]
+
+
+def matrix_power(A, k: int):
+    """A^k [..., n, n] by square-and-multiply; k is a static Python int."""
+    n = A.shape[-1]
+    result = torch.eye(n, dtype=A.dtype, device=A.device).expand(
+        A.shape).contiguous()
+    base = A
+    while k > 0:
+        if k & 1:
+            result = matmul_small(result, base)
+        k >>= 1
+        if k:
+            base = matmul_small(base, base)
+    return result

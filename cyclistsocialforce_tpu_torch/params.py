@@ -1,16 +1,23 @@
 """Parameter dataclasses of the PyTorch port.
 
-Counterpart of `cyclistsocialforce_tpu.params` for the vehicle, bicycle
-and inverted-pendulum bicycle families. Validation runs once, on the host, in `create()` with
-the JAX package's rules (reference parameters.py:421-935), including
-`calib_mode` (clamp and warn instead of raise).
+Counterpart of `cyclistsocialforce_tpu.params` for the vehicle, bicycle,
+planar point, planar bicycle and inverted-pendulum bicycle families.
+Validation runs once, on the host, in `create()` with the JAX package's
+rules (reference parameters.py:421-935), including `calib_mode` (clamp
+and warn instead of raise).
 
 Leaf representation: a value shared by the whole population is a Python
-float, a (min, max) limit pair is a tuple of two floats, and a per-agent
-value (after `as_population`) is a torch tensor whose leading axis is the
-agent axis. Python floats take the dtype and device of the tensors they
-meet, so shared parameters need no device placement; per-agent tensors
-are placed by `as_population(..., device=...)`.
+float, a (min, max) limit pair a tuple of two floats, and a pole or gain
+set (`poles`, `gains`) a tuple of Python complex numbers or floats. A
+per-agent value (after `as_population`) is a torch tensor whose leading
+axis is the agent axis: float64, or complex128 for poles. Python numbers
+take the dtype and device of the tensors they meet, so shared parameters
+need no device placement; per-agent tensors are placed by
+`as_population(..., device=...)`. A field may also be None (an optional
+table not built), a static tuple that no step turns into a tensor
+(`STATIC_FIELDS`), or a table shared by the population
+(`POPULATION_SHARED`), which `as_population` places on the device but
+does not broadcast.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ _TWO_PI = 2.0 * math.pi
 
 # fields stored as (min, max) limit pairs
 PAIR_FIELDS = ("v_max_riding", "a_max", "a_desired_default")
+# fields stored as a set of values per rider (a pole set, a gain set)
+SET_FIELDS = ("poles", "gains")
 
 
 def _err(calib_mode: bool, verbose: bool, msg: str):
@@ -76,14 +85,25 @@ def _pair(name, val):
 
 
 def to_leaf(name: str, value):
-    """Host value -> the port's leaf form (see the module docstring)."""
-    if isinstance(value, torch.Tensor):
+    """Host value -> the port's leaf form (see the module docstring).
+    Complex values (poles) stay complex, with their imaginary parts."""
+    if value is None or isinstance(value, torch.Tensor):
         return value
-    arr = np.asarray(value, dtype=np.float64)
+    arr = np.asarray(value)
+    if np.iscomplexobj(arr):
+        arr = arr.astype(np.complex128)
+        if arr.ndim == 0:
+            return complex(arr)
+        if arr.ndim == 1 and name in SET_FIELDS:
+            return tuple(complex(c) for c in arr)
+        return torch.from_numpy(arr.copy())
+    arr = arr.astype(np.float64)
     if arr.ndim == 0:
         return float(arr)
     if name in PAIR_FIELDS and arr.shape == (2,):
         return (float(arr[0]), float(arr[1]))
+    if name in SET_FIELDS and arr.ndim == 1:
+        return tuple(float(c) for c in arr)
     return torch.from_numpy(arr.copy())
 
 
@@ -246,13 +266,42 @@ class BicycleParams(VehicleParams):
 
 
 @dataclass(frozen=True)
+class PlanarPointBicycleParams(BicycleParams):
+    """Mass-less point bicycle (reference parameters.py:1175-1201): one
+    desired yaw pole (it overwrites `gains`, as in the reference)."""
+
+    poles: Any = (-2.0 + 0.0j,)
+    gains: Any = (2.0,)
+
+
+@dataclass(frozen=True)
+class PlanarBicycleParams(BicycleParams):
+    """Planar two-wheeler (reference parameters.py:1203-1211): the desired
+    conjugate pole pair of the steer/yaw loop."""
+
+    poles: Any = (-1.0141284591434665 + 1.226826644413086j,
+                  -1.0141284591434665 - 1.226826644413086j)
+
+
+@dataclass(frozen=True)
 class InvPendulumBicycleParams(BicycleParams):
     """Inverted-pendulum bicycle (reference parameters.py:1414-1970;
     defaults parameters.py:1429-1471, with the combined parameter
     tau_1_squared = (I_bike + m h^2) / (m g h)). The twod model runs on
-    them as the reference's TwoDBicycle does. The JAX package's optional
-    ZOH propagator tables (`create(zoh_lut=...)`, `create(zoh_poly=...)`)
-    belong to the invpendulum model and are not ported."""
+    them as the reference's TwoDBicycle does.
+
+    Two optional tables replace the invpendulum model's per-agent 6x6
+    matrix exponential per step (models/invpendulum.py), both built by
+    `create` from a float64 sweep of the exact propagator on the CPU:
+    `ip_zoh_lut` (`create(zoh_lut=G)`): (table [G, 30] float64 tensor,
+    v_lo, dv), the first five rows of expm([[Acl(v) t_s, Bcl(v) t_s],
+    [0, 0]]) (25 Phi and 5 Gamma entries) on a uniform speed grid,
+    interpolated linearly per step; shared by the population
+    (`POPULATION_SHARED`). `ip_zoh_poly` (`create(zoh_poly=S)`): the same
+    30 entries as a piecewise quintic over S speed segments of
+    [IP_ZOH_POLY_V_LO, v_hi] (`ops.piecewise`), a static tuple of floats
+    (`STATIC_FIELDS`). Without either the step takes the exact
+    propagator."""
 
     v_max_riding: Any = (-1.0, 7.0)
     a_max: Any = (-3.0, 1.0)
@@ -269,15 +318,15 @@ class InvPendulumBicycleParams(BicycleParams):
     v_max_walk: Any = 1.5
     delta_max_walk: Any = 0.174
     tau_1_squared: Any = (3.28 + 87.0 * 1.0**2) / (87.0 * 9.81 * 1.0)
+    ip_zoh_lut: Any = None
+    ip_zoh_poly: Any = None
+    POPULATION_SHARED = ("ip_zoh_lut",)
+    STATIC_FIELDS = ("ip_zoh_poly",)
+    IP_ZOH_POLY_V_LO = 1.0
 
     @classmethod
     def create(cls, calib_mode: bool = False, verbose: bool = True,
                zoh_lut: int = 0, zoh_poly: int = 0, **kw):
-        if zoh_lut or zoh_poly:
-            raise NotImplementedError(
-                "the ZOH propagator tables (zoh_lut, zoh_poly) come with the "
-                "invpendulum model, which is not ported yet (ROADMAP Queue "
-                "1 item 6)")
         h = _chk_nonneg("h", kw.pop("h", cls.h))
         m = _chk_nonneg("m", kw.pop("m", cls.m))
         ibl = _chk_nonneg("i_bike_longlong",
@@ -302,12 +351,80 @@ class InvPendulumBicycleParams(BicycleParams):
         kw.setdefault("a_max", cls.a_max)
         kw.setdefault("a_desired_default", cls.a_desired_default)
         tau_1_squared = (ibl + m * h**2) / (m * np.asarray(g) * h)
-        return super().create(
+        p = super().create(
             calib_mode=calib_mode, verbose=verbose, h=h, m=m,
             i_bike_longlong=ibl, i_steer_vertvert=isv, c_steer=c_steer,
             k_d0_r2=k_d0_r2, k_d1_r2=k_d1_r2, k_p_r1=k_p_r1, k_i0_r1=k_i0_r1,
             v_max_walk=v_max_walk, delta_max_walk=delta_max_walk,
             tau_1_squared=tau_1_squared, **kw)
+        if zoh_lut:
+            p = p.replace(ip_zoh_lut=cls._build_zoh_lut(p, int(zoh_lut)))
+        if zoh_poly:
+            p = p.replace(ip_zoh_poly=cls._build_zoh_poly(p, int(zoh_poly)))
+        return p
+
+    @staticmethod
+    def _build_zoh_lut(p, g: int):
+        """The closed-loop ZOH propagator on a uniform grid of g speeds
+        over v_max_riding, as (table [g, 30], v_lo, dv). Rows near the
+        v = 0 controllability singularity (the gain polynomial diverges
+        as 1/v^3) can be non-finite; the riding branch never reads them
+        (its speeds stay above ~v_max_walk), so each is interpolated from
+        its nearest finite neighbours, as the JAX package does."""
+        v_lo = float(pair_lo(p.v_max_riding))
+        v_hi = float(pair_hi(p.v_max_riding))
+        vs = np.linspace(v_lo, v_hi, g)
+        tab = InvPendulumBicycleParams._zoh_sweep(p)(vs)
+        bad = ~np.isfinite(tab).all(axis=1)
+        if bad.any():
+            good = np.where(~bad)[0]
+            for j in np.where(bad)[0]:
+                lo = good[good < j]
+                hi = good[good > j]
+                if len(lo) and len(hi):
+                    a, b = lo[-1], hi[0]
+                    t = (j - a) / (b - a)
+                    tab[j] = (1 - t) * tab[a] + t * tab[b]
+                else:
+                    tab[j] = tab[lo[-1] if len(lo) else hi[0]]
+        return (torch.from_numpy(tab), v_lo, (v_hi - v_lo) / (g - 1))
+
+    @staticmethod
+    def _zoh_sweep(p):
+        """``vs [K] -> rows [K, 30]``: the closed-loop ZOH propagator (25
+        Phi and 5 Gamma entries) at each speed, in float64 on the CPU
+        through the port's `openloop_matrices` and `expm_small`."""
+        from cyclistsocialforce_tpu_torch.models import invpendulum as IP
+        from cyclistsocialforce_tpu_torch.ops.smallmat import expm_small
+
+        t_s = float(p.t_s)
+        pb = {f: float(getattr(p, f)) for f in IP.OPENLOOP_FIELDS}
+
+        def sweep(vs):
+            v = torch.as_tensor(np.asarray(vs, dtype=np.float64))
+            E = expm_small(IP.zoh_augmented(p, pb, v, t_s))
+            return torch.cat([E[:, :5, :5].reshape(-1, 25), E[:, :5, 5]],
+                             dim=1).numpy()
+
+        return sweep
+
+    @staticmethod
+    def _build_zoh_poly(p, n_seg: int):
+        """Piecewise-quintic fit of the ZOH propagator's 30 entries over
+        the riding band [IP_ZOH_POLY_V_LO, v_hi] (`ops.piecewise`): the
+        band excludes the v -> 0 gain divergence, and below-band speeds
+        clamp to its edge, which only the masked walking branch reads."""
+        from cyclistsocialforce_tpu_torch.ops.piecewise import \
+            fit_piecewise_poly
+
+        v_lo = float(InvPendulumBicycleParams.IP_ZOH_POLY_V_LO)
+        v_hi = float(pair_hi(p.v_max_riding))
+        if v_hi <= v_lo:
+            raise ValueError(
+                f"zoh_poly needs v_max_riding > {v_lo} m/s (the fit band "
+                f"must clear the v -> 0 gain-schedule divergence)")
+        return fit_piecewise_poly(
+            InvPendulumBicycleParams._zoh_sweep(p), v_lo, v_hi, int(n_seg))
 
     # ---- speed-scheduled model and controller parameters ----
 
@@ -333,18 +450,19 @@ class InvPendulumBicycleParams(BicycleParams):
 
     def fullstate_feedback_gains(self, v):
         """Speed-scheduled full-state feedback gains (K_x [..., 5], K_u
-        [...]) for speeds v [...]: a polynomial in 1/v (reference
-        parameters.py:1857-1892)."""
-        v = torch.as_tensor(v, dtype=torch.float64)
-        vdata = torch.stack([torch.ones_like(v), v**-1.0, v**-2.0, v**-3.0],
-                            dim=-1)
-        kx = torch.tensor(self._KX_POLY, dtype=vdata.dtype,
-                          device=vdata.device)
-        ku = torch.tensor(self._KU_POLY, dtype=vdata.dtype,
-                          device=vdata.device)
-        K_x = torch.sum(vdata[..., None, :] * kx, dim=-1)
-        K_u = torch.sum(vdata * ku, dim=-1)
-        return K_x, K_u
+        [...]) for speeds v [...] (a tensor keeps its dtype and device, a
+        number becomes float64): a polynomial in 1/v (reference
+        parameters.py:1857-1892). The coefficients enter as Python floats,
+        so a step copies nothing from the host."""
+        if not (isinstance(v, torch.Tensor) and v.is_floating_point()):
+            v = torch.as_tensor(v, dtype=torch.float64)
+        powers = (torch.ones_like(v), v**-1.0, v**-2.0, v**-3.0)
+
+        def poly(coeffs):
+            return sum(c * t for c, t in zip(coeffs, powers))
+
+        K_x = torch.stack([poly(row) for row in self._KX_POLY], dim=-1)
+        return K_x, poly(self._KU_POLY)
 
     def min_stable_speed_inner(self):
         """Minimum speed for inner-loop stability (reference
@@ -355,9 +473,9 @@ class InvPendulumBicycleParams(BicycleParams):
         return (-y - (y**2 - 4 * x * z) ** 0.5) / (2 * x)
 
 
-PARAM_CLASSES = {"VehicleParams": VehicleParams, "CarParams": CarParams,
-                 "BicycleParams": BicycleParams,
-                 "InvPendulumBicycleParams": InvPendulumBicycleParams}
+PARAM_CLASSES = {cls.__name__: cls for cls in (
+    VehicleParams, CarParams, BicycleParams, PlanarPointBicycleParams,
+    PlanarBicycleParams, InvPendulumBicycleParams)}
 
 
 def pair_lo(pair):
@@ -375,12 +493,27 @@ def pair_hi(pair):
 
 
 def as_population(params, n: int, device="cuda"):
-    """Broadcast every numeric field to a float64 tensor of shape [n, ...]
-    on `device`, so that it can be updated agent by agent."""
+    """Broadcast every numeric field to a tensor of shape [n, ...] on
+    `device` (float64; complex128 for poles), so that it can be updated
+    agent by agent. A None field stays None, a static field
+    (`STATIC_FIELDS`, e.g. `ip_zoh_poly`) stays the same object, and a
+    population-shared table (`POPULATION_SHARED`, e.g. `ip_zoh_lut`) keeps
+    its shape and moves to `device`."""
+    cls = type(params)
+    static = getattr(cls, "STATIC_FIELDS", ())
+    shared = getattr(cls, "POPULATION_SHARED", ())
     upd = {}
     for f in dataclasses.fields(params):
         val = getattr(params, f.name)
-        t = torch.as_tensor(np.asarray(val.cpu() if isinstance(
-            val, torch.Tensor) else val, dtype=np.float64))
+        if val is None or f.name in static:
+            continue
+        if f.name in shared:
+            upd[f.name] = tuple(v.to(device) if isinstance(v, torch.Tensor)
+                                else v for v in val)
+            continue
+        arr = np.asarray(val.cpu() if isinstance(val, torch.Tensor)
+                         else val)
+        t = torch.from_numpy(arr.astype(
+            np.complex128 if np.iscomplexobj(arr) else np.float64))
         upd[f.name] = t.expand((n,) + tuple(t.shape)).contiguous().to(device)
     return params.replace(**upd)

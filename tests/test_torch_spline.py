@@ -349,8 +349,14 @@ def test_invpendulum_params_match_jax():
           jp.min_stable_speed_inner())
     with pytest.raises(ValueError, match="k_d0_r2"):
         TP.InvPendulumBicycleParams.create(k_d0_r2=1.0)
-    for kw in ({"zoh_lut": 64}, {"zoh_poly": 8}):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            TP.InvPendulumBicycleParams.create(**kw)
+    # the ZOH tables build (tests/test_torch_invpendulum.py holds them to
+    # JAX's at their own sizes)
+    lut = TP.InvPendulumBicycleParams.create(zoh_lut=64).ip_zoh_lut[0]
+    want = np.asarray(JP.InvPendulumBicycleParams.create(
+        zoh_lut=64).ip_zoh_lut[0])
+    assert (np.abs(lut.numpy() - want).max(axis=1)
+            <= 1e-10 * np.abs(want).max(axis=1)).all()
+    poly = TP.InvPendulumBicycleParams.create(zoh_poly=8).ip_zoh_poly
+    assert len(poly[0]) == 8 and len(poly[0][0]) == 180
     pop = TP.as_population(tp, 3, device=DEV)
     assert pop.h.shape == (3,) and pop.a_max.shape == (3, 2)
