@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives seven paths: the main path through K1 (`csrc/pair_forces.cu`,
+It drives eight paths: the main path through K1 (`csrc/pair_forces.cu`,
 twod field, unscreened), the same path through K2
 (`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled"), a crowd with
 per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
@@ -12,7 +12,8 @@ mixed-family form (tile screen, the NeighborConfig default), the twod
 model (spline destination force) through K1's main form, a MixedEngine
 of bicycle2d and twod riders through K1's two-family form, and the
 inverted-pendulum model (the ZOH propagator as a piecewise quintic)
-through K1's main form.
+and the balancing rider (the Whipple model, its gains as a piecewise
+quintic) through K1's main form.
 Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
@@ -46,7 +47,10 @@ non-zero):
                K1's wrapper counted, a finite state, no overflow at t =
                end, the time of the first run and of the capture in it; a
                device trace of 40 more graphed steps, which must show 40
-               runs of K1's kernel and none of K2's or K3's; then the
+               runs of K1's kernel and none of K2's or K3's (a trace for
+               which Kineto's log reports lost records is void and taken
+               again, TRACE_ATTEMPTS in all; a count that disagrees with
+               no loss reported fails); then the
                eager loop (`graph=False`) and the graphed one timed in
                turns, TIMED_ROUNDS runs of each: ms per step of both,
                their spreads and the ratio;
@@ -74,6 +78,12 @@ non-zero):
                InvPendulumBicycleParams.create(zoh_poly=32), the spline
                destination force, position ring of 128, `prepare`, the main
                path's NeighborConfig): 240 K1 launches, sorted-resident;
+  9e. slice_balancingrider  240 steps of the 100,000 riders as balancing
+               riders (`bench.py:main_heavy`:
+               BalancingRiderParams.create(gains_poly=16), `prepare`,
+               position ring of 8, the main path's NeighborConfig): 240 K1
+               launches, sorted-resident, the share of fallen riders
+               (|roll| > FALLEN_ROLL) reported;
  10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
@@ -103,33 +113,45 @@ non-zero):
                100,000 speeds with TF32 allowed, bit-equal to TF32 off,
                and a float64 evaluation of the fit within float32's
                rounding bound on each rider's own segment;
- 13. graph_parity  on each of the seven paths 45 steps (two chunks and a
+ 12d. parity_balancingrider  the slice_balancingrider configuration on a
+               PARITY_BR_N-rider Whipple-stable crowd, 45 steps, with the
+               exact placement, with gains_poly and with the Hess model:
+               as parity_invpendulum (the card in float64 against the CPU
+               float64 run with float32 pairs under both tiers, against
+               plain float64 under the cap, the float32 run reported);
+               then a gains_poly step of the 100,000 riders with TF32
+               allowed, bit-equal to TF32 off;
+ 13. graph_parity  on each of the eight paths 45 steps (two chunks and a
                5-step tail) with `graph=False` and with the graph from the
                same 100,000-rider state: every field of the final state
                bit-equal, again with `record_metrics=True`, and with
                `record=True` on 4,096-rider crowds of `slice`,
-               `slice_twod`, `slice_mixed`, `slice_invpendulum` and of
-               invpendulum with the exact propagator, planarpoint and
-               planarbicycle (`graph_parity_models`); one eager chunk of
-               each of those seven with every host synchronisation an
-               error (at full width where it is a path);
+               `slice_twod`, `slice_mixed`, `slice_invpendulum`,
+               `slice_balancingrider` and of invpendulum with the exact
+               propagator, planarpoint and planarbicycle
+               (`graph_parity_models`), and on 4,096-rider stable crowds
+               of the balancing rider in each gain mode of BR_MODES and
+               of the Hess model; one eager chunk of each of those fifteen
+               with every host synchronisation an error (at full width
+               where it is a path);
  14. metrics   `simulate(state, 240, record=False, record_metrics=True)` on
                the main path: [240, 8], finite, 100,000 active and no
                overflow in every row, speeds within the model's limits;
  15. aliasing  two `simulate` calls on one engine from two states: the
                first call's state and records are unchanged by the second;
  16. profile   one torch.profiler window of 40 graphed steps of the main
-               path, `slice_twod`, `slice_mixed` and `slice_invpendulum`:
+               path, `slice_twod`, `slice_mixed`, `slice_invpendulum` and
+               `slice_balancingrider`:
                device kernels and host launches per step, device-busy ms
                per step, the card's idle share, the kernels that take most
                of the time, and the device kernels per step that the twod
-               step adds to the main path's and the invpendulum step to
-               twod's.
+               step adds to the main path's, the invpendulum step to
+               twod's and the balancing-rider step to the main path's.
 
 Then the wall seconds of each phase and of the script, a JSON line with
 the kernels' launch counts (each from its own path, with every count set
 to 0 just before it: the replayed launches, and the warm-up's beside
-them; K1's on each of its five paths under `paths`), the block-64 and
+them; K1's on each of its six paths under `paths`), the block-64 and
 block-256 forms under `blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
@@ -138,12 +160,17 @@ kernel's, same work, same call), the nvidia-smi line, and last
 non-zero before printing any result.
 """
 
+import contextlib
 import functools
 import json
 import math
+import os
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_AGENTS, DENSITY, HIST_LEN = 100_000, 0.02, 8
@@ -235,6 +262,23 @@ IP_ZOH_POLY, PARITY_IP_N = 32, 2048
 # propagators (`parity_invpendulum`'s `cpu_float32_pairs_vs_float64`), as
 # the card's float64 run does. So the card is held to that CPU run under both tiers and to the
 # plain float64 run under the cap, as `parity_legacy` is
+# the balancing-rider path (`bench.py:main_heavy`): the piecewise-quintic
+# gains of BR_GAINS_POLY speed segments, the position ring HIST_LEN long.
+# The bench crowd's uniform random headings command yaw turns of up to pi,
+# and riders so commanded fall (|roll| > FALLEN_ROLL rad: the reference's
+# physics, reported, not gated); the parity and graph_parity crowds are
+# Whipple-stable instead (`scenarios.build_flagship_crowd`: headings within
+# 0.2 rad of their destination 100 m ahead, 4-6 m/s, at DENSITY), as
+# fallen riders amplify every rounding difference. PARITY_BR_N riders run
+# the exact placement, gains_poly and the Hess model against the CPU (see
+# IP_STEER, which binds them alike); graph_parity runs every gain mode of
+# BR_MODES and Hess on GRAPH_PARITY_RECORD_N of them
+BR_GAINS_POLY, PARITY_BR_N, FALLEN_ROLL = 16, 2048, 1.0
+BR_MODES = {"exact": {}, "gains_poly": {"gains_poly": BR_GAINS_POLY},
+            "gains_lut": {"gains_lut": 4096},
+            "prop_lut": {"prop_lut": 4096},
+            "prop_poly": {"prop_poly": BR_GAINS_POLY},
+            "fixed": {"gains": (-13.14, 1.10, -6.69, -0.11, -11.38)}}
 # POLY_HORNER: the poly's float32 evaluation on the card against a
 # float64 evaluation of the same fit (numpy, `poly_float32_excess`), per
 # rider and output within the float32 rounding bound of the rider's own
@@ -368,6 +412,48 @@ def graph_parity_models():
                               PlanarBicycleParams.create())}
 
 
+@functools.lru_cache(maxsize=None)
+def br_params(mode="gains_poly", device="cuda"):
+    """BalancingRiderParams in gain mode `mode` (BR_MODES; "gains_poly" is
+    `bench.py:main_heavy`'s), or HessBikeRiderParams for "hess", with
+    their tables on `device` (a capture copies nothing from the host)."""
+    from cyclistsocialforce_tpu_torch.params import (BalancingRiderParams,
+                                                     HessBikeRiderParams)
+
+    if mode == "hess":
+        return HessBikeRiderParams.create()
+    p = BalancingRiderParams.create(**BR_MODES[mode])
+    return p.replace(**{f: (getattr(p, f)[0].to(device),)
+                        + getattr(p, f)[1:] for f in p.POPULATION_SHARED
+                        if getattr(p, f) is not None})
+
+
+def br_model(mode):
+    return "hessbikerider" if mode == "hess" else "balancingrider"
+
+
+def stable_crowd(mode, n, dtype, device, pad=BLOCK):
+    """A Whipple-stable crowd of n riders at DENSITY
+    (`scenarios.build_flagship_crowd`, position ring HIST_LEN) after the
+    `prepare` of mode `mode`'s model and parameters (`br_params`)."""
+    from cyclistsocialforce_tpu_torch.models import MODELS, prepare
+    from cyclistsocialforce_tpu_torch.scenarios import build_flagship_crowd
+
+    model = br_model(mode)
+    st = build_flagship_crowd(n, DENSITY, HIST_LEN, pad, dtype, device,
+                              model=model)
+    return prepare(MODELS[model], br_params(mode, device), st)
+
+
+def fallen_share(state):
+    """The share of active riders whose roll exceeds FALLEN_ROLL rad."""
+    from cyclistsocialforce_tpu_torch.state import THETA
+
+    roll = state.s[state.active, THETA].abs()
+    return {"fallen_share": float((roll > FALLEN_ROLL).double().mean()),
+            "max_abs_roll": float(roll.max())}
+
+
 def make_model_engine(model, params, **kw):
     """`model` (a `models.MODELS` name) on `params` and the main path's
     NeighborConfig, with `kw` changed."""
@@ -378,14 +464,15 @@ def make_model_engine(model, params, **kw):
                          neighbors=neighbor_config(**kw))
 
 
-def model_crowd(model, params, n, dtype, device, pad=BLOCK):
+def model_crowd(model, params, n, dtype, device, pad=BLOCK,
+                hist_len=TWOD_HIST):
     """The bench crowd sized for `model` (`build_population(model=...)`,
-    the position ring TWOD_HIST long) after the model's `prepare` on
+    the position ring `hist_len` long) after the model's `prepare` on
     `params`, padded to a multiple of `pad` (None: not padded)."""
     from cyclistsocialforce_tpu_torch.models import MODELS, prepare
     from cyclistsocialforce_tpu_torch.scenarios import build_population
 
-    st = build_population(n, DENSITY, TWOD_HIST, pad, dtype, device,
+    st = build_population(n, DENSITY, hist_len, pad, dtype, device,
                           model=model)
     return prepare(MODELS[model], params, st)
 
@@ -822,27 +909,67 @@ KERNEL_SYMBOLS = {"pair_forces_neighbors": "pair_forces_twod_kernel",
                   "pair_forces_neighbors_db": "pair_forces_db_kernel"}
 
 
+# Kineto's own record of lost device activity: the profiler's log line when
+# CUPTI drops activity records or its buffers fill ("Dropped N activity
+# records", "... stopped by GPU profiler. (Buffer size configured is ...")
+DROP_PATTERN = re.compile(r"dropped|buffer size configured|overflow",
+                          re.IGNORECASE)
+# Kineto's log level for warnings (its LoggerOutputType WARNING); at the
+# default level it prints none, lost records included
+KINETO_WARNING = 2
+# a trace whose records Kineto reports lost is void and taken again, up to
+# this many times in all; a count that disagrees with no loss reported fails
+TRACE_ATTEMPTS = 3
+
+
+@contextlib.contextmanager
+def captured_stderr(out):
+    """Route file descriptor 2 (where Kineto's C++ logger writes) into a
+    file under the checkout's build directory for the block; its text goes
+    into out["text"] and back to the real stderr."""
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with tempfile.TemporaryFile(dir=build) as tmp:
+        os.dup2(tmp.fileno(), 2)
+        try:
+            yield out
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+            tmp.seek(0)
+            out["text"] = tmp.read().decode(errors="replace")
+            sys.stderr.write(out["text"])
+
+
 def traced_pair_kernels(engine, state, steps):
     """How often each pair kernel ran on the card in one graphed
-    `simulate` of `steps` steps, read from a torch.profiler device trace:
-    {wrapper name: kernel events}."""
+    `simulate` of `steps` steps, read from a torch.profiler device trace,
+    and the lines of Kineto's log that report lost records: ({wrapper
+    name: kernel events}, [log lines])."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.simulate(state, steps, record=False, graph=True)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == DeviceType.CUDA]
+    log = {}
+    with captured_stderr(log):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.simulate(state, steps, record=False, graph=True)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    lost = [ln.strip() for ln in log["text"].splitlines()
+            if DROP_PATTERN.search(ln)]
     if not names:
         raise AssertionError("the trace holds no device activity")
-    return {fn: sum(symbol in n for n in names)
-            for fn, symbol in KERNEL_SYMBOLS.items()}
+    return ({fn: sum(symbol in n for n in names)
+             for fn, symbol in KERNEL_SYMBOLS.items()}, lost)
 
 
-def phase_slice(phase, engine, state, kernel):
+def phase_slice(phase, engine, state, kernel, report=None):
     """N_STEPS steps of `engine.simulate` as a user calls it (on the card
     each chunk is one CUDA-graph replay), each step through `kernel`.
     Every count is set to 0 just before the run. The wrappers count what
@@ -853,7 +980,9 @@ def phase_slice(phase, engine, state, kernel):
     PROFILE_STEPS further graphed steps then shows that a replay does run
     that kernel once per step, and no other pair kernel. Also: a finite
     state, no table overflow at t = 0 and t = end. Then the eager loop and
-    the graphed one timed in turns, TIMED_ROUNDS runs of each."""
+    the graphed one timed in turns, TIMED_ROUNDS runs of each. `report`:
+    a function of the run's final state whose dict goes into the run's
+    line."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
@@ -886,7 +1015,8 @@ def phase_slice(phase, engine, state, kernel):
          replays=runner.replays, presorted=runner.presorted,
          finite=finite, first_run_s=first_s,
          capture_s=runner.capture_seconds,
-         captured_launches_per_replay=named(runner.captured))
+         captured_launches_per_replay=named(runner.captured),
+         **(report(final) if report else {}))
     if launches != only(N_STEPS) or warm_up != only(REBUILD):
         raise AssertionError(
             f"{phase}: expected {only(N_STEPS)} replayed and "
@@ -896,19 +1026,31 @@ def phase_slice(phase, engine, state, kernel):
         raise AssertionError(f"{phase}: non-finite state after the run")
     audit_overflow(engine, final, f"{phase} t=end")
 
-    PF.reset_launches()
-    traced = traced_pair_kernels(engine, state, PROFILE_STEPS)
-    replayed = {k: n - launches[k]
-                for k, n in named(engine.graph_launches()).items()}
-    by_wrapper = named(PF.launch_counts())
-    emit(f"{phase}_trace", steps=PROFILE_STEPS, device_trace_kernels=traced,
-         counted_replayed=replayed, counted_by_wrappers=by_wrapper)
-    if not (traced == replayed == only(PROFILE_STEPS)
-            and by_wrapper == only(0)):
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        before = named(engine.graph_launches())
+        PF.reset_launches()
+        traced, lost = traced_pair_kernels(engine, state, PROFILE_STEPS)
+        replayed = {k: n - before[k]
+                    for k, n in named(engine.graph_launches()).items()}
+        by_wrapper = named(PF.launch_counts())
+        agree = (traced == replayed == only(PROFILE_STEPS)
+                 and by_wrapper == only(0))
+        emit(f"{phase}_trace", steps=PROFILE_STEPS, attempt=attempt,
+             device_trace_kernels=traced, counted_replayed=replayed,
+             counted_by_wrappers=by_wrapper, lost_records_reported=lost,
+             void=bool(lost) and not agree)
+        if agree:
+            break
+        if not lost:
+            raise AssertionError(
+                f"{phase}: the device trace of {PROFILE_STEPS} graphed "
+                f"steps shows {traced}, the replay counters {replayed}, "
+                f"the wrappers {by_wrapper}, and the profiler reported no "
+                f"lost record")
+    else:
         raise AssertionError(
-            f"{phase}: the device trace of {PROFILE_STEPS} graphed steps "
-            f"shows {traced}, the replay counters {replayed}, the "
-            f"wrappers {by_wrapper}")
+            f"{phase}: all {TRACE_ATTEMPTS} device traces were void (the "
+            f"profiler reported lost records): the replays are unchecked")
 
     runs = {"eager": [], "graphed": []}
     for _ in range(TIMED_ROUNDS):
@@ -1246,7 +1388,7 @@ def float32_pairs(engine):
 
 
 def phase_parity_queues(phase, engine, n, pad, make_crowd=twod_crowd,
-                        pairs32=False, **info):
+                        pairs32=False, queues=True, **info):
     """`engine` on an n-rider crowd (`make_crowd(n, dtype, device, pad)`)
     with destination queues (`with_queues`), PARITY_STEPS steps from one
     initial state, the final states against the plain version on the CPU
@@ -1255,12 +1397,13 @@ def phase_parity_queues(phase, engine, n, pad, make_crowd=twod_crowd,
     reported beside it (see TWOD_FLOAT32). With `pairs32` (see
     IP_STEER) the card's float64 run is held to both tiers against the
     CPU float64 run whose pair stage is float32 (`float32_pairs`), and to
-    the cap against the plain float64 run. `info` goes into every
-    line."""
+    the cap against the plain float64 run. `queues=False` keeps the
+    crowd's own destinations. `info` goes into every line."""
     import torch
 
     def crowd(dtype, device):
-        return with_queues(make_crowd(n, dtype, device, pad))
+        st = make_crowd(n, dtype, device, pad)
+        return with_queues(st) if queues else st
 
     card32, card64 = crowd(torch.float32, "cuda"), crowd(torch.float64,
                                                          "cuda")
@@ -1354,6 +1497,53 @@ def phase_parity_invpendulum():
                              f"{over} values beyond the float32 bound")
 
 
+def phase_parity_balancingrider(state):
+    """The slice_balancingrider configuration on a PARITY_BR_N-rider
+    stable crowd (`stable_crowd`), PARITY_STEPS steps, with the exact
+    placement, with gains_poly and with the Hess model: the card in
+    float64 against the CPU in float64 with float32 pairs under both tiers
+    and against the plain float64 run under the cap (IP_STEER), the
+    card's float32 run reported (`phase_parity_queues`, the crowd's own
+    destinations). Then one gains_poly step of the 100,000 riders of
+    `state` with TF32 allowed for matrix products: bit for bit the step
+    with TF32 off."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.models import balancingrider as BR
+
+    for mode in ("exact", "gains_poly", "hess"):
+        def crowd(n, dtype, device, pad, mode=mode):
+            return stable_crowd(mode, n, dtype, device, pad)
+
+        phase_parity_queues(
+            "parity_balancingrider",
+            make_model_engine(br_model(mode), br_params(mode)),
+            PARITY_BR_N, BLOCK, crowd, pairs32=True, queues=False,
+            model=br_model(mode), mode=mode)
+
+    rng = np.random.default_rng(TWOD_QUEUE_SEED)
+    fx, fy = (torch.as_tensor(rng.normal(3.0, 2.0, state.n),
+                              dtype=state.s.dtype, device=state.device)
+              for _ in range(2))
+    flags = torch.backends.cuda.matmul.allow_tf32
+    out = {}
+    for allow in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        try:
+            out[allow] = BR.step(br_params(), state, fx, fy)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    differ = [f for f in ("s", "dyn_x", "dyn_v", "dyn_gains")
+              if not torch.equal(getattr(out[True], f),
+                                 getattr(out[False], f))]
+    emit("parity_balancingrider", check="gains_poly step with TF32 "
+         "allowed", n=state.n, tf32_on_fields_differing=differ)
+    if differ:
+        raise AssertionError(f"parity_balancingrider: the step with TF32 "
+                             f"allowed differs in {differ}")
+
+
 def poly_float32_excess(poly, v, got):
     """Per output and rider, |got - the fit at v in float64| over the
     float32 rounding bound of the rider's segment (POLY_HORNER): values
@@ -1420,6 +1610,9 @@ def parity_errors(a, b):
 
 
 def main():
+    # Kineto's warnings (lost activity records among them) on stderr,
+    # where `traced_pair_kernels` reads them; set before torch loads it
+    os.environ.setdefault("KINETO_LOG_LEVEL", str(KINETO_WARNING))
     import torch
 
     if not torch.cuda.is_available():
@@ -1453,6 +1646,9 @@ def main():
     ip_engine = make_model_engine("invpendulum", ip_params())
     ip_state = model_crowd("invpendulum", ip_params(), N_AGENTS,
                            torch.float32, "cuda")
+    br_engine = make_model_engine("balancingrider", br_params())
+    br_state = model_crowd("balancingrider", br_params(), N_AGENTS,
+                           torch.float32, "cuda", hist_len=HIST_LEN)
     mixed_state = twod_crowd(N_AGENTS, torch.float32, "cuda", pad=None)
     mixed_engine = audited_engine(
         lambda **kw: make_mixed_engine(N_AGENTS, **kw), "slice_mixed",
@@ -1481,13 +1677,16 @@ def main():
              "slice_legacy": (leg_engine, state),
              "slice_twod": (twod_engine, twod_state),
              "slice_mixed": (mixed_engine, mixed_state),
-             "slice_invpendulum": (ip_engine, ip_state)}
+             "slice_invpendulum": (ip_engine, ip_state),
+             "slice_balancingrider": (br_engine, br_state)}
     k1, k2, k3 = PF.KERNELS
     kernel_of = {"slice": k1, "slice_unrolled": k2, "slice_db": k3,
                  "slice_legacy": k1, "slice_twod": k1, "slice_mixed": k1,
-                 "slice_invpendulum": k1}
+                 "slice_invpendulum": k1, "slice_balancingrider": k1}
+    reports = {"slice_balancingrider": fallen_share}
     launches = {path: timed(path, phase_slice, path, *paths[path],
-                            kernel_of[path]) for path in paths}
+                            kernel_of[path], reports.get(path))
+                for path in paths}
     timed("parity", phase_parity)
     timed("parity_db", phase_parity_db, db_engine, state)
     timed("parity_legacy", phase_parity_legacy, leg_engine)
@@ -1500,6 +1699,7 @@ def main():
                          twod_crowd(n_mixed, torch.float32, "cuda", None)),
           n_mixed, None)
     timed("parity_invpendulum", phase_parity_invpendulum)
+    timed("parity_balancingrider", phase_parity_balancingrider, br_state)
     small_mixed = twod_crowd(GRAPH_PARITY_RECORD_N, torch.float32, "cuda",
                              None)
     model_cases = {name: (make_model_engine(model, params), model_crowd(
@@ -1508,6 +1708,13 @@ def main():
     model_cases["slice_invpendulum"] = (ip_engine, model_crowd(
         "invpendulum", ip_params(), GRAPH_PARITY_RECORD_N, torch.float32,
         "cuda"))
+    model_cases["slice_balancingrider"] = (br_engine, model_crowd(
+        "balancingrider", br_params(), GRAPH_PARITY_RECORD_N, torch.float32,
+        "cuda", hist_len=HIST_LEN))
+    for mode in (*BR_MODES, "hess"):
+        model_cases[f"{br_model(mode)}_{mode}"] = (
+            make_model_engine(br_model(mode), br_params(mode)),
+            stable_crowd(mode, GRAPH_PARITY_RECORD_N, torch.float32, "cuda"))
     timed("graph_parity", phase_graph_parity, paths, {
         **model_cases,
         "slice": (engine, build_population(
@@ -1522,11 +1729,13 @@ def main():
     timed("aliasing", phase_aliasing, engine, state)
     per_step = {path: timed("profile", phase_profile, path, *paths[path])
                 for path in ("slice", "slice_twod", "slice_mixed",
-                             "slice_invpendulum")}
+                             "slice_invpendulum", "slice_balancingrider")}
     emit("profile", twod_device_activities_per_step_over_slice=(
         per_step["slice_twod"] - per_step["slice"]),
         invpendulum_device_activities_per_step_over_twod=(
-        per_step["slice_invpendulum"] - per_step["slice_twod"]))
+        per_step["slice_invpendulum"] - per_step["slice_twod"]),
+        balancingrider_device_activities_per_step_over_slice=(
+        per_step["slice_balancingrider"] - per_step["slice"]))
     emit("phase_seconds", **seconds)
     emit("total", seconds=time.perf_counter() - t_start)
 

@@ -32,12 +32,19 @@ def state_to_numpy(st: AgentState) -> dict:
 
 def _leaf_from_jax(cls, name, value, device):
     """One JAX params field in the port's leaf form (`params.to_leaf`): None
-    stays None, a static field (`ip_zoh_poly`) the same tuple, a
-    population-shared table (`ip_zoh_lut`: table, v_lo, dv) a float64
-    tensor on `device` with its two floats, and a per-rider pole set (the
-    JAX population's tuple of [N] arrays) an [N, k] tensor."""
-    if value is None or name in getattr(cls, "STATIC_FIELDS", ()):
+    stays None, a static tuple or flag (`ip_zoh_poly`, `br_gains_poly`,
+    `stochastic_control_behavior`) the same object, a static array (the
+    balancing rider's `br_A0`) nested tuples of floats, a
+    population-shared table (`ip_zoh_lut`, `br_gains_lut`: table, v_lo,
+    dv) a float64 tensor on `device` with its two floats, and a per-rider
+    pole set (the JAX population's tuple of [N] arrays) an [N, k]
+    tensor."""
+    if value is None:
         return value
+    if name in getattr(cls, "STATIC_FIELDS", ()):
+        if isinstance(value, (tuple, bool, int, float)):
+            return value
+        return to_leaf(name, np.asarray(value))
     if name in getattr(cls, "POPULATION_SHARED", ()):
         tab, v_lo, dv = value
         return (torch.from_numpy(np.array(tab, dtype=np.float64)).to(device),
@@ -52,7 +59,8 @@ def params_from_jax(p, device="cuda"):
     """The port's params of the same class and values as a JAX
     `VehicleParams` / `CarParams` / `BicycleParams` /
     `PlanarPointBicycleParams` / `PlanarBicycleParams` /
-    `InvPendulumBicycleParams` (no re-validation), its ZOH tables
+    `InvPendulumBicycleParams` / `BalancingRiderParams` /
+    `HessBikeRiderParams` (no re-validation), their tables and fits
     included. Per-agent leaves become float64 (poles complex128) tensors
     on `device`."""
     name = type(p).__name__

@@ -5,7 +5,8 @@ Each model module exposes ``N_STATES``, the default force names
 ``step(params, state, fx, fy) -> state``.
 """
 
-from cyclistsocialforce_tpu_torch.models import (bicycle2d, bicycle_twod,
+from cyclistsocialforce_tpu_torch.models import (balancingrider, bicycle2d,
+                                                 bicycle_twod, hessbikerider,
                                                  invpendulum, planarbicycle,
                                                  planarpoint)
 
@@ -14,7 +15,10 @@ MODELS = {
     "twod": bicycle_twod,            # reference TwoDBicycle ("2D model")
     "planarpoint": planarpoint,      # reference PlanarPointBicycle
     "invpendulum": invpendulum,      # reference InvPendulumBicycle
+    "balancingrider": balancingrider,  # reference BalancingRiderBicycle
     "planarbicycle": planarbicycle,  # reference PlanarBicycle
+    "hessbikerider": hessbikerider,  # reference HessBikeRiderDynamics
+    "hess": hessbikerider,           # the JAX package's name for it
 }
 
 
@@ -27,5 +31,6 @@ def prepare(model, params, state):
     return fn(params, state) if fn is not None else state
 
 
-__all__ = ["MODELS", "prepare", "bicycle2d", "bicycle_twod", "invpendulum",
-           "planarbicycle", "planarpoint"]
+__all__ = ["MODELS", "prepare", "balancingrider", "bicycle2d",
+           "bicycle_twod", "hessbikerider", "invpendulum", "planarbicycle",
+           "planarpoint"]

@@ -44,6 +44,31 @@ def poly_from_roots(roots):
     return torch.flip(c, dims=(-1,))
 
 
+def charpoly_from_pole_features(feats):
+    """Monic characteristic polynomial [..., m + 1] (highest power first)
+    of the pole set encoded by ImRe pole features [..., m],
+    ``[p0_real, p1_real, p1_imag, p2_real, p2_imag]``: the poles [p0,
+    p1 +/- j q1, p2 +/- j q2] (the reference's ordering in
+    update_control_params, parameters.py:1397-1411). In real arithmetic,
+    (s - p0) (s^2 - 2 p1 s + p1^2 + q1^2) (s^2 - 2 p2 s + p2^2 + q2^2),
+    each quadratic factor multiplied in by its explicit products; the
+    degree follows from m (5: quintic, 3: cubic, 1: linear)."""
+    one = torch.ones_like(feats[..., 0])
+    poly = [one, -feats[..., 0]]
+    m = feats.shape[-1]
+    i = 1
+    while i + 1 < m:
+        p, q = feats[..., i], feats[..., i + 1]
+        quad = (one, -2.0 * p, p * p + q * q)
+        # the product of poly (degree d) and quad: coefficient k sums
+        # poly[j] * quad[k - j] over the j in range, j ascending
+        poly = [sum(poly[j] * quad[k - j]
+                    for j in range(max(0, k - 2), min(k, len(poly) - 1) + 1))
+                for k in range(len(poly) + 2)]
+        i += 2
+    return torch.stack(poly, dim=-1)
+
+
 def _ctrb_dual(A, B):
     """y = ctrb(A, B)^-T e_n of a single-input system (A [..., n, n], B
     [..., n])."""
@@ -72,6 +97,51 @@ def ackermann(A, B, coeffs):
     for k in range(1, n + 1):
         r = matvec_small(At, r) + coeffs[..., k:k + 1] * y
     return r
+
+
+def ackermann_basis(A, B):
+    """Basis [..., n + 1, n] of the Ackermann gain as a function of the
+    characteristic coefficients: row k is (A^T)^(n-k) y with y =
+    ctrb(A, B)^-T e_n, so `ackermann(A, B, coeffs)` equals `coeffs @ M`
+    for any monic polynomial (K is linear in the coefficients; see the
+    Horner recursion in `ackermann`). Tabulated over speed, it gives
+    per-rider placement at lookup cost with exact pole features (the
+    stochastic gain forms)."""
+    if B.ndim == A.ndim:
+        B = B[..., 0]
+    n = A.shape[-1]
+    y = _ctrb_dual(A, B)
+    At = A.transpose(-1, -2)
+    rows = [y]
+    for _ in range(n):
+        rows.append(matvec_small(At, rows[-1]))
+    return torch.stack(rows[::-1], dim=-2)
+
+
+def place_siso(A, B, poles):
+    """Ackermann pole placement of a single-input system, the closed-form
+    equivalent of `ct.place(A, B, poles)` (placement is unique for one
+    input, so the algorithms agree; the reference calls it per step,
+    dynamics.py:1167-1227). A [..., n, n], B [..., n] or [..., n, 1],
+    poles [..., n] complex (conjugate pairs); returns K [..., n]. Unlike
+    `ackermann`, it forms phi(A) by Horner on the matrix and takes the
+    last row of ctrb^-1 phi(A), as the JAX function does."""
+    if B.ndim == A.ndim:
+        B = B[..., 0]
+    n = A.shape[-1]
+    cols = [B]
+    for _ in range(n - 1):
+        cols.append(matvec_small(A, cols[-1]))
+    ctrb = torch.stack(cols, dim=-1)
+    cdt = torch.complex128 if A.dtype == torch.float64 else torch.complex64
+    poles = torch.as_tensor(poles, dtype=cdt, device=A.device)
+    coeffs = poly_from_roots(poles).real.to(A.dtype)
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    phiA = torch.zeros_like(A)
+    for k in range(n + 1):
+        phiA = matmul_small(phiA, A) + coeffs[..., k, None, None] * eye
+    # K = e_n^T ctrb^-1 phi(A): the last row of the solve
+    return solve_small(ctrb, phiA)[..., -1, :]
 
 
 def dc_gain(Acl, B, C):

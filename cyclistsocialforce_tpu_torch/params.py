@@ -1,21 +1,25 @@
 """Parameter dataclasses of the PyTorch port.
 
 Counterpart of `cyclistsocialforce_tpu.params` for the vehicle, bicycle,
-planar point, planar bicycle and inverted-pendulum bicycle families.
+planar point, planar bicycle, inverted-pendulum bicycle, balancing-rider
+and Hess bike-rider families.
 Validation runs once, on the host, in `create()` with the JAX package's
 rules (reference parameters.py:421-935), including `calib_mode` (clamp
 and warn instead of raise).
 
 Leaf representation: a value shared by the whole population is a Python
 float, a (min, max) limit pair a tuple of two floats, and a pole or gain
-set (`poles`, `gains`) a tuple of Python complex numbers or floats. A
+set (`poles`, `gains`) a tuple of Python complex numbers or floats, a
+matrix or vector of the balancing rider (`NESTED_FIELDS`) nested tuples
+of floats. A
 per-agent value (after `as_population`) is a torch tensor whose leading
 axis is the agent axis: float64, or complex128 for poles. Python numbers
 take the dtype and device of the tensors they meet, so shared parameters
 need no device placement; per-agent tensors are placed by
 `as_population(..., device=...)`. A field may also be None (an optional
-table not built), a static tuple that no step turns into a tensor
-(`STATIC_FIELDS`), or a table shared by the population
+table not built), a static tuple or flag that `as_population` leaves
+as it is (`STATIC_FIELDS`; a model's `step_constants` makes device
+tensors of what its step reads), or a table shared by the population
 (`POPULATION_SHARED`), which `as_population` places on the device but
 does not broadcast.
 """
@@ -39,6 +43,12 @@ _TWO_PI = 2.0 * math.pi
 PAIR_FIELDS = ("v_max_riding", "a_max", "a_desired_default")
 # fields stored as a set of values per rider (a pole set, a gain set)
 SET_FIELDS = ("poles", "gains")
+# fields stored as nested tuples of floats when the population shares them
+# (the balancing rider's matrices and pole functions): name -> the number
+# of dimensions of one value; a value with one more (per rider, as
+# `as_population` makes it) is a tensor
+NESTED_FIELDS = {"br_A0": 2, "br_A1": 2, "br_A2": 2, "br_B": 1,
+                 "br_B_roll": 1, "br_pole_lin": 2, "br_gains_fixed": 1}
 
 
 def _err(calib_mode: bool, verbose: bool, msg: str):
@@ -84,6 +94,34 @@ def _pair(name, val):
     return val
 
 
+def _repair_lut_rows(tab):
+    """Repair the non-finite rows of a speed-grid table [G, ...] in place:
+    each is interpolated linearly from its nearest finite neighbours (or
+    copies the one it has). A plant that loses controllability at a grid
+    speed (v = 0 exactly: the yaw row of A scales with v) gives such a row,
+    as the reference's ct.place fails there; the rows lie below the riding
+    speeds the steps read."""
+    flat = tab.reshape(tab.shape[0], -1)
+    bad = ~np.isfinite(flat).all(axis=1)
+    if bad.any():
+        good = np.where(~bad)[0]
+        for j in np.where(bad)[0]:
+            lo = good[good < j]
+            hi = good[good > j]
+            if len(lo) and len(hi):
+                a, b = lo[-1], hi[0]
+                t = (j - a) / (b - a)
+                tab[j] = (1 - t) * tab[a] + t * tab[b]
+            else:
+                tab[j] = tab[lo[-1] if len(lo) else hi[0]]
+    return tab
+
+
+def _nested(arr):
+    """A numpy array as nested tuples of Python floats."""
+    return (tuple(_nested(a) for a in arr) if arr.ndim else float(arr))
+
+
 def to_leaf(name: str, value):
     """Host value -> the port's leaf form (see the module docstring).
     Complex values (poles) stay complex, with their imaginary parts."""
@@ -104,6 +142,8 @@ def to_leaf(name: str, value):
         return (float(arr[0]), float(arr[1]))
     if name in SET_FIELDS and arr.ndim == 1:
         return tuple(float(c) for c in arr)
+    if NESTED_FIELDS.get(name) == arr.ndim:
+        return _nested(arr)
     return torch.from_numpy(arr.copy())
 
 
@@ -374,19 +414,7 @@ class InvPendulumBicycleParams(BicycleParams):
         v_lo = float(pair_lo(p.v_max_riding))
         v_hi = float(pair_hi(p.v_max_riding))
         vs = np.linspace(v_lo, v_hi, g)
-        tab = InvPendulumBicycleParams._zoh_sweep(p)(vs)
-        bad = ~np.isfinite(tab).all(axis=1)
-        if bad.any():
-            good = np.where(~bad)[0]
-            for j in np.where(bad)[0]:
-                lo = good[good < j]
-                hi = good[good > j]
-                if len(lo) and len(hi):
-                    a, b = lo[-1], hi[0]
-                    t = (j - a) / (b - a)
-                    tab[j] = (1 - t) * tab[a] + t * tab[b]
-                else:
-                    tab[j] = tab[lo[-1] if len(lo) else hi[0]]
+        tab = _repair_lut_rows(InvPendulumBicycleParams._zoh_sweep(p)(vs))
         return (torch.from_numpy(tab), v_lo, (v_hi - v_lo) / (g - 1))
 
     @staticmethod
@@ -473,9 +501,285 @@ class InvPendulumBicycleParams(BicycleParams):
         return (-y - (y**2 - 4 * x * z) ** 0.5) / (2 * x)
 
 
+@dataclass(frozen=True)
+class BalancingRiderParams(BicycleParams):
+    """Whipple-Carvallo balancing-rider bicycle (reference
+    parameters.py:1214-1412), reduced by `create` to what a step reads:
+    the speed structure of the 5-state model with yaw,
+
+        A(v) = br_A0 + v br_A1 + v^2 br_A2,  B = br_B (steer torque),
+        br_B_roll (roll torque),
+
+    from the canonical matrices of `bicycle_parameter_dict`
+    (`ops.whipple`), and the rider's control behavior: pole features
+    linear in speed (`br_pole_lin` [5, 2], intercept and slope: a
+    component's mean functions from the pole model, or fixed poles), or
+    fixed gains (`br_gains_fixed` [5]). The matrices are nested tuples of
+    floats (`STATIC_FIELDS`, shared by every rider); the pole functions
+    and fixed gains are too, or [N, ...] tensors per rider after
+    `as_population`.
+
+    Gain modes of `create` (deterministic control behavior), besides the
+    exact per-rider Ackermann placement at the midpoint speed:
+    `gains_lut=G`: K(v) on a uniform grid of G speeds over v_max_riding,
+    (table [G, 5] float64 tensor, v_lo, dv), interpolated linearly;
+    `gains_poly=S`: K(v) as a piecewise quintic over S segments of
+    [GAINS_POLY_V_LO, v_hi] (`ops.piecewise`), below-band speeds clamped
+    to the band's edge; `prop_lut=G` / `prop_poly=S`: the whole closed-loop
+    midpoint propagator [P | Q | R | K] (40 entries) as a table or a
+    piecewise quintic. The tables are shared by the population
+    (`POPULATION_SHARED`); the fits are static tuples of floats. All are
+    swept in float64 on the CPU through the port's `ops.control`.
+
+    The stochastic control behavior and the torque disturbances are not
+    ported: `stochastic_control_behavior=True` and a nonzero `p_dist_roll`
+    or `p_dist_steer` raise NotImplementedError (ROADMAP Queue 1 item 9),
+    and their other keywords of the JAX `create` (resampling threshold,
+    budget and cadence, disturbance torques) are not taken.
+    """
+
+    m: Any = None
+    br_A0: Any = None
+    br_A1: Any = None
+    br_A2: Any = None
+    br_B: Any = None
+    br_B_roll: Any = None
+    br_pole_lin: Any = None
+    br_gains_fixed: Any = None
+    br_gains_lut: Any = None
+    br_prop_lut: Any = None
+    br_gains_poly: Any = None
+    br_prop_poly: Any = None
+    # the stochastic parts (not ported; `step` refuses them): the flag,
+    # the disturbance probabilities and "one of them is nonzero", kept
+    # fresh by `replace`
+    stochastic_control_behavior: Any = False
+    p_dist_roll: Any = 0.0
+    p_dist_steer: Any = 0.0
+    br_disturb: Any = False
+    POPULATION_SHARED = ("br_gains_lut", "br_prop_lut")
+    STATIC_FIELDS = ("br_A0", "br_A1", "br_A2", "br_B", "br_B_roll",
+                     "br_gains_poly", "br_prop_poly",
+                     "stochastic_control_behavior", "br_disturb")
+    # lower edge of the gains_poly/prop_poly fit band: K(v) has poles at
+    # v = 0 and v ~ 1.25 (controllability losses)
+    GAINS_POLY_V_LO = 2.0
+
+    @classmethod
+    def create(cls, bicycle_parameter_dict=None, poles=None, gains=None,
+               controlparam_filename="BR1_ImRe5GivenV_pole-model-params"
+                                     ".yaml",
+               stochastic_control_behavior=False,
+               controlparam_polemodel_component=0,
+               p_dist_roll=0.0, p_dist_steer=0.0,
+               gains_lut=0, prop_lut=0, prop_poly=0, gains_poly=0,
+               calib_mode=False, verbose=True, **kw):
+        from cyclistsocialforce_tpu_torch import behavior
+        from cyclistsocialforce_tpu_torch.ops import whipple
+
+        p_dist_roll = _chk_range("p_dist_roll", p_dist_roll, 0.0, 1.0)
+        p_dist_steer = _chk_range("p_dist_steer", p_dist_steer, 0.0, 1.0)
+        disturb = bool(np.any(p_dist_roll) or np.any(p_dist_steer))
+        if stochastic_control_behavior or disturb:
+            raise not_ported_stochastic(
+                "stochastic_control_behavior=True" if
+                stochastic_control_behavior else "p_dist_roll/p_dist_steer "
+                "> 0")
+        if prop_lut and prop_poly:
+            raise ValueError(
+                "prop_lut and prop_poly are alternative propagator modes: "
+                "pass one")
+
+        p = dict(bicycle_parameter_dict or whipple.BALANCEASSIST_WITH_RIDER)
+        # wheelbase forced to the physical parameter set (reference
+        # parameters.py:1290-1295)
+        kw["l"] = p["w"]
+        kw["l_1"] = p["w"] / 2.0
+        kw.pop("l_2", None)
+        kw["g"] = p["g"]
+        kw["m"] = p["mB"] + p["mF"] + p["mH"] + p["mR"]
+
+        # A(v) from the canonical matrices (Meijaard 2007):
+        # A[2:4, 0:2] = -Minv (g K0 + v^2 K2), A[2:4, 2:4] = -Minv C1 v,
+        # yaw row A[4, 1] = cos(lam)/w v, A[4, 3] = cos(lam) c/w
+        # (reference dynamics.py:511-538)
+        M, C1, K0, K2 = whipple.canonical_matrices(p)
+        Minv = np.linalg.inv(M)
+        cl, w, c = np.cos(p["lam"]), p["w"], p["c"]
+        A0 = np.zeros((5, 5))
+        A0[0:2, 2:4] = np.eye(2)
+        A0[2:4, 0:2] = -Minv @ (p["g"] * K0)
+        A0[4, 3] = cl * c / w
+        A1 = np.zeros((5, 5))
+        A1[2:4, 2:4] = -Minv @ C1
+        A1[4, 1] = cl / w
+        A2 = np.zeros((5, 5))
+        A2[2:4, 0:2] = -Minv @ K2
+        B = np.zeros(5)
+        B[2:4] = Minv[:, 1]
+        B_roll = np.zeros(5)
+        B_roll[2:4] = Minv[:, 0]
+
+        # rider control behavior
+        pole_lin = gains_fixed = None
+        if gains is not None:
+            gains_fixed = np.asarray(gains, dtype=float).reshape(-1)
+        elif poles is not None:
+            # fixed poles in the reference ordering
+            # [real, a+jb, a-jb, c+jd, c-jd] -> feature vector
+            po = np.asarray(poles, dtype=complex).reshape(-1)
+            feats = np.array([po[0].real, po[1].real, abs(po[1].imag),
+                              po[3].real, abs(po[3].imag)])
+            pole_lin = np.c_[feats, np.zeros(5)]
+        else:
+            pm = behavior.load_packaged_polemodel(controlparam_filename)
+            pole_lin = pm.component_mean_function_params()[
+                controlparam_polemodel_component]
+
+        vmr = kw.get("v_max_riding", cls.v_max_riding)
+        v_lo_r, v_hi = float(pair_lo(vmr)), float(pair_hi(vmr))
+        h_ts = float(np.asarray(kw.get("t_s", cls.t_s)))
+        gains_at = cls._gains_sweep(A0, A1, A2, B, pole_lin, gains_fixed)
+
+        def prop_rows(vs, repair):
+            """[P | Q | R | K] [len(vs), 40] at speeds vs: with Acl = A(v)
+            - B K(v) and M = I - h/2 Acl, P = M^-1 (I + h/2 Acl) [25],
+            Q = M^-1 h B [5], R = M^-1 h B_roll [5], K(v) [5] (`repair`:
+            K's non-finite rows first, as for a gains table)."""
+            gp = len(vs)
+            Kg = gains_at(vs)
+            if repair:
+                Kg = _repair_lut_rows(Kg)
+            Av = (A0[None] + vs[:, None, None] * A1[None]
+                  + (vs ** 2)[:, None, None] * A2[None])
+            Acl = Av - B[None, :, None] * Kg[:, None, :]
+            eye = np.eye(5)[None]
+            Mi = np.linalg.inv(eye - (h_ts / 2.0) * Acl)
+            Pm = Mi @ (eye + (h_ts / 2.0) * Acl)
+            return np.concatenate([Pm.reshape(gp, 25), Mi @ (h_ts * B),
+                                   Mi @ (h_ts * B_roll), Kg], axis=1)
+
+        def grid(g):
+            vs = np.linspace(v_lo_r, v_hi, int(g))
+            return vs, float((v_hi - v_lo_r) / (int(g) - 1))
+
+        def band(name):
+            v_lo = float(cls.GAINS_POLY_V_LO)
+            if v_hi <= v_lo:
+                raise ValueError(
+                    f"{name} needs v_max_riding > {v_lo} m/s (the K(v) "
+                    f"pole at v ~ 1.25 bounds the fit band)")
+            return v_lo
+
+        lut = plut = poly = prop_pl = None
+        if gains_lut and gains_fixed is None:
+            vs, dv = grid(gains_lut)
+            lut = (torch.from_numpy(_repair_lut_rows(gains_at(vs))),
+                   v_lo_r, dv)
+        if prop_lut:
+            vs, dv = grid(prop_lut)
+            plut = (torch.from_numpy(_repair_lut_rows(prop_rows(vs, True))),
+                    v_lo_r, dv)
+        if prop_poly:
+            from cyclistsocialforce_tpu_torch.ops.piecewise import \
+                fit_piecewise_poly
+
+            prop_pl = fit_piecewise_poly(
+                lambda vs: prop_rows(np.asarray(vs), False), band("prop_poly"),
+                v_hi, int(prop_poly))
+        if gains_poly and gains_fixed is None:
+            from cyclistsocialforce_tpu_torch.ops.piecewise import \
+                fit_piecewise_poly
+
+            poly = fit_piecewise_poly(gains_at, band("gains_poly"), v_hi,
+                                      int(gains_poly))
+
+        out = super().create(
+            calib_mode=calib_mode, verbose=verbose,
+            br_A0=A0, br_A1=A1, br_A2=A2, br_B=B, br_B_roll=B_roll,
+            br_pole_lin=pole_lin, br_gains_fixed=gains_fixed,
+            p_dist_roll=p_dist_roll, p_dist_steer=p_dist_steer, **kw)
+        return dataclasses.replace(
+            out, br_gains_lut=lut, br_prop_lut=plut, br_gains_poly=poly,
+            br_prop_poly=prop_pl, stochastic_control_behavior=False,
+            br_disturb=False)
+
+    @staticmethod
+    def _gains_sweep(A0, A1, A2, B, pole_lin, gains_fixed):
+        """``vs [K] -> K(v) [K, 5]`` (numpy): the fixed gains, or the
+        Ackermann placement of the pole features pole_lin[:, 0] +
+        pole_lin[:, 1] v on A(v), in float64 on the CPU through the port's
+        `ops.control`."""
+        from cyclistsocialforce_tpu_torch.ops.control import (
+            ackermann, charpoly_from_pole_features)
+
+        if gains_fixed is not None:
+            return lambda vs: np.broadcast_to(
+                gains_fixed, (len(vs), 5)).copy()
+        t = {k: torch.from_numpy(np.asarray(a, dtype=np.float64))
+             for k, a in dict(A0=A0, A1=A1, A2=A2, B=B, lin=pole_lin).items()}
+
+        def sweep(vs):
+            v = torch.from_numpy(np.asarray(vs, dtype=np.float64))
+            vv = v[:, None, None]
+            A = t["A0"] + vv * t["A1"] + (vv * vv) * t["A2"]
+            feats = t["lin"][:, 0] + t["lin"][:, 1] * v[:, None]
+            return ackermann(A, t["B"].expand(len(v), 5),
+                             charpoly_from_pole_features(feats)).numpy()
+
+        return sweep
+
+    def replace(self, **kw):
+        """`dataclasses.replace`, with `br_disturb` kept fresh when a
+        disturbance probability changes."""
+        out = dataclasses.replace(self, **kw)
+        if (("p_dist_roll" in kw or "p_dist_steer" in kw)
+                and "br_disturb" not in kw):
+            out = dataclasses.replace(out, br_disturb=bool(
+                np.any(_host(out.p_dist_roll))
+                or np.any(_host(out.p_dist_steer))))
+        return out
+
+
+def _host(value):
+    return np.asarray(value.cpu() if isinstance(value, torch.Tensor)
+                      else value)
+
+
+def not_ported_stochastic(what: str):
+    """The refusal of the balancing rider's stochastic parts."""
+    return NotImplementedError(
+        f"{what}: the balancing rider's stochastic control behavior and "
+        f"torque disturbances are not ported yet (ROADMAP Queue 1 item 9: "
+        f"they need a per-agent counter-based random stream)")
+
+
+@dataclass(frozen=True)
+class HessBikeRiderParams(BalancingRiderParams):
+    """BalancingRider physics under the fixed Hess/Moore neuromuscular
+    steer-torque control gains (reference dynamics.py:727-739): no pole
+    model."""
+
+    k_delta: Any = 43.0
+    k_phi: Any = 8.5
+    k_dphi: Any = -0.08
+    k_psi: Any = 0.173
+    omega: Any = 28.0
+    zeta: Any = float(np.sqrt(2) / 2)
+
+    @classmethod
+    def create(cls, k_delta=43.0, k_phi=8.5, k_dphi=-0.08, k_psi=0.173,
+               omega=28.0, zeta=float(np.sqrt(2) / 2), **kw):
+        # the gains are fixed: skip the pole model entirely
+        kw.setdefault("gains", np.zeros(5))
+        return super().create(k_delta=k_delta, k_phi=k_phi, k_dphi=k_dphi,
+                              k_psi=k_psi, omega=omega, zeta=zeta, **kw)
+
+
 PARAM_CLASSES = {cls.__name__: cls for cls in (
     VehicleParams, CarParams, BicycleParams, PlanarPointBicycleParams,
-    PlanarBicycleParams, InvPendulumBicycleParams)}
+    PlanarBicycleParams, InvPendulumBicycleParams, BalancingRiderParams,
+    HessBikeRiderParams)}
 
 
 def pair_lo(pair):

@@ -6,8 +6,10 @@ dispatches, on the CPU.
 
 Counts: one eager step of the sorted-resident chunk (`Engine.run_chunk`,
 one step, after a warm-up step) of `slice`, `slice_twod`,
-`slice_invpendulum` (poly and exact propagator), planarpoint and
-planarbicycle, each on an n-rider crowd, under a `TorchDispatchMode`
+`slice_invpendulum` (poly and exact propagator), planarpoint,
+planarbicycle, `slice_balancingrider` (gains_poly) and the balancing
+rider's other gain modes and the Hess model on the stable crowd, each on
+an n-rider crowd, under a `TorchDispatchMode`
 that counts every aten operation (views included: on the card a view
 launches no kernel, so the count bounds the device kernels from above).
 A count of operations, not a device figure. Prints one JSON line per
@@ -68,6 +70,16 @@ def main():
     for name, (model, params) in models.items():
         paths[name] = (C.make_model_engine(model, params),
                        C.model_crowd(model, params, args.n, f32, "cpu"))
+    params = C.br_params(device="cpu")
+    paths["slice_balancingrider"] = (
+        C.make_model_engine("balancingrider", params),
+        C.model_crowd("balancingrider", params, args.n, f32, "cpu",
+                      hist_len=C.HIST_LEN))
+    for mode in ("exact", "gains_lut", "prop_poly", "hess"):
+        paths[f"{C.br_model(mode)}_{mode}"] = (
+            C.make_model_engine(C.br_model(mode),
+                                C.br_params(mode, "cpu")),
+            C.stable_crowd(mode, args.n, f32, "cpu"))
     for name, (engine, state) in paths.items():
         print(json.dumps({"path": name, "n": args.n,
                           "aten_ops_per_step": ops_per_step(engine, state)}),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""ms per step of `chip_smoke.py`'s four 100k-rider paths in this checkout
+"""ms per step of `chip_smoke.py`'s 100k-rider paths in this checkout
 against another checkout of the repo (e.g. the commit before a change),
 in turns, on one CUDA GPU.
 
@@ -10,11 +10,15 @@ a call by more than most changes move it: two checkouts compare only
 when they alternate. Each round runs both checkouts, each in a process
 of its own started in its directory (so each imports its own
 `chip_smoke` and package and builds its own kernels), the order swapped
-from round to round. A process drives the four paths through its
-`chip_smoke.phase_slice` (launch counts and overflow audits included;
-best of 3 x 240 steps each). Prints one JSON line per process and path,
-then per path both medians, the spread of each checkout's own rounds and
-the rounds this checkout won, and the nvidia-smi line last.
+from round to round. A process drives the seven paths `slice`,
+`slice_unrolled`, `slice_db`, `slice_legacy`, `slice_twod`,
+`slice_mixed` and `slice_invpendulum` through its
+`chip_smoke.phase_slice` (launch counts, device traces and overflow
+audits included; the best of its timed runs), and `slice_balancingrider`
+where its `chip_smoke` has that path. Prints one JSON line per process
+and path, then per path both medians (one where only this checkout has
+the path), the spread of each checkout's own rounds and the rounds this
+checkout won, and the nvidia-smi line last.
 
 A path's figure is that of `simulate` as a user calls it: since the
 20-step chunk became a CUDA graph, the graphed loop. Where a checkout's
@@ -50,6 +54,24 @@ CS.phase_slice("slice_unrolled", CS.make_engine(backend="pallas_unrolled"),
                state, k2)
 CS.phase_slice("slice_db", db, state, k3)
 CS.phase_slice("slice_legacy", leg, state, k1)
+twod = CS.twod_crowd(CS.N_AGENTS, torch.float32, "cuda")
+CS.phase_slice("slice_twod", CS.make_twod_engine(), twod, k1)
+del twod
+mixed = CS.twod_crowd(CS.N_AGENTS, torch.float32, "cuda", pad=None)
+CS.phase_slice("slice_mixed", CS.audited_engine(
+    lambda **kw: CS.make_mixed_engine(CS.N_AGENTS, **kw), "slice_mixed",
+    mixed), mixed, k1)
+del mixed
+ip = CS.model_crowd("invpendulum", CS.ip_params(), CS.N_AGENTS,
+                    torch.float32, "cuda")
+CS.phase_slice("slice_invpendulum",
+               CS.make_model_engine("invpendulum", CS.ip_params()), ip, k1)
+del ip
+if hasattr(CS, "br_params"):
+    br = CS.model_crowd("balancingrider", CS.br_params(), CS.N_AGENTS,
+                        torch.float32, "cuda", hist_len=CS.HIST_LEN)
+    CS.phase_slice("slice_balancingrider", CS.make_model_engine(
+        "balancingrider", CS.br_params()), br, k1)
 """
 
 
@@ -91,7 +113,14 @@ def main():
                                   "ms_per_step": t}), flush=True)
     for path in ms["this"]:
         a = ms["this"][path]
-        b = ms["other"].get(path) or ms["other"][path.removesuffix(" eager")]
+        b = ms["other"].get(path) or ms["other"].get(
+            path.removesuffix(" eager"))
+        if b is None:
+            print(json.dumps({"path": path, "median_this":
+                              statistics.median(a),
+                              "range_this": [min(a), max(a)],
+                              "rounds": args.rounds}), flush=True)
+            continue
         print(json.dumps({
             "path": path, "median_this": statistics.median(a),
             "median_other": statistics.median(b),

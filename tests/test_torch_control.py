@@ -6,7 +6,8 @@ JAX package's `expm_small` and `jax.scipy.linalg.expm` on the
 inverted-pendulum ZOH matrices and on random matrices across the squaring
 range, and in float32 against float64; `ops.control` (`poly_from_roots`,
 `ackermann`, `discretize_foh`, `discretize_zoh`, `matrix_power`,
-`dc_gain`) against the JAX functions and the analytic cases of
+`dc_gain`, `charpoly_from_pole_features`, `ackermann_basis`,
+`place_siso`) against the JAX functions and the analytic cases of
 tests/test_control_oracles.py; `ops.piecewise` (the fit, the
 `"matmul"` evaluation form, the band's top edge) against the JAX
 functions. Inputs come from a
@@ -251,6 +252,70 @@ def test_control_analytic_cases():
     u = u0 + (u1 - u0) * s / dt
     integ = np.trapezoid(np.exp(-a * (dt - s)) * u, s)
     np.testing.assert_allclose(x1, np.exp(-a * dt) * x0 + integ, atol=1e-9)
+
+
+def test_charpoly_from_pole_features_matches_jax(jx):
+    """The characteristic polynomial of ImRe pole features, batched, for
+    5, 3 and 1 features: against the JAX function's `jnp.convolve` form,
+    and its roots are the encoded poles."""
+    rng = np.random.default_rng(21)
+    feats = rng.uniform(-6.0, 6.0, size=(9, 5))
+    for m in (5, 3, 1):
+        got = TC.charpoly_from_pole_features(t64(feats[:, :m]))
+        assert tuple(got.shape) == (9, m + 1)
+        for g, f in zip(got, feats[:, :m]):
+            assert_rel(g, jx.JC.charpoly_from_pole_features(
+                jx.jnp.asarray(f)))
+    f = feats[0]
+    poles = [f[0], f[1] + 1j * f[2], f[1] - 1j * f[2], f[3] + 1j * f[4],
+             f[3] - 1j * f[4]]
+    roots = np.roots(TC.charpoly_from_pole_features(t64(f)).numpy())
+    np.testing.assert_allclose(np.sort_complex(roots),
+                               np.sort_complex(np.array(poles)), atol=1e-9)
+
+
+@pytest.mark.parametrize("n", [3, 5])
+def test_ackermann_basis_matches_jax_and_identity(jx, n):
+    """`ackermann_basis` against the JAX function, and
+    tests/test_gains_lut.py's identity: `ackermann(A, B, c)` equals
+    `c @ ackermann_basis(A, B)` for any monic polynomial (relative
+    1e-10)."""
+    A, B, _, _ = controllable_systems(n, 4, 30 + n)
+    M = TC.ackermann_basis(t64(A), t64(B))
+    assert tuple(M.shape) == (4, n + 1, n)
+    for g, a, b in zip(M, A, B):
+        assert_rel(g, jx.JC.ackermann_basis(jx.jnp.asarray(a),
+                                            jx.jnp.asarray(b)))
+    rng = np.random.default_rng(n)
+    for _ in range(4):
+        c = TC.charpoly_from_pole_features(
+            t64(rng.uniform(0.5, 6.0, size=(4, 5))))[:, :n + 1]
+        K = TC.ackermann(t64(A), t64(B), c)
+        via = torch.sum(c[:, :, None] * M, dim=1)
+        rel = (via - K).abs().amax() / K.abs().amax()
+        assert float(rel) < 1e-10, float(rel)
+
+
+def test_place_siso_matches_jax_and_the_oracles(jx):
+    """`place_siso` against the JAX function on random controllable
+    systems, the placed loop has the poles, and the closed forms of
+    tests/test_control_oracles.py: the double integrator at -1 +- 1j
+    gives K = [2, 2], the chain of three integrators at -1, -2, -3 gives
+    [6, 11, 6]."""
+    A, B, poles, _ = controllable_systems(4, 3, 8)
+    got = TC.place_siso(t64(A), t64(B), poles)
+    for g, a, b, p in zip(got, A, B, poles):
+        assert_rel(g, jx.JC.place_siso(jx.jnp.asarray(a), jx.jnp.asarray(b),
+                                       p))
+        ev = np.linalg.eigvals(a - np.outer(b, g.numpy()))
+        np.testing.assert_allclose(np.sort(ev.real), np.sort(p), atol=1e-8)
+    K = TC.place_siso(t64([[0.0, 1.0], [0.0, 0.0]]), t64([0.0, 1.0]),
+                      np.array([-1 + 1j, -1 - 1j]))
+    np.testing.assert_allclose(K.numpy(), [2.0, 2.0], atol=TOL)
+    K = TC.place_siso(t64([[0.0, 1.0, 0.0], [0.0, 0.0, 1.0],
+                           [0.0, 0.0, 0.0]]), t64([[0.0], [0.0], [1.0]]),
+                      np.array([-1.0, -2.0, -3.0]))
+    np.testing.assert_allclose(K.numpy(), [6.0, 11.0, 6.0], atol=1e-10)
 
 
 # ---- ops.piecewise -----------------------------------------------------------
