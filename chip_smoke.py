@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives eight paths: the main path through K1 (`csrc/pair_forces.cu`,
+It drives ten paths: the main path through K1 (`csrc/pair_forces.cu`,
 twod field, unscreened), the same path through K2
 (`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled"), a crowd with
 per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
@@ -11,9 +11,11 @@ per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
 mixed-family form (tile screen, the NeighborConfig default), the twod
 model (spline destination force) through K1's main form, a MixedEngine
 of bicycle2d and twod riders through K1's two-family form, and the
-inverted-pendulum model (the ZOH propagator as a piecewise quintic)
-and the balancing rider (the Whipple model, its gains as a piecewise
-quintic) through K1's main form.
+inverted-pendulum model (the ZOH propagator as a piecewise quintic),
+the balancing rider (the Whipple model, its gains as a piecewise
+quintic), and the stochastic balancing rider in bench.py's two rows
+(pole features resampled from the pole model, budget and cadence, and
+without them) through K1's main form.
 Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
@@ -84,6 +86,14 @@ non-zero):
                position ring of 8, the main path's NeighborConfig): 240 K1
                launches, sorted-resident, the share of fallen riders
                (|roll| > FALLEN_ROLL) reported;
+  9f. slice_stochastic, slice_stochastic_exact  240 steps of the 100,000
+               riders as stochastic balancing riders
+               (`bench.py:main_row("stochastic")` and
+               `("stochastic_exact")`, `scenarios.stochastic_row`: gains_poly
+               Ackermann basis, a resampling budget of 4,096 every 4 steps,
+               and every needy rider at once), each as slice_balancingrider,
+               with the resamples per step and the riders still needy after
+               each over RESAMPLE_STATS_STEPS eager steps reported;
  10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
@@ -121,7 +131,14 @@ non-zero):
                plain float64 under the cap, the float32 run reported);
                then a gains_poly step of the 100,000 riders with TF32
                allowed, bit-equal to TF32 off;
- 13. graph_parity  on each of the eight paths 45 steps (two chunks and a
+ 12e. parity_stochastic  the stochastic balancing rider with budget,
+               cadence and torque disturbances (STOCH_PARITY) on
+               PARITY_STOCH_N stable riders, as parity_balancingrider (the
+               port draws JAX's streams, so the card's and the CPU's runs
+               resample the same riders); then the pole-feature and
+               disturbance draws of 100,000 riders and of their rows
+               shuffled, per uid bit for bit;
+ 13. graph_parity  on each of the ten paths 45 steps (two chunks and a
                5-step tail) with `graph=False` and with the graph from the
                same 100,000-rider state: every field of the final state
                bit-equal, again with `record_metrics=True`, and with
@@ -131,22 +148,31 @@ non-zero):
                propagator, planarpoint and planarbicycle
                (`graph_parity_models`), and on 4,096-rider stable crowds
                of the balancing rider in each gain mode of BR_MODES and
-               of the Hess model; one eager chunk of each of those fifteen
-               with every host synchronisation an error (at full width
-               where it is a path);
+               of the Hess model, of the stochastic cases of
+               STOCH_MODES, and of the main path with a road
+               (`road_elements`); one eager chunk of each of those
+               twenty-one with every host synchronisation an error (at
+               full width where it is a path);
  14. metrics   `simulate(state, 240, record=False, record_metrics=True)` on
                the main path: [240, 8], finite, 100,000 active and no
                overflow in every row, speeds within the model's limits;
  15. aliasing  two `simulate` calls on one engine from two states: the
                first call's state and records are unchanged by the second;
  16. profile   one torch.profiler window of 40 graphed steps of the main
-               path, `slice_twod`, `slice_mixed`, `slice_invpendulum` and
-               `slice_balancingrider`:
+               path, `slice_twod`, `slice_mixed`, `slice_invpendulum`,
+               `slice_balancingrider` and the two stochastic paths:
                device kernels and host launches per step, device-busy ms
                per step, the card's idle share, the kernels that take most
                of the time, and the device kernels per step that the twod
                step adds to the main path's, the invpendulum step to
-               twod's and the balancing-rider step to the main path's.
+               twod's, the balancing-rider step to the main path's and the
+               stochastic steps to the balancing rider's.
+
+They run in this order: 1-9f (the timed phases), 16, then 13-15 and
+10-12e. The CPU reference runs of 10-12e start after 16 in CPU_WORKERS
+worker processes of one thread each (`CpuReferences`, the longest first)
+and are collected by their phases at the end: no timed phase shares the
+host with them.
 
 Then the wall seconds of each phase and of the script, a JSON line with
 the kernels' launch counts (each from its own path, with every count set
@@ -279,6 +305,46 @@ BR_MODES = {"exact": {}, "gains_poly": {"gains_poly": BR_GAINS_POLY},
             "prop_lut": {"prop_lut": 4096},
             "prop_poly": {"prop_poly": BR_GAINS_POLY},
             "fixed": {"gains": (-13.14, 1.10, -6.69, -0.11, -11.38)}}
+# the stochastic balancing rider (`bench.py:main_row`'s "stochastic" and
+# "stochastic_exact" rows, `scenarios.STOCHASTIC_ROWS`): its paths are the
+# bench crowd after `prepare`, as slice_balancingrider's. STOCH_MODES:
+# graph_parity's cases on GRAPH_PARITY_RECORD_N stable riders (the exact
+# row; a budget that binds and a cadence under a tighter hysteresis, so
+# that riders resample every few steps; the Ackermann basis as a table;
+# torque disturbances on gains_poly, whose torques STOCH_DIST keeps the
+# riders upright). parity_stochastic: PARITY_STOCH_N stable riders with
+# budget, cadence and the disturbances (STOCH_PARITY), the card in float64
+# against the CPU float64 run with float32 pairs under both tiers and
+# against plain float64 under the cap (IP_STEER), as the other Whipple
+# paths: the card draws JAX's streams, so the runs follow one another
+STOCH_DIST = dict(p_dist_roll=0.02, p_dist_steer=0.02, T_dist_roll=20.0,
+                  T_dist_steer=20.0)
+STOCH_MODES = {
+    "stochastic_exact": dict(stochastic_control_behavior=True,
+                             gains_poly=BR_GAINS_POLY),
+    "stochastic_budget_cadence": dict(
+        stochastic_control_behavior=True, gains_poly=BR_GAINS_POLY,
+        resample_budget=64, resample_every=4,
+        controlparam_resampling_speedthresh=0.3),
+    "stochastic_gains_lut": dict(stochastic_control_behavior=True,
+                                 gains_lut=4096),
+    "disturb": dict(gains_poly=BR_GAINS_POLY, **STOCH_DIST),
+}
+STOCH_PARITY = dict(stochastic_control_behavior=True,
+                    gains_poly=BR_GAINS_POLY, resample_budget=64,
+                    resample_every=4,
+                    controlparam_resampling_speedthresh=0.3, **STOCH_DIST)
+PARITY_STOCH_N = 2048
+# steps of the eager step-by-step run that counts resamples per step
+RESAMPLE_STATS_STEPS = 40
+# the road case of graph_parity: a straight road through the middle of
+# the crowd along x, ROAD_WIDTH m wide, its edges' vertices every ROAD_DS
+# m, with the curve scenario's repulsion (tests/test_parity_curve.py)
+ROAD_WIDTH, ROAD_DS, ROAD_F0, ROAD_SIGMA = 10.0, 0.5, 0.15, 2.0
+# the CPU reference runs of the parity phases go to CPU_WORKERS worker
+# processes of one torch thread each, started after the timed phases
+# (slice*, profile) and collected by the parity phases at the end
+CPU_WORKERS = 6
 # POLY_HORNER: the poly's float32 evaluation on the card against a
 # float64 evaluation of the same fit (numpy, `poly_float32_excess`), per
 # rider and output within the float32 rounding bound of the rider's own
@@ -336,14 +402,14 @@ def neighbor_config(**kw):
     return NeighborConfig(**{**cfg, **kw})
 
 
-def make_engine(params=None, **kw):
+def make_engine(params=None, road=None, **kw):
     from cyclistsocialforce_tpu_torch import Engine
     from cyclistsocialforce_tpu_torch.models import MODELS
     from cyclistsocialforce_tpu_torch.params import BicycleParams
 
     return Engine.create(params or BicycleParams.create(),
                          MODELS["bicycle2d"], rep_force="twod",
-                         neighbors=neighbor_config(**kw))
+                         neighbors=neighbor_config(**kw), road=road)
 
 
 def make_legacy_engine(params=None, **kw):
@@ -422,7 +488,9 @@ def br_params(mode="gains_poly", device="cuda"):
 
     if mode == "hess":
         return HessBikeRiderParams.create()
-    p = BalancingRiderParams.create(**BR_MODES[mode])
+    p = BalancingRiderParams.create(**{**BR_MODES, **STOCH_MODES,
+                                       "parity_stochastic": STOCH_PARITY}[
+                                           mode])
     return p.replace(**{f: (getattr(p, f)[0].to(device),)
                         + getattr(p, f)[1:] for f in p.POPULATION_SHARED
                         if getattr(p, f) is not None})
@@ -443,6 +511,66 @@ def stable_crowd(mode, n, dtype, device, pad=BLOCK):
     st = build_flagship_crowd(n, DENSITY, HIST_LEN, pad, dtype, device,
                               model=model)
     return prepare(MODELS[model], br_params(mode, device), st)
+
+
+def stochastic_path(row):
+    """`bench.py:main_row(row)`'s engine and 100,000-rider state on the
+    card (`scenarios.stochastic_row`), the parameters' table-free fits
+    kept as they are."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.scenarios import stochastic_row
+
+    return stochastic_row(row, N_AGENTS, DENSITY, torch.float32, "cuda")
+
+
+def resample_stats(engine, state):
+    """Resampling of the stochastic balancing rider per step, over
+    RESAMPLE_STATS_STEPS eager steps from `state` (one table per step):
+    the riders whose speed of last resampling changed (resampled), and
+    those still needy after the step (|v - v_last| above the threshold:
+    deferred by the budget or the cadence, or needy since the step)."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.models import balancingrider as BR
+    from cyclistsocialforce_tpu_torch.state import V
+
+    thresh = engine.params.controlparam_resampling_speedthresh
+    done, needy = [], []
+    st = state
+    for _ in range(RESAMPLE_STATS_STEPS):
+        new = engine.step(st)
+        vl = new.dyn_gains[:, BR._VLAST]
+        done.append(int((vl != st.dyn_gains[:, BR._VLAST]).sum()))
+        needy.append(int((((new.s[:, V] - vl).abs() > thresh)
+                          & new.active).sum()))
+        st = new
+    torch.cuda.synchronize()
+    return {"resample_steps": RESAMPLE_STATS_STEPS,
+            "resampled_per_step_mean": statistics.mean(done),
+            "resampled_per_step_max": max(done),
+            "resampled_per_step": done,
+            "budget": engine.params.br_resample_budget,
+            "every": engine.params.br_resample_every,
+            "needy_after_step_mean": statistics.mean(needy),
+            "needy_after_step_max": max(needy)}
+
+
+def road_elements(n, dtype, device):
+    """The road of graph_parity's road case for a bench crowd of n riders
+    (`build_population`: a square of half-side 0.5 sqrt(n / DENSITY)): a
+    straight segment along x through the middle, end to end."""
+    import math
+
+    from cyclistsocialforce_tpu_torch.params import RoadElementParams
+    from cyclistsocialforce_tpu_torch.road import (build_road_elements,
+                                                   straight_segment)
+
+    side = 0.5 * math.sqrt(n / DENSITY)
+    seg = straight_segment((-side, 0.0, 0.0), ROAD_WIDTH, 2 * side,
+                           ROAD_DS, RoadElementParams.create(
+                               F_0=ROAD_F0, sigma=ROAD_SIGMA))
+    return build_road_elements([seg], dtype, device)
 
 
 def fallen_share(state):
@@ -1274,24 +1402,144 @@ def phase_profile(path, engine, state):
     return len(device) / PROFILE_STEPS
 
 
-def compare_runs(phase, engine_a, state_a, engine_b, state_b, **info):
-    """PARITY_STEPS steps of two engine/state pairs, final states held to
-    the two-tier tolerance (`parity_errors`); emits one line."""
+def cpu_case(kind, **kw):
+    """(engine, state) on the CPU of one reference run of a parity phase
+    (`kind` the phase; `kw` the audited kb, the dtype, the mode, and
+    `pairs32` for the twin whose pair stage takes float32 packs)."""
     import torch
 
-    fin_a, _ = engine_a.simulate(state_a, PARITY_STEPS, record=False)
-    torch.cuda.synchronize()
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
+    f64 = torch.float64
+    if kind == "parity":
+        return make_engine(), build_population(PARITY_N, DENSITY, HIST_LEN,
+                                               BLOCK, f64, "cpu")
+    if kind == "parity_db":
+        st = build_population(PARITY_DB_N, DENSITY, HIST_LEN, BLOCK, f64,
+                              "cpu")
+        return make_engine(jittered_params(st.n, "cpu", f64),
+                           backend="pallas_db", block_src=DB_BLOCK,
+                           kb=kw["kb"], screen=True), st
+    if kind == "parity_legacy":
+        return make_legacy_engine(kb=kw["kb"]), build_population(
+            PARITY_LEG_N, DENSITY, HIST_LEN, BLOCK,
+            getattr(torch, kw["dtype"]), "cpu")
+    if kind == "parity_twod":
+        return make_twod_engine(), with_queues(twod_crowd(
+            PARITY_TWOD_N, f64, "cpu", BLOCK))
+    if kind == "parity_mixed":
+        n = 2 * PARITY_MIXED_HALF
+        return make_mixed_engine(n, kb=kw["kb"]), with_queues(twod_crowd(
+            n, f64, "cpu", None))
+    if kind == "parity_invpendulum":
+        params = ip_params(kw["exact"])
+        engine = make_model_engine("invpendulum", params)
+        st = with_queues(model_crowd("invpendulum", params, PARITY_IP_N, f64,
+                                     "cpu", BLOCK))
+    else:
+        mode = kw["mode"]
+        engine = make_model_engine(br_model(mode), br_params(mode, "cpu"))
+        n = PARITY_STOCH_N if mode == "parity_stochastic" else PARITY_BR_N
+        st = stable_crowd(mode, n, f64, "cpu")
+    return (float32_pairs(engine) if kw.get("pairs32") else engine), st
+
+
+def _cpu_worker_init():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def cpu_reference(kind, kw):
+    """In a worker process: PARITY_STEPS steps of `cpu_case(kind, **kw)`;
+    the final state's fields that `parity_errors` reads, as numpy, and
+    the run's wall seconds."""
+    engine, st = cpu_case(kind, **kw)
     t0 = time.perf_counter()
-    fin_b, _ = engine_b.simulate(state_b, PARITY_STEPS, record=False)
-    torch.cuda.synchronize()
+    fin, _ = engine.simulate(st, PARITY_STEPS, record=False)
+    return {"s": fin.s.numpy(), "znav": fin.znav.numpy(),
+            "destpointer": fin.destpointer.numpy(),
+            "seconds": time.perf_counter() - t0}
+
+
+class CpuReferences:
+    """The parity phases' CPU reference runs in CPU_WORKERS processes
+    (spawned, one torch thread each): `start` submits them all, `get`
+    waits for one. `close` shuts the pool down, after what still runs."""
+
+    def __init__(self):
+        self.pool, self.futures, self.t0 = None, {}, None
+
+    @staticmethod
+    def _key(kind, kw):
+        return kind, tuple(sorted(kw.items()))
+
+    def start(self, specs):
+        import concurrent.futures
+        import multiprocessing
+
+        self.t0 = time.perf_counter()
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init)
+        for kind, kw in specs:
+            self.futures[self._key(kind, kw)] = self.pool.submit(
+                cpu_reference, kind, kw)
+
+    def get(self, kind, **kw):
+        import types
+
+        import torch
+
+        r = self.futures[self._key(kind, kw)].result()
+        return types.SimpleNamespace(
+            s=torch.from_numpy(r["s"]), znav=torch.from_numpy(r["znav"]),
+            destpointer=torch.from_numpy(r["destpointer"]),
+            seconds=r["seconds"])
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.pool = None
+            emit("cpu_references", workers=CPU_WORKERS,
+                 runs=len(self.futures),
+                 wall_s=time.perf_counter() - self.t0)
+
+
+def cpu_specs(db_kb, leg_kb, mixed_kb):
+    """Every CPU reference run of the parity phases, the longest first."""
+    specs = [("parity_legacy", {"kb": leg_kb, "dtype": d})
+             for d in ("float64", "float32")]
+    specs += [("parity_mixed", {"kb": mixed_kb}), ("parity_twod", {}),
+              ("parity", {})]
+    specs += [("parity_invpendulum", {"exact": e, "pairs32": p})
+              for e in (True, False) for p in (False, True)]
+    specs += [("parity_balancingrider", {"mode": m, "pairs32": p})
+              for m in ("exact", "gains_poly", "hess") for p in (False, True)]
+    specs += [("parity_stochastic", {"mode": "parity_stochastic",
+                                     "pairs32": p}) for p in (False, True)]
+    specs.append(("parity_db", {"kb": db_kb}))
+    return specs
+
+
+def compare_runs(phase, fin_a, fin_b, **info):
+    """Final states of two runs held to the two-tier tolerance
+    (`parity_errors`); emits one line."""
     errs = parity_errors(fin_a, fin_b)
-    emit(phase, steps=PARITY_STEPS, rebuild_every=REBUILD,
-         second_run_s=time.perf_counter() - t0, **info, **errs)
+    emit(phase, steps=PARITY_STEPS, rebuild_every=REBUILD, **info, **errs)
     if errs["failed"]:
         raise AssertionError(f"{phase} failed: {errs['failed']}")
 
 
-def phase_parity():
+def card_final(engine, state):
+    import torch
+
+    fin, _ = engine.simulate(state, PARITY_STEPS, record=False)
+    torch.cuda.synchronize()
+    return fin
+
+
+def phase_parity(cpu):
     import torch
 
     from cyclistsocialforce_tpu_torch.scenarios import build_population
@@ -1299,14 +1547,14 @@ def phase_parity():
     engine = make_engine()
     st_gpu = build_population(PARITY_N, DENSITY, HIST_LEN, BLOCK,
                               torch.float32, "cuda")
-    st_cpu = build_population(PARITY_N, DENSITY, HIST_LEN, BLOCK,
-                              torch.float64, "cpu")
     audit_overflow(engine, st_gpu, "parity t=0")
-    compare_runs("parity", engine, st_gpu, engine, st_cpu, n=PARITY_N,
+    ref = cpu.get("parity")
+    compare_runs("parity", card_final(engine, st_gpu), ref, n=PARITY_N,
+                 cpu_run_s=ref.seconds,
                  runs="card float32 K1 vs CPU float64 plain")
 
 
-def phase_parity_db(db_engine, state):
+def phase_parity_db(db_engine, state, cpu):
     """The K3 path against K1 in the same screened per-column form on the
     card (the slice_db crowd), then against the CPU float64 plain version
     on a PARITY_DB_N-rider crowd."""
@@ -1317,23 +1565,22 @@ def phase_parity_db(db_engine, state):
     cfg = db_engine.neighbors
     k1 = make_engine(db_engine.params, block_src=DB_BLOCK, kb=cfg.kb,
                      screen=True)
-    compare_runs("parity_db", db_engine, state, k1, state, n=state.n,
+    compare_runs("parity_db", card_final(db_engine, state),
+                 card_final(k1, state), n=state.n,
                  runs="card K3 vs card K1 (screen, block_src 128)")
 
     st_gpu = build_population(PARITY_DB_N, DENSITY, HIST_LEN, BLOCK,
                               torch.float32, "cuda")
-    st_cpu = build_population(PARITY_DB_N, DENSITY, HIST_LEN, BLOCK,
-                              torch.float64, "cpu")
     gpu = db_engine.with_params(jittered_params(st_gpu.n, "cuda",
                                                 torch.float32))
-    cpu = db_engine.with_params(jittered_params(st_cpu.n, "cpu",
-                                                torch.float64))
     audit_overflow(gpu, st_gpu, "parity_db t=0")
-    compare_runs("parity_db", gpu, st_gpu, cpu, st_cpu, n=PARITY_DB_N,
+    ref = cpu.get("parity_db", kb=cfg.kb)
+    compare_runs("parity_db", card_final(gpu, st_gpu), ref, n=PARITY_DB_N,
+                 cpu_run_s=ref.seconds,
                  runs="card float32 K3 vs CPU float64 plain")
 
 
-def phase_parity_legacy(engine):
+def phase_parity_legacy(engine, cpu):
     """The slice_legacy configuration on a PARITY_LEG_N-rider crowd, 45
     steps: the card in float32 (K1, mixed form, tile screen) against the
     plain version on the CPU in float32 (both tiers) and in float64 (the
@@ -1342,19 +1589,14 @@ def phase_parity_legacy(engine):
 
     from cyclistsocialforce_tpu_torch.scenarios import build_population
 
-    def run(dtype, device):
-        st = build_population(PARITY_LEG_N, DENSITY, HIST_LEN, BLOCK, dtype,
-                              device)
-        if device == "cuda":
-            audit_overflow(engine, st, "parity_legacy t=0")
-        t0 = time.perf_counter()
-        fin, _ = engine.simulate(st, PARITY_STEPS, record=False)
-        torch.cuda.synchronize()
-        return fin, time.perf_counter() - t0
-
-    card, _ = run(torch.float32, "cuda")
-    cpu32, s32 = run(torch.float32, "cpu")
-    cpu64, s64 = run(torch.float64, "cpu")
+    st = build_population(PARITY_LEG_N, DENSITY, HIST_LEN, BLOCK,
+                          torch.float32, "cuda")
+    audit_overflow(engine, st, "parity_legacy t=0")
+    card = card_final(engine, st)
+    kb = engine.neighbors.kb
+    cpu32 = cpu.get("parity_legacy", kb=kb, dtype="float32")
+    cpu64 = cpu.get("parity_legacy", kb=kb, dtype="float64")
+    s32, s64 = cpu32.seconds, cpu64.seconds
     vs32 = parity_errors(card, cpu32)
     vs64 = parity_errors(card, cpu64)
     base = parity_errors(cpu32, cpu64)
@@ -1387,7 +1629,7 @@ def float32_pairs(engine):
     return twin
 
 
-def phase_parity_queues(phase, engine, n, pad, make_crowd=twod_crowd,
+def phase_parity_queues(phase, engine, n, pad, cpu, make_crowd=twod_crowd,
                         pairs32=False, queues=True, **info):
     """`engine` on an n-rider crowd (`make_crowd(n, dtype, device, pad)`)
     with destination queues (`with_queues`), PARITY_STEPS steps from one
@@ -1398,7 +1640,9 @@ def phase_parity_queues(phase, engine, n, pad, make_crowd=twod_crowd,
     IP_STEER) the card's float64 run is held to both tiers against the
     CPU float64 run whose pair stage is float32 (`float32_pairs`), and to
     the cap against the plain float64 run. `queues=False` keeps the
-    crowd's own destinations. `info` goes into every line."""
+    crowd's own destinations. `cpu(pairs32)` gives the CPU float64 run
+    (plain, or with float32 pairs), made elsewhere (`CpuReferences`).
+    `info` goes into every line."""
     import torch
 
     def crowd(dtype, device):
@@ -1411,18 +1655,14 @@ def phase_parity_queues(phase, engine, n, pad, make_crowd=twod_crowd,
     fin32, _ = engine.simulate(card32, PARITY_STEPS, record=False)
     fin64, _ = engine.simulate(card64, PARITY_STEPS, record=False)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ref, _ = engine.simulate(crowd(torch.float64, "cpu"), PARITY_STEPS,
-                             record=False)
-    cpu_s = time.perf_counter() - t0
+    ref = cpu(False)
     info = dict(steps=PARITY_STEPS, rebuild_every=REBUILD, n=n,
-                cpu_run_s=cpu_s, **info)
+                cpu_run_s=ref.seconds, **info)
     vs64 = parity_errors(fin64, ref)
     vs32 = parity_errors(fin32, ref)
     failed = vs64["failed"]
     if pairs32:
-        ref32, _ = float32_pairs(engine).simulate(
-            crowd(torch.float64, "cpu"), PARITY_STEPS, record=False)
+        ref32 = cpu(True)
         held = parity_errors(fin64, ref32)
         base = parity_errors(ref32, ref)
         over_cap = [k for k in vs64["failed"]
@@ -1445,7 +1685,7 @@ def phase_parity_queues(phase, engine, n, pad, make_crowd=twod_crowd,
         raise AssertionError(f"{phase} failed: {failed}")
 
 
-def phase_parity_invpendulum():
+def phase_parity_invpendulum(cpu):
     """The slice_invpendulum configuration on a PARITY_IP_N-rider crowd
     with destination queues, once with the piecewise-polynomial
     propagator and once with the exact one: the card in float64 against
@@ -1469,7 +1709,10 @@ def phase_parity_invpendulum():
 
         phase_parity_queues(
             "parity_invpendulum", make_model_engine("invpendulum", params),
-            PARITY_IP_N, BLOCK, crowd, pairs32=True,
+            PARITY_IP_N, BLOCK,
+            lambda p, exact=exact: cpu.get("parity_invpendulum", exact=exact,
+                                           pairs32=p),
+            crowd, pairs32=True,
             propagator="exact" if exact else f"zoh_poly={IP_ZOH_POLY}")
 
     poly = ip_params().ip_zoh_poly
@@ -1497,7 +1740,7 @@ def phase_parity_invpendulum():
                              f"{over} values beyond the float32 bound")
 
 
-def phase_parity_balancingrider(state):
+def phase_parity_balancingrider(state, cpu):
     """The slice_balancingrider configuration on a PARITY_BR_N-rider
     stable crowd (`stable_crowd`), PARITY_STEPS steps, with the exact
     placement, with gains_poly and with the Hess model: the card in
@@ -1519,8 +1762,11 @@ def phase_parity_balancingrider(state):
         phase_parity_queues(
             "parity_balancingrider",
             make_model_engine(br_model(mode), br_params(mode)),
-            PARITY_BR_N, BLOCK, crowd, pairs32=True, queues=False,
-            model=br_model(mode), mode=mode)
+            PARITY_BR_N, BLOCK,
+            lambda p, mode=mode: cpu.get("parity_balancingrider", mode=mode,
+                                         pairs32=p),
+            crowd, pairs32=True, queues=False, model=br_model(mode),
+            mode=mode)
 
     rng = np.random.default_rng(TWOD_QUEUE_SEED)
     fx, fy = (torch.as_tensor(rng.normal(3.0, 2.0, state.n),
@@ -1542,6 +1788,61 @@ def phase_parity_balancingrider(state):
     if differ:
         raise AssertionError(f"parity_balancingrider: the step with TF32 "
                              f"allowed differs in {differ}")
+
+
+def phase_parity_stochastic(cpu):
+    """The stochastic balancing rider (STOCH_PARITY: budget, cadence and
+    torque disturbances) on PARITY_STOCH_N stable riders, PARITY_STEPS
+    steps: the card in float64 against the CPU float64 run with float32
+    pairs under both tiers and against plain float64 under the cap, the
+    card's float32 run reported (`phase_parity_queues`). Then the pole
+    features that every rider of a 100,000-rider card state draws (all
+    needy, the dense resampler) and its torque disturbances, from the
+    state and from its rows shuffled: per uid bit for bit."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import permute_state
+    from cyclistsocialforce_tpu_torch.models import balancingrider as BR
+    from cyclistsocialforce_tpu_torch.state import V
+
+    mode = "parity_stochastic"
+
+    def crowd(n, dtype, device, pad):
+        return stable_crowd(mode, n, dtype, device, pad)
+
+    phase_parity_queues(
+        "parity_stochastic", make_model_engine("balancingrider",
+                                               br_params(mode)),
+        PARITY_STOCH_N, BLOCK,
+        lambda p: cpu.get("parity_stochastic", mode=mode, pairs32=p),
+        crowd, pairs32=True, queues=False, model="balancingrider",
+        params=STOCH_PARITY)
+
+    params = br_params("stochastic_exact").replace(**STOCH_DIST)
+    state = stable_crowd("stochastic_exact", N_AGENTS, torch.float32,
+                         "cuda")
+    perm = torch.as_tensor(np.random.default_rng(TWOD_QUEUE_SEED)
+                           .permutation(state.n), device="cuda")
+    c = BR.step_constants(params, state.s.dtype, state.device)["constants"]
+
+    def draws(st):
+        v = st.s[:, V] + 1.0
+        feats, new = BR._pole_features(params, c, st, v,
+                                       torch.ones_like(st.active))
+        t_roll, t_steer = BR._disturbances(params, st)
+        by_uid = torch.argsort(st.uid.long())
+        return [t[by_uid] for t in (feats, new.dyn_gains, t_roll, t_steer)]
+
+    differ = [name for name, a, b in zip(
+        ("features", "dyn_gains", "roll_torques", "steer_torques"),
+        draws(state), draws(permute_state(state, perm)))
+        if not torch.equal(a, b)]
+    emit("parity_stochastic", check="per-uid draws of a row-shuffled "
+         "state", n=state.n, fields_differing=differ)
+    if differ:
+        raise AssertionError(f"parity_stochastic: the draws of shuffled "
+                             f"rows differ per uid in {differ}")
 
 
 def poly_float32_excess(poly, v, got):
@@ -1649,10 +1950,17 @@ def main():
     br_engine = make_model_engine("balancingrider", br_params())
     br_state = model_crowd("balancingrider", br_params(), N_AGENTS,
                            torch.float32, "cuda", hist_len=HIST_LEN)
+    stoch_engine, stoch_state = stochastic_path("stochastic")
+    exact_engine, exact_state = stochastic_path("stochastic_exact")
     mixed_state = twod_crowd(N_AGENTS, torch.float32, "cuda", pad=None)
     mixed_engine = audited_engine(
         lambda **kw: make_mixed_engine(N_AGENTS, **kw), "slice_mixed",
         mixed_state)
+    n_mixed = 2 * PARITY_MIXED_HALF
+    parity_mixed_state = twod_crowd(n_mixed, torch.float32, "cuda", None)
+    parity_mixed_engine = audited_engine(
+        lambda **kw: make_mixed_engine(n_mixed, **kw), "parity_mixed",
+        parity_mixed_state)
     seconds = {}
 
     def timed(label, fn, *args):
@@ -1678,28 +1986,85 @@ def main():
              "slice_twod": (twod_engine, twod_state),
              "slice_mixed": (mixed_engine, mixed_state),
              "slice_invpendulum": (ip_engine, ip_state),
-             "slice_balancingrider": (br_engine, br_state)}
+             "slice_balancingrider": (br_engine, br_state),
+             "slice_stochastic": (stoch_engine, stoch_state),
+             "slice_stochastic_exact": (exact_engine, exact_state)}
     k1, k2, k3 = PF.KERNELS
     kernel_of = {"slice": k1, "slice_unrolled": k2, "slice_db": k3,
                  "slice_legacy": k1, "slice_twod": k1, "slice_mixed": k1,
-                 "slice_invpendulum": k1, "slice_balancingrider": k1}
-    reports = {"slice_balancingrider": fallen_share}
+                 "slice_invpendulum": k1, "slice_balancingrider": k1,
+                 "slice_stochastic": k1, "slice_stochastic_exact": k1}
+
+    def stochastic_report(engine, state):
+        return lambda final: {**fallen_share(final),
+                              **resample_stats(engine, state)}
+
+    reports = {"slice_balancingrider": fallen_share,
+               "slice_stochastic": stochastic_report(stoch_engine,
+                                                     stoch_state),
+               "slice_stochastic_exact": stochastic_report(exact_engine,
+                                                           exact_state)}
     launches = {path: timed(path, phase_slice, path, *paths[path],
                             kernel_of[path], reports.get(path))
                 for path in paths}
-    timed("parity", phase_parity)
-    timed("parity_db", phase_parity_db, db_engine, state)
-    timed("parity_legacy", phase_parity_legacy, leg_engine)
-    timed("parity_twod", phase_parity_queues, "parity_twod", twod_engine,
-          PARITY_TWOD_N, BLOCK)
-    n_mixed = 2 * PARITY_MIXED_HALF
-    timed("parity_mixed", phase_parity_queues, "parity_mixed",
-          audited_engine(lambda **kw: make_mixed_engine(n_mixed, **kw),
-                         "parity_mixed",
-                         twod_crowd(n_mixed, torch.float32, "cuda", None)),
-          n_mixed, None)
-    timed("parity_invpendulum", phase_parity_invpendulum)
-    timed("parity_balancingrider", phase_parity_balancingrider, br_state)
+    profiled = ("slice", "slice_twod", "slice_mixed", "slice_invpendulum",
+                "slice_balancingrider", "slice_stochastic",
+                "slice_stochastic_exact")
+    per_step = {path: timed("profile", phase_profile, path, *paths[path])
+                for path in profiled}
+    emit("profile", twod_device_activities_per_step_over_slice=(
+        per_step["slice_twod"] - per_step["slice"]),
+        invpendulum_device_activities_per_step_over_twod=(
+        per_step["slice_invpendulum"] - per_step["slice_twod"]),
+        balancingrider_device_activities_per_step_over_slice=(
+        per_step["slice_balancingrider"] - per_step["slice"]),
+        stochastic_device_activities_per_step_over_balancingrider={
+            path: per_step[path] - per_step["slice_balancingrider"]
+            for path in ("slice_stochastic", "slice_stochastic_exact")})
+
+    # the CPU reference runs, in worker processes, after every timed
+    # phase: the card-only phases run meanwhile, the parity phases
+    # collect them last
+    cpu = CpuReferences()
+    cpu.start(cpu_specs(db_engine.neighbors.kb, leg_engine.neighbors.kb,
+                        parity_mixed_engine.neighbors.kb))
+    try:
+        card_phases(timed, paths, engine, twod_engine, ip_engine,
+                    br_engine, state)
+        timed("parity", phase_parity, cpu)
+        timed("parity_db", phase_parity_db, db_engine, state, cpu)
+        timed("parity_legacy", phase_parity_legacy, leg_engine, cpu)
+        timed("parity_twod", phase_parity_queues, "parity_twod",
+              twod_engine, PARITY_TWOD_N, BLOCK,
+              lambda p: cpu.get("parity_twod"))
+        timed("parity_mixed", phase_parity_queues, "parity_mixed",
+              parity_mixed_engine, n_mixed, None,
+              lambda p: cpu.get("parity_mixed",
+                                kb=parity_mixed_engine.neighbors.kb))
+        timed("parity_invpendulum", phase_parity_invpendulum, cpu)
+        timed("parity_balancingrider", phase_parity_balancingrider,
+              br_state, cpu)
+        timed("parity_stochastic", phase_parity_stochastic, cpu)
+    finally:
+        cpu.close()
+    emit("phase_seconds", **seconds)
+    emit("total", seconds=time.perf_counter() - t_start)
+    kernels_line(launches, kernel, forms, vs_k1, kernel_of)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def card_phases(timed, paths, engine, twod_engine, ip_engine, br_engine,
+                state):
+    """graph_parity, metrics and aliasing: the phases that need no CPU
+    reference run."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
     small_mixed = twod_crowd(GRAPH_PARITY_RECORD_N, torch.float32, "cuda",
                              None)
     model_cases = {name: (make_model_engine(model, params), model_crowd(
@@ -1711,10 +2076,14 @@ def main():
     model_cases["slice_balancingrider"] = (br_engine, model_crowd(
         "balancingrider", br_params(), GRAPH_PARITY_RECORD_N, torch.float32,
         "cuda", hist_len=HIST_LEN))
-    for mode in (*BR_MODES, "hess"):
+    for mode in (*BR_MODES, "hess", *STOCH_MODES):
         model_cases[f"{br_model(mode)}_{mode}"] = (
             make_model_engine(br_model(mode), br_params(mode)),
             stable_crowd(mode, GRAPH_PARITY_RECORD_N, torch.float32, "cuda"))
+    road_state = build_population(GRAPH_PARITY_RECORD_N, DENSITY, HIST_LEN,
+                                  BLOCK, torch.float32, "cuda")
+    model_cases["road"] = (make_engine(road=road_elements(
+        GRAPH_PARITY_RECORD_N, torch.float32, "cuda")), road_state)
     timed("graph_parity", phase_graph_parity, paths, {
         **model_cases,
         "slice": (engine, build_population(
@@ -1727,17 +2096,14 @@ def main():
             "graph_parity mixed", small_mixed), small_mixed)})
     timed("metrics", phase_metrics, engine, state)
     timed("aliasing", phase_aliasing, engine, state)
-    per_step = {path: timed("profile", phase_profile, path, *paths[path])
-                for path in ("slice", "slice_twod", "slice_mixed",
-                             "slice_invpendulum", "slice_balancingrider")}
-    emit("profile", twod_device_activities_per_step_over_slice=(
-        per_step["slice_twod"] - per_step["slice"]),
-        invpendulum_device_activities_per_step_over_twod=(
-        per_step["slice_invpendulum"] - per_step["slice_twod"]),
-        balancingrider_device_activities_per_step_over_slice=(
-        per_step["slice_balancingrider"] - per_step["slice"]))
-    emit("phase_seconds", **seconds)
-    emit("total", seconds=time.perf_counter() - t_start)
+
+
+def kernels_line(launches, kernel, forms, vs_k1, kernel_of):
+    """Print the kernels' JSON line: each with its launches on its paths,
+    errors, times and bounds (see the module docstring)."""
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    k1 = PF.KERNELS[0]
 
     def counted(path):
         """A path's (replayed, warm-up) launches of its kernel."""
@@ -1777,11 +2143,6 @@ def main():
          "mixed": {**mixed("k3_mixed"), "vs_k1": vs_k1["k3_mixed"]},
          "blocks": blocks("k3")},
     ]}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -1,11 +1,11 @@
 """PyTorch and CUDA port of the cyclist social-force simulation.
 
 Counterpart of `cyclistsocialforce_tpu` (JAX, Pallas, TPU) for one NVIDIA
-H100. This slice covers the culled main path: the bicycle2d model with
-the straight-line destination force and navigation FSM, and the BMD2023
-"twod" repulsive field summed over a block-sparse neighbor table by a
-hand-written CUDA kernel (`ops/pair_forces.py`, `csrc/pair_forces.cu`).
-The package imports torch and never JAX.
+H100: the seven models (the balancing rider's stochastic behavior
+included, on JAX's random streams), `MixedEngine`, the road, and both
+repulsive fields summed densely or over a block-sparse neighbor table by
+hand-written CUDA kernels (`ops/pair_forces.py`, `csrc/`). The package
+imports torch and never JAX.
 """
 
 from cyclistsocialforce_tpu_torch import engine, params, state

@@ -4,10 +4,12 @@ deterministic balancing rider reads (counterpart of the host half of
 
 A pole model is a Gaussian mixture over closed-loop pole features,
 conditioned on speed, behind a preprocessing pipeline (log-shift,
-Yeo-Johnson, standard scaler). `BalancingRiderParams.create` reads one
-thing of it: each component's mean pole features as a linear function of
-speed (`PoleModel.component_mean_function_params`). Everything here is
-numpy and runs once, at parameter construction; no step reads it.
+Yeo-Johnson, standard scaler). `BalancingRiderParams.create` reads each
+component's mean pole features as a linear function of speed
+(`PoleModel.component_mean_function_params`): numpy, once, at parameter
+construction. The stochastic balancing rider samples its pole features
+in the step from `PoleModelRT` (torch, batched over riders, the JAX
+package's draws from the same keys).
 
 The packaged models are the reference's fitted YAML files, kept here as
 JSON twins (`data/balancingriderparams/*.json`, the same values): JSON is
@@ -18,10 +20,14 @@ in the standard library, so loading one needs no YAML parser.
 from __future__ import annotations
 
 import json
+import math
 import os
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
+
+from cyclistsocialforce_tpu_torch.ops import random as rnd
 
 # Predefined feature sets (reference controlbehavior.py:992-999).
 PREDEFINED_FEATURE_SETS = {
@@ -228,8 +234,8 @@ class PoleModel:
     """A fitted (conditional) GMM over closed-loop pole features
     (reference PoleModel, controlbehavior.py:989-2137): loading, and the
     component means as linear functions of speed. Sampling, fitting,
-    marginal densities and export are not ported (ROADMAP Queue 1 items 9
-    and 12)."""
+    marginal densities and export are not ported (ROADMAP Queue 1 item
+    12); the runtime sampler is `PoleModelRT`."""
 
     feature_set: str
     gmm: GMMData
@@ -364,7 +370,262 @@ def load_packaged_polemodel(filename) -> PoleModel:
         return PoleModel.from_dict(json.load(f))
 
 
+def _yj(x, lam):
+    """Yeo-Johnson of x with lambdas `lam` (broadcast), as the JAX
+    package's `PoleModelRT._yj` writes it."""
+    pos = x >= 0
+    y_pos = torch.where(lam.abs() < 1e-19, torch.log1p(x.abs()),
+                        ((x.abs() + 1.0) ** lam - 1.0)
+                        / torch.where(lam == 0, 1.0, lam))
+    xn = torch.clamp_max(x, 0.0)
+    y_neg = torch.where((lam - 2.0).abs() < 1e-19, -torch.log1p(-xn),
+                        -((1.0 - xn) ** (2.0 - lam) - 1.0)
+                        / torch.where(lam == 2.0, 1.0, 2.0 - lam))
+    return torch.where(pos, y_pos, y_neg)
+
+
+def _yj_inv(y, lam):
+    """Inverse Yeo-Johnson (NaN out of the domain), as `PoleModelRT._yj_inv`
+    of the JAX package."""
+    pos = y >= 0
+    base_p = lam * y + 1.0
+    x_pos = torch.where(
+        lam.abs() < 1e-19, torch.expm1(y),
+        torch.where(base_p > 0, base_p, math.nan)
+        ** (1.0 / torch.where(lam == 0, 1.0, lam)) - 1.0)
+    base_n = -(2.0 - lam) * y + 1.0
+    x_neg = torch.where(
+        (lam - 2.0).abs() < 1e-19, 1.0 - torch.exp(-y),
+        1.0 - torch.where(base_n > 0, base_n, math.nan)
+        ** (1.0 / torch.where(lam == 2.0, 1.0, 2.0 - lam)))
+    return torch.where(pos, x_pos, x_neg)
+
+
+@dataclass(frozen=True)
+class PoleModelRT:
+    """A conditional pole model as the simulation samples it (counterpart
+    of the JAX package's `behavior.PoleModelRT`): conditioning on the
+    speed, the component choice, the Gaussian draw through each
+    component's conditional Cholesky factor, the inverse preprocessing and
+    a stability check, over a batch of riders at once. The reference's
+    unbounded rejection loops become REJECT_ROUNDS fixed rounds, all drawn
+    up front: the first stable, finite round is taken, and a rider with
+    none falls back to the conditional mean of its most likely component.
+
+    The arrays are float64 torch tensors, shared by the population; `to`
+    gives the same model in another dtype and device (what a step reads,
+    `models.balancingrider.step_constants`). The conditional covariance
+    does not depend on the speed, so its Cholesky factor [K, F-1, F-1] is
+    a constant of `from_polemodel`. Indices are Python ints: nothing here
+    builds an index tensor from a list on the host, reads a value back or
+    depends on the data in its shapes."""
+
+    means: torch.Tensor        # [K, F]
+    cov_chol: torch.Tensor     # [K, F-1, F-1]
+    covariances: torch.Tensor  # [K, F, F]
+    weights: torch.Tensor      # [K]
+    lambdas: torch.Tensor      # [F]
+    scaler_mean: torch.Tensor  # [F]
+    scaler_scale: torch.Tensor  # [F]
+    log_a: torch.Tensor | None     # [n_log]
+    log_sign: torch.Tensor | None  # [n_log]
+    log_features: tuple = ()
+    idx_given: int = 0
+    n_features: int = 6
+
+    REJECT_ROUNDS = 8
+
+    def __post_init__(self):
+        # the constants of the conditioning and of the inverse transform,
+        # per sampled feature, sliced here once: an index list applied in
+        # a step would copy it to the device
+        ig, rest = self.idx_given, self.rest
+        cov = self.covariances
+        var_g = cov[:, ig, ig]
+        derived = dict(
+            _var_g=var_g, _ratio=cov[:, rest, ig] / var_g[:, None],
+            _means_g=self.means[:, ig], _means_r=self.means[:, rest],
+            _log_w=torch.log(self.weights),
+            _log_norm=0.5 * torch.log(2 * math.pi * var_g),
+            _scale_r=self.scaler_scale[rest], _mean_r=self.scaler_mean[rest],
+            _lam_r=self.lambdas[rest])
+        for name, value in derived.items():
+            object.__setattr__(self, name, value)
+
+    @classmethod
+    def from_arrays(cls, means, cov_chol, covariances, weights, lambdas,
+                    scaler_mean, scaler_scale, log_a=None, log_sign=None,
+                    log_features=(), idx_given=0, n_features=6):
+        """The model from numpy-convertible arrays (float64 on the CPU)."""
+        def t(a):
+            return None if a is None else torch.from_numpy(
+                np.array(a, dtype=np.float64))
+
+        return cls(t(means), t(cov_chol), t(covariances), t(weights),
+                   t(lambdas), t(scaler_mean), t(scaler_scale), t(log_a),
+                   t(log_sign), tuple(int(i) for i in log_features),
+                   int(idx_given), int(n_features))
+
+    @classmethod
+    def from_polemodel(cls, pm: PoleModel) -> "PoleModelRT":
+        if not pm.is_conditional:
+            raise ValueError("PoleModelRT requires a conditional model")
+        pre = pm.preprocessing
+        ig = int(pm.idx_given)
+        f = int(pm.gmm.n_features)
+        rest = [i for i in range(f) if i != ig]
+        chols = []
+        for k in range(pm.gmm.n_components):
+            cov = np.asarray(pm.gmm.covariances[k])
+            cov_rg = cov[rest, ig]
+            cov_c = cov[np.ix_(rest, rest)] - np.outer(
+                cov_rg, cov_rg) / cov[ig, ig]
+            chols.append(np.linalg.cholesky(cov_c))
+        return cls.from_arrays(
+            pm.gmm.means, np.stack(chols), pm.gmm.covariances,
+            pm.gmm.weights, pre.lambdas, pre.scaler_mean, pre.scaler_scale,
+            pre.log_a if pre.has_log else None,
+            pre.log_sign if pre.has_log else None,
+            tuple(pre.log_features) if pre.has_log else (), ig, f)
+
+    def to(self, dtype=None, device=None) -> "PoleModelRT":
+        """The same model with its tensors in `dtype` on `device`."""
+        def t(a):
+            return None if a is None else a.to(dtype=dtype, device=device)
+
+        return PoleModelRT(
+            t(self.means), t(self.cov_chol), t(self.covariances),
+            t(self.weights), t(self.lambdas), t(self.scaler_mean),
+            t(self.scaler_scale), t(self.log_a), t(self.log_sign),
+            self.log_features, self.idx_given, self.n_features)
+
+    @property
+    def rest(self) -> list:
+        """The indices of the sampled features (all but the given one)."""
+        return [i for i in range(self.n_features) if i != self.idx_given]
+
+    @property
+    def n_components(self) -> int:
+        return self.weights.shape[0]
+
+    def transform_given(self, v):
+        """Raw speeds v [...] -> model space [...]."""
+        ig = self.idx_given
+        y = _yj(v, self.lambdas[ig])
+        return (y - self.scaler_mean[ig]) / self.scaler_scale[ig]
+
+    def inverse_transform_rest(self, x_rest):
+        """Model-space features without the given one [..., F-1] -> raw.
+        Elementwise per feature, so only the sampled columns are
+        transformed."""
+        rest = self.rest
+        x = _yj_inv(x_rest * self._scale_r + self._mean_r, self._lam_r)
+        logs = [(rest.index(i), j) for j, i in enumerate(self.log_features)
+                if i in rest]
+        if not logs:
+            return x
+        cols = list(x.unbind(-1))
+        for c, j in logs:
+            cols[c] = (torch.exp(cols[c]) + self.log_a[j]) * self.log_sign[j]
+        return torch.stack(cols, dim=-1)
+
+    def conditional(self, v):
+        """Condition on raw speeds v [...]: (means [..., K, F-1], the
+        constant Cholesky factors [K, F-1, F-1], weights [..., K]) in
+        model space (reference controlbehavior.py:478-530)."""
+        d = self.transform_given(v)[..., None] - self._means_g   # [..., K]
+        mu_c = self._means_r + self._ratio * d[..., None]
+        logw = self._log_w - 0.5 * d * d / self._var_g - self._log_norm
+        e = torch.exp(logw - logw.amax(dim=-1, keepdim=True))
+        return mu_c, self.cov_chol, e / e.sum(dim=-1, keepdim=True)
+
+    def _ok(self, f):
+        """[...]: a draw f [..., F-1] is finite and stable (every real-part
+        feature, the log-transformed ones, negative; reference sample_poles
+        stability check, controlbehavior.py:1459-1466)."""
+        ok = torch.isfinite(f).all(dim=-1)
+        rest = self.rest
+        for i in self.log_features:
+            if i in rest:
+                ok = ok & (f[..., rest.index(i)] < 0)
+        return ok
+
+    def _draws(self, mu_c, w, comp, z):
+        """The raw features of the draws [..., R, F-1] of components comp
+        [..., R] with normals z [..., R, F-1] from (mu_c [..., K, F-1],
+        weights w [..., K]); their ok flags, and the fallback [..., F-1]:
+        the conditional mean of the most likely component."""
+        mu = torch.gather(mu_c, -2, comp[..., None].expand(
+            comp.shape + mu_c.shape[-1:]))
+        lz = (self.cov_chol[comp] * z[..., None, :]).sum(dim=-1)
+        cand = self.inverse_transform_rest(mu + lz)
+        best = torch.argmax(w, dim=-1, keepdim=True)
+        fallback = self.inverse_transform_rest(torch.gather(
+            mu_c, -2, best[..., None].expand(
+                best.shape + mu_c.shape[-1:]))[..., 0, :])
+        return cand, self._ok(cand), fallback
+
+    @staticmethod
+    def _first_ok(cand, ok, fallback):
+        """The first round's draw that is ok, else the fallback; and
+        whether one was: (features [..., F-1], [...] bool)."""
+        first = torch.argmax(ok.to(torch.int32), dim=-1, keepdim=True)
+        take = torch.gather(cand, -2, first[..., None].expand(
+            first.shape + cand.shape[-1:]))[..., 0, :]
+        good = ok.any(dim=-1)
+        return torch.where(good[..., None], take, fallback), good
+
+    def sample_features_batch(self, key, v):
+        """Population draw: speeds v [N] -> ([N, F-1] features, [N] ok),
+        the JAX package's `sample_features_batch` bit for bit in its
+        random draws. `key` is one key [2] (a uniform [N, R] and a normal
+        [N, R, F-1] from its split) or per-agent keys [N, 2] (each split
+        into a uniform [R] and a normal [R, F-1]: what the simulation
+        draws, from `state.agent_streams`). The component of round r is
+        the number of cumulative weights below u[r]."""
+        rounds, fm1 = self.REJECT_ROUNDS, self.n_features - 1
+        dtype = self.means.dtype
+        ku, kz = rnd.split(key).unbind(-2)
+        if key.ndim == 2:
+            u = rnd.uniform(ku, (rounds,), dtype)
+            z = rnd.normal(kz, (rounds, fm1), dtype)
+        else:
+            n = v.shape[0]
+            u = rnd.uniform(ku, (n, rounds), dtype)
+            z = rnd.normal(kz, (n, rounds, fm1), dtype)
+        mu_c, _, w = self.conditional(v)
+        cumw = torch.cumsum(w, dim=-1)
+        comp = torch.clamp_max((u[..., None] > cumw[..., None, :]).sum(
+            dim=-1), self.n_components - 1)
+        return self._first_ok(*self._draws(mu_c, w, comp, z))
+
+    def sample_features_info(self, key, v):
+        """One stable, finite draw [..., F-1] per key of the batch [..., 2]
+        at speeds v (broadcast), and whether a rejection round succeeded
+        (False: the fallback), as the JAX package's `sample_features_info`
+        draws it: R keys split from each key, each split into a
+        `jax.random.choice` of the component by the weights and a normal
+        [F-1]."""
+        fm1 = self.n_features - 1
+        keys = rnd.split(key, self.REJECT_ROUNDS)             # [..., R, 2]
+        kc, kn = rnd.split(keys).unbind(-2)
+        mu_c, _, w = self.conditional(v)
+        batch = keys.shape[:-2]
+        mu_c = mu_c.expand(batch + mu_c.shape[-2:])
+        w = w.expand(batch + w.shape[-1:])
+        cumw = torch.cumsum(w, dim=-1)
+        comp = rnd.choice_index(kc, cumw[..., None, :].expand(
+            kc.shape[:-1] + cumw.shape[-1:]))
+        comp = torch.clamp_max(comp, self.n_components - 1)
+        z = rnd.normal(kn, (fm1,), self.means.dtype)
+        return self._first_ok(*self._draws(mu_c, w, comp, z))
+
+    def sample_features(self, key, v):
+        """One stable, finite draw [..., F-1] per key at speeds v."""
+        return self.sample_features_info(key, v)[0]
+
+
 __all__ = ["DATA_DIR", "GMMData", "PREDEFINED_FEATURE_SETS", "PoleModel",
-           "Preprocessing", "conditional_gmm", "load_packaged_polemodel",
+           "PoleModelRT", "Preprocessing", "conditional_gmm", "load_packaged_polemodel",
            "packaged_polemodel_path", "pole_features_to_poles",
            "yeojohnson", "yeojohnson_inverse"]

@@ -17,11 +17,14 @@ from cyclistsocialforce_tpu_torch.state import AgentState
 
 
 def state_from_jax(st, device="cuda") -> AgentState:
-    """The port's AgentState holding the values of a JAX AgentState (the
-    JAX-only `key` field is dropped)."""
-    return AgentState(**{
-        f.name: torch.from_numpy(np.array(getattr(st, f.name))).to(device)
-        for f in dataclasses.fields(AgentState)})
+    """The port's AgentState holding the values of a JAX AgentState; the
+    master key's two uint32 words become int64."""
+    def leaf(name):
+        a = np.array(getattr(st, name))
+        return torch.from_numpy(a.astype(np.int64) if name == "key" else a)
+
+    return AgentState(**{f.name: leaf(f.name).to(device)
+                         for f in dataclasses.fields(AgentState)})
 
 
 def state_to_numpy(st: AgentState) -> dict:
@@ -41,6 +44,8 @@ def _leaf_from_jax(cls, name, value, device):
     tensor."""
     if value is None:
         return value
+    if name == "polemodel_rt":
+        return polemodel_rt_from_jax(value)
     if name in getattr(cls, "STATIC_FIELDS", ()):
         if isinstance(value, (tuple, bool, int, float)):
             return value
@@ -55,13 +60,40 @@ def _leaf_from_jax(cls, name, value, device):
     return leaf.to(device) if isinstance(leaf, torch.Tensor) else leaf
 
 
+def polemodel_rt_from_jax(rt):
+    """The port's `behavior.PoleModelRT` (float64, on the CPU; a step
+    places it) of a JAX `PoleModelRT`."""
+    from cyclistsocialforce_tpu_torch.behavior import PoleModelRT
+
+    return PoleModelRT.from_arrays(
+        *(None if getattr(rt, f) is None else np.asarray(getattr(rt, f))
+          for f in ("means", "cov_chol", "covariances", "weights", "lambdas",
+                    "scaler_mean", "scaler_scale", "log_a", "log_sign")),
+        log_features=rt.log_features, idx_given=rt.idx_given,
+        n_features=rt.n_features)
+
+
+def road_from_jax(road, device="cuda"):
+    """The port's `engine.RoadElements` (float64 on `device`) of a JAX
+    `RoadElements`, a shared F_0 or sigma broadcast per vertex."""
+    from cyclistsocialforce_tpu_torch.engine import RoadElements
+
+    def leaf(name, shape):
+        a = np.asarray(getattr(road, name), dtype=np.float64)
+        return torch.from_numpy(np.broadcast_to(a, shape).copy()).to(device)
+
+    n = np.shape(road.weights)
+    return RoadElements(leaf("vertices", n + (2,)), leaf("weights", n),
+                        leaf("F_0", n), leaf("sigma", n))
+
+
 def params_from_jax(p, device="cuda"):
     """The port's params of the same class and values as a JAX
     `VehicleParams` / `CarParams` / `BicycleParams` /
     `PlanarPointBicycleParams` / `PlanarBicycleParams` /
     `InvPendulumBicycleParams` / `BalancingRiderParams` /
     `HessBikeRiderParams` (no re-validation), their tables and fits
-    included. Per-agent leaves become float64 (poles complex128) tensors
+    included, and the balancing rider's pole model (`PoleModelRT`). Per-agent leaves become float64 (poles complex128) tensors
     on `device`."""
     name = type(p).__name__
     if name not in PARAM_CLASSES:

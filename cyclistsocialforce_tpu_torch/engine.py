@@ -11,7 +11,8 @@ shared space, advanced step by step --
      block-sparse neighbor table (`repulsive_sum_neighbors`, the pair
      kernels of `ops.pair_forces`; the legacy field takes their mixed-
      family form with every row legacy),
-  3. repulsive-force magnitude clamp and summation (`ops.forces`),
+  3. repulsive-force magnitude clamp and summation (`ops.forces`), plus
+     the road-edge repulsion of a `RoadElements` (`ops.forces.road_edge_force`),
   4. one dynamics step of every agent (the model's `step`),
   5. bookkeeping: inactive agents frozen, step counters, position ring.
 
@@ -547,6 +548,33 @@ def pair_kernel_dispatch(cfg: NeighborConfig, nbr, valid, src_sorted,
     return out.to(dtype)
 
 
+@dataclass(frozen=True)
+class RoadElements:
+    """Stacked road-edge geometry (counterpart of the JAX package's
+    `engine.RoadElements`): vertices [V, 2], validity weights [V], and the
+    repulsion's F_0 and sigma per vertex [V]. Built on the host by
+    `road.build_road_elements`; an engine keeps its own copy in the
+    state's dtype and device (`Engine.road_tensors`)."""
+
+    vertices: torch.Tensor
+    weights: torch.Tensor
+    F_0: torch.Tensor
+    sigma: torch.Tensor
+
+    def to(self, dtype=None, device=None) -> "RoadElements":
+        return RoadElements(*(getattr(self, f.name).to(dtype=dtype,
+                                                       device=device)
+                              for f in dataclasses.fields(self)))
+
+
+def not_ported_scripted():
+    """The refusal of scripted agents."""
+    return NotImplementedError(
+        "scripted=: scripted agents (ScriptedTraj) are not ported yet "
+        "(ROADMAP Queue 1 item 11, infrastructure and heterogeneous "
+        "crowds)")
+
+
 _PER_AGENT_FIELDS = (
     "s", "dyn_x", "dyn_v", "dyn_gains", "pid_e", "pid_i", "dest", "destqueue",
     "destpointer", "nq", "znav", "znavparams", "i_stopsignal",
@@ -584,7 +612,7 @@ def _check_state_widths(widths, state):
                 f">= {need}: the state was built for a different model")
 
 
-_STATE_FIELDS = _ALL_AGENT_FIELDS + ("t_glob",)
+_STATE_FIELDS = _ALL_AGENT_FIELDS + ("t_glob", "key")
 
 
 def _map_state(fn, state: AgentState) -> AgentState:
@@ -650,9 +678,13 @@ class ChunkRunner:
     buffer logic around them is the same on any device.
 
     The capture bakes in what the engine's step reads from Python:
-    shared parameters, the NeighborConfig, the kernel form. An engine
-    keeps its runners until one of those attributes is assigned, and
-    `Engine.with_params` starts a new engine without them.
+    shared parameters, the NeighborConfig, the kernel form, and the phase
+    of the global step clock at the chunk's start modulo the engine's
+    `clock_period` (a model step that depends on the clock, the
+    stochastic balancing rider's resampling cadence, reads it on the host:
+    `Engine.run_chunk(t0=)`). An engine keeps its runners until one of
+    those attributes is assigned, and `Engine.with_params` starts a new
+    engine without them.
 
     Launch counters: the warm-up chunk launches its `k` kernels through
     their wrappers, which count them. The capture runs the wrappers again,
@@ -662,13 +694,13 @@ class ChunkRunner:
     product."""
 
     def __init__(self, engine, state: AgentState, cache, k: int,
-                 presorted: bool, mode):
+                 presorted: bool, mode, phase=None):
         # a weak reference: the engine owns its runners, and a cycle
         # would leave a dropped engine's graphs to the cyclic collector,
         # which may destroy them while another graph is being captured
         # (CUDA refuses that and drops the capture)
         self.engine, self.k = weakref.proxy(engine), k
-        self.presorted, self.mode = presorted, mode
+        self.presorted, self.mode, self.phase = presorted, mode, phase
         self.state_in = _map_state(torch.empty_like, state)
         self.cache = tuple(torch.empty_like(c) for c in cache)
         self.overflow = torch.zeros((), dtype=state.s.dtype,
@@ -695,7 +727,7 @@ class ChunkRunner:
     def _body(self) -> AgentState:
         return self.engine.run_chunk(self.state_in, self.cache, self.k,
                                      self.presorted, self.mode, self.rows,
-                                     self.overflow)
+                                     self.overflow, t0=self.phase)
 
     def _capture(self):
         """Capture `_body` into `self.graph`; its result, which lives in
@@ -760,13 +792,14 @@ class Engine(nn.Module):
     _FROZEN_BY_A_CAPTURE = frozenset((
         "params", "model_step", "state_widths", "dest_force", "dest_kw",
         "rep_force", "pair_family", "neighbors", "full_fov", "uniform_pair",
-        "priority_p2r", "rep_chunk", "step_constants"))
+        "priority_p2r", "rep_chunk", "step_constants", "road",
+        "clock_hook"))
 
     def __init__(self, params, model_step, state_widths, dest_force,
                  rep_force, pair_family: str, neighbors, full_fov: bool,
                  uniform_pair, priority_p2r: bool = False,
                  rep_chunk: int | None = None, dest_kw=None,
-                 step_constants=None):
+                 step_constants=None, road=None, clock_hook=None):
         super().__init__()
         self.params = params
         self.model_step = model_step
@@ -783,6 +816,10 @@ class Engine(nn.Module):
         self.rep_chunk = rep_chunk
         # the model's `step_constants` hook, or None (`kept_constants`)
         self.step_constants = step_constants
+        self.road = road                     # RoadElements or None
+        # the model's `clock_period` hook, or None (the step never reads
+        # the global step clock on the host)
+        self.clock_hook = clock_hook
         self._columns = {}    # (name, values, n, dtype, device) -> [n]
         self._runners = {}    # captured program -> ChunkRunner
 
@@ -797,7 +834,7 @@ class Engine(nn.Module):
                priority_rule: str = "unregulated",
                rep_chunk: int | None = None,
                neighbors: NeighborConfig | None = None, rep_reduce=None,
-               combine_forces=None):
+               combine_forces=None, road=None, scripted=None):
         """Build an engine from a model module (`models.MODELS`).
 
         dest_force, rep_force : registry names (`DEST_FORCES`,
@@ -810,9 +847,14 @@ class Engine(nn.Module):
             at once); it must divide N.
         neighbors : a NeighborConfig selects the culled pair stage; None
             the dense one.
+        road : a `RoadElements` (`road.build_road_elements`): every
+            vertex repels every agent, added after the repulsive clamp.
 
-        Custom force callables, `rep_reduce` and `combine_forces` are not
-        ported and raise."""
+        Custom force callables, `rep_reduce`, `combine_forces` and
+        `scripted` (ROADMAP Queue 1 item 11) are not ported and raise
+        NotImplementedError."""
+        if scripted is not None:
+            raise not_ported_scripted()
         dest = dest_force if dest_force is not None else model.DEST_FORCE
         rep = rep_force if rep_force is not None else model.REP_FORCE
         if not isinstance(dest, str) or dest not in DEST_FORCES:
@@ -839,7 +881,9 @@ class Engine(nn.Module):
                                  if rep == "twod" else None),
                    priority_p2r=(priority_rule == "p2r"),
                    rep_chunk=rep_chunk,
-                   step_constants=getattr(model, "step_constants", None))
+                   step_constants=getattr(model, "step_constants", None),
+                   road=road, clock_hook=getattr(model, "clock_period",
+                                                 None))
 
     def with_params(self, params):
         """Engine with `params` swapped in and the fields derived from
@@ -856,7 +900,8 @@ class Engine(nn.Module):
             uniform_pair=(_uniform_pair_params(params)
                           if self.pair_family == "twod" else None),
             priority_p2r=self.priority_p2r, rep_chunk=self.rep_chunk,
-            step_constants=self.step_constants)
+            step_constants=self.step_constants, road=self.road,
+            clock_hook=self.clock_hook)
 
     # ---- the dense pair stage ----
 
@@ -1038,15 +1083,29 @@ class Engine(nn.Module):
         """Total social force per agent: (fx, fy, state), the state
         carrying the navigation-FSM updates of the destination force
         (reference intersection.py:747-864)."""
-        fdx, fdy, state = self.destination_forces(state)
+        fx, fy, state = self.destination_forces(state)
         if state.n > 1:
             if self.neighbors is not None:
                 frx, fry = self.repulsive_sum_neighbors(
                     state, nbr_cache, presorted=presorted)
             else:
                 frx, fry = self.repulsive_sum(state)
-            return (*F.clamp_add_dest(frx, fry, fdx, fdy), state)
-        return fdx, fdy, state
+            fx, fy = F.clamp_add_dest(frx, fry, fx, fy)
+        if self.road is not None:
+            road = self.road_tensors(state)
+            rx, ry = F.road_edge_force(state.s[:, X], state.s[:, Y],
+                                       road.vertices, road.weights,
+                                       road.F_0, road.sigma)
+            fx, fy = fx + rx, fy + ry
+        return fx, fy, state
+
+    def road_tensors(self, state: AgentState) -> RoadElements:
+        """The road in the state's dtype on its device, built once and kept
+        with the pack columns (a captured chunk reads it by address)."""
+        key = ("road", state.s.dtype, state.device)
+        if key not in self._columns:
+            self._columns[key] = self.road.to(state.s.dtype, state.device)
+        return self._columns[key]
 
     def finish_step(self, before: AgentState, new: AgentState):
         """Freeze inactive agents, advance the step counters and record
@@ -1121,21 +1180,40 @@ class Engine(nn.Module):
             self._columns[key] = hook(params, state.s.dtype, state.device)
         return self._columns[key]
 
-    def dynamics(self, state: AgentState, fx, fy) -> AgentState:
-        """One dynamics step of every agent under the forces (fx, fy)."""
+    def clock_period(self) -> int:
+        """How often the step's dependence on the global step clock
+        repeats beyond its random streams (the model's `clock_period`
+        hook; 1 without one): a chunk's program depends on the clock's
+        phase modulo this at the chunk's start."""
+        return self.clock_hook(self.params) if self.clock_hook else 1
+
+    def _clock_kw(self, hook, params, t_host) -> dict:
+        """`t_host` for a model step that reads the clock on the host."""
+        if hook is None or t_host is None or hook(params) <= 1:
+            return {}
+        return {"t_host": t_host}
+
+    def dynamics(self, state: AgentState, fx, fy,
+                 t_host=None) -> AgentState:
+        """One dynamics step of every agent under the forces (fx, fy);
+        `t_host` is the global step where the caller knows it."""
         return self.model_step(self.params, state, fx, fy,
                                **self.kept_constants(self.step_constants,
-                                                     self.params, state))
+                                                     self.params, state),
+                               **self._clock_kw(self.clock_hook, self.params,
+                                                t_host))
 
     def step_with_forces(self, state: AgentState, nbr_cache=None,
-                         presorted: bool = False):
+                         presorted: bool = False, t_host=None):
         """One full step; returns (state, fx, fy) with the applied
-        forces."""
+        forces. `t_host`: the global step (state.t_glob) as the caller
+        knows it on the host, or None (a clock-dependent model then
+        decides on the device)."""
         self.check_state(state)
         before = state
         fx, fy, state = self.calc_forces(state, nbr_cache,
                                          presorted=presorted)
-        new = self.dynamics(state, fx, fy)
+        new = self.dynamics(state, fx, fy, t_host)
         return self.finish_step(before, new), fx, fy
 
     def step(self, state: AgentState) -> AgentState:
@@ -1159,39 +1237,46 @@ class Engine(nn.Module):
 
     def run_chunk(self, state: AgentState, cache, k: int,
                   presorted: bool = False, mode=None, rows=(),
-                  overflow=0.0) -> AgentState:
+                  overflow=0.0, t0=None) -> AgentState:
         """The `k` steps of one rebuild chunk on the chunk's table
         `cache`, step j's record written to `rows[...][j]`: the program
         `ChunkRunner` captures. `overflow` is the table's overflow count
-        for the metrics. Nothing here reads a value back to the host or
-        has a shape that depends on the data."""
+        for the metrics; `t0` the global step at the chunk's start as the
+        caller knows it (any value congruent to it modulo
+        `clock_period()`), or None. Nothing here reads a value back to the
+        host or has a shape that depends on the data."""
         for j in range(k):
-            state, fx, fy = self.step_with_forces(state, cache, presorted)
+            state, fx, fy = self.step_with_forces(
+                state, cache, presorted, None if t0 is None else t0 + j)
             self._record(mode, rows, j, state, fx, fy, overflow)
         return state
 
-    def _run_steps(self, state, steps: int, mode, rows, t0: int):
+    def _run_steps(self, state, steps: int, mode, rows, t0: int,
+                   t_host=None):
         """`steps` steps that each build their own table (or the dense
-        stage), recorded from row `t0` on."""
+        stage), recorded from row `t0` on; `t_host` the global step at
+        the first (or None)."""
         for j in range(steps):
             cache, overflow = None, 0.0
             if self.neighbors is not None:
                 cache = self.neighbor_cache(state)
                 overflow = cache[3].sum()
-            state, fx, fy = self.step_with_forces(state, cache)
+            state, fx, fy = self.step_with_forces(
+                state, cache, t_host=None if t_host is None else t_host + j)
             self._record(mode, rows, t0 + j, state, fx, fy, overflow)
         return state
 
-    def _chunk_runner(self, runner_cls, state, cache, k, presorted, mode):
+    def _chunk_runner(self, runner_cls, state, cache, k, presorted, mode,
+                      phase=None):
         """This engine's `runner_cls` for the program that these
         arguments fix, built (and captured) at first use."""
-        key = (presorted, mode, k, state.device,
+        key = (presorted, mode, k, phase, state.device,
                tuple((tuple(t.shape), t.dtype) for t in
                      (getattr(state, f) for f in _STATE_FIELDS)),
                tuple(tuple(c.shape) for c in cache))
         if key not in self._runners:
             self._runners[key] = runner_cls(self, state, cache, k,
-                                            presorted, mode)
+                                            presorted, mode, phase)
         return self._runners[key]
 
     def graph_launches(self) -> tuple:
@@ -1267,8 +1352,12 @@ class Engine(nn.Module):
         `runner_cls` (`ChunkRunner`), or with None as eager loops."""
         k = self.neighbors.rebuild_every if self.neighbors is not None else 1
         rows = record_buffers(mode, n_steps, state)
+        # a step that reads the global step clock on the host (a
+        # resampling cadence) learns it here, once per call
+        period = self.clock_period()
+        t_host = int(state.t_glob) if period > 1 else None
         if k <= 1 or n_steps < k:
-            state = self._run_steps(state, n_steps, mode, rows, 0)
+            state = self._run_steps(state, n_steps, mode, rows, 0, t_host)
             return state, self._records(mode, rows)
 
         n_chunks, rem = divmod(n_steps, k)
@@ -1281,22 +1370,27 @@ class Engine(nn.Module):
                 state = permute_state(state, cache[0])
                 ident = ident[cache[0]]
             chunk_rows = tuple(r[c * k:(c + 1) * k] for r in rows)
+            t_chunk = None if t_host is None else t_host + c * k
             if runner_cls is not None:
-                runner = self._chunk_runner(runner_cls, state, cache, k,
-                                            presorted, mode)
+                runner = self._chunk_runner(
+                    runner_cls, state, cache, k, presorted, mode,
+                    None if t_chunk is None else t_chunk % period)
                 state, static_rows = runner.run(state, cache)
                 for dst, src in zip(chunk_rows, static_rows):
                     dst.copy_(src)
             else:
                 state = self.run_chunk(state, cache, k, presorted, mode,
                                        chunk_rows, cache[3].sum()
-                                       if mode == "metrics" else 0.0)
+                                       if mode == "metrics" else 0.0,
+                                       t0=t_chunk)
         if runner_cls is not None:
             # the runner's output state is overwritten by its next run
             state = _map_state(torch.clone, state)
         if presorted:
             state = permute_state(state, torch.argsort(ident))
-        state = self._run_steps(state, rem, mode, rows, n_chunks * k)
+        state = self._run_steps(
+            state, rem, mode, rows, n_chunks * k,
+            None if t_host is None else t_host + n_chunks * k)
         return state, self._records(mode, rows)
 
     @staticmethod

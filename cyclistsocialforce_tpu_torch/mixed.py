@@ -18,12 +18,15 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import math
+
 import torch
 from torch import nn
 
 from cyclistsocialforce_tpu_torch import engine as eng
 from cyclistsocialforce_tpu_torch.ops import forces as F
 from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+from cyclistsocialforce_tpu_torch.ops import random as rnd
 from cyclistsocialforce_tpu_torch.params import pair_hi
 from cyclistsocialforce_tpu_torch.state import PSI, V, X, Y, AgentState
 
@@ -75,12 +78,6 @@ class ModelGroup:
         return self.hi - self.lo
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"MixedEngine: {what} is not ported yet (ROADMAP Queue 1 item 11, "
-        f"infrastructure and heterogeneous crowds)")
-
-
 class MixedEngine(eng.Engine):
     """Interaction engine over a partitioned heterogeneous population.
     Build with `create(group_specs)`; agent rows [lo, hi) of the state
@@ -90,15 +87,16 @@ class MixedEngine(eng.Engine):
 
     sorted_resident = False
     _FROZEN_BY_A_CAPTURE = frozenset((
-        "groups", "neighbors", "full_fov", "priority_p2r"))
+        "groups", "neighbors", "full_fov", "priority_p2r", "road"))
 
     def __init__(self, groups, neighbors=None, priority_p2r: bool = False,
-                 full_fov: bool = False):
+                 full_fov: bool = False, road=None):
         nn.Module.__init__(self)
         self.groups = tuple(groups)
         self.neighbors = neighbors
         self.priority_p2r = priority_p2r
         self.full_fov = full_fov
+        self.road = road
         self.pair_family = "mixed"
         self.uniform_pair = None
         self._columns = {}
@@ -111,14 +109,12 @@ class MixedEngine(eng.Engine):
         """group_specs : (model module or `models.MODELS` name, params,
             n_agents) per group, in row order. Each group takes its model's
             `DEST_FORCE` and `REP_FORCE` (a registry name).
-        priority_rule, neighbors : as for `Engine.create`.
-        road, scripted : not ported (they raise)."""
+        priority_rule, neighbors, road : as for `Engine.create`.
+        scripted : not ported (raises)."""
         from cyclistsocialforce_tpu_torch.models import MODELS
 
-        if road is not None:
-            raise _not_ported("road=")
         if scripted is not None:
-            raise _not_ported("scripted=")
+            raise eng.not_ported_scripted()
         groups, lo = [], 0
         for model, params, n in group_specs:
             if isinstance(model, str):
@@ -141,7 +137,7 @@ class MixedEngine(eng.Engine):
         return cls(groups, neighbors=neighbors,
                    priority_p2r=(priority_rule == "p2r"),
                    full_fov=all(eng._hfov_is_full(g.params)
-                                for g in groups))
+                                for g in groups), road=road)
 
     @property
     def n(self) -> int:
@@ -174,15 +170,32 @@ class MixedEngine(eng.Engine):
             subs.append(sub)
         return torch.cat(fx), torch.cat(fy), _merge_groups(state, subs)
 
-    def dynamics(self, state: AgentState, fx, fy) -> AgentState:
-        """Each group's model step on its slice."""
-        return _merge_groups(state, [
-            g.model.step(g.params, state_slice(state, g.lo, g.hi),
-                         fx[g.lo:g.hi], fy[g.lo:g.hi],
-                         **self.kept_constants(
-                             getattr(g.model, "step_constants", None),
-                             g.params, state, i))
-            for i, g in enumerate(self.groups)])
+    def clock_period(self) -> int:
+        """The least common multiple of the groups' `clock_period`s."""
+        return math.lcm(*(getattr(g.model, "clock_period",
+                                  lambda p: 1)(g.params)
+                          for g in self.groups))
+
+    def dynamics(self, state: AgentState, fx, fy,
+                 t_host=None) -> AgentState:
+        """Each group's model step on its slice. A group that draws random
+        numbers reads the master key folded with its index, as the JAX
+        package's MixedEngine gives it (its draws stay a function of the
+        key, the group, t_glob and the uid)."""
+        subs = []
+        for i, g in enumerate(self.groups):
+            sub = state_slice(state, g.lo, g.hi)
+            if (getattr(g.params, "stochastic_control_behavior", False)
+                    or getattr(g.params, "br_disturb", False)):
+                sub = sub.replace(key=rnd.fold_in(state.key, i))
+            subs.append(g.model.step(
+                g.params, sub, fx[g.lo:g.hi], fy[g.lo:g.hi],
+                **self.kept_constants(
+                    getattr(g.model, "step_constants", None), g.params,
+                    state, i),
+                **self._clock_kw(getattr(g.model, "clock_period", None),
+                                 g.params, t_host)))
+        return _merge_groups(state, subs)
 
     # ---- the dense pair stage ----
 

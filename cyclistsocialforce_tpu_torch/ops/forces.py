@@ -232,3 +232,40 @@ def dest_force_hm(fx_straight, fy_straight, v, psi, v_desired,
     fy = (1 / relax) * (v_desired * ey - v * torch.sin(psi))
     ok = r > 0
     return torch.where(ok, fx, 0.0), torch.where(ok, fy, 0.0)
+
+
+# ---- infrastructure forces ---------------------------------------------------
+
+# elements of one [M, V] temporary of `road_edge_force` (vertex chunks)
+ROAD_CHUNK_ELEMENTS = 1 << 22
+
+
+def road_edge_force(x, y, vertices, weights, F_0, sigma):
+    """Inverse-power repulsion from road-edge polyline vertices (reference
+    RoadEdge.calcRepulsiveForce, intersection.py:226-242): each vertex
+    repels with magnitude F_0 r^-sigma along the unit vector away from it,
+    summed over the vertices. x, y [M] evaluation points; vertices [V, 2];
+    weights [V] (1 real, 0 padding); F_0, sigma numbers or [V]. The
+    vertices are taken in chunks of at most ROAD_CHUNK_ELEMENTS // M, the
+    chunks' sums added in order (one chunk for the JAX package's sizes)."""
+    m, n_v = x.shape[0], vertices.shape[0]
+    step = max(1, ROAD_CHUNK_ELEMENTS // max(m, 1))
+    fx = fy = 0.0
+
+    def per_vertex(value, lo, hi):
+        if isinstance(value, torch.Tensor) and value.ndim:
+            return value[None, lo:hi]
+        return value
+
+    for lo in range(0, n_v, step):
+        hi = min(lo + step, n_v)
+        dx = vertices[None, lo:hi, 0] - x[:, None]
+        dy = vertices[None, lo:hi, 1] - y[:, None]
+        r = torch.sqrt(dx**2 + dy**2)
+        far = r > 0
+        r_safe = torch.where(far, r, 1.0)
+        f = (-per_vertex(F_0, lo, hi) * r_safe ** -per_vertex(sigma, lo, hi)
+             * weights[None, lo:hi])
+        fx = fx + torch.where(far, f * dx / r_safe, 0.0).sum(dim=1)
+        fy = fy + torch.where(far, f * dy / r_safe, 0.0).sum(dim=1)
+    return fx, fy

@@ -531,11 +531,21 @@ class BalancingRiderParams(BicycleParams):
     (`POPULATION_SHARED`); the fits are static tuples of floats. All are
     swept in float64 on the CPU through the port's `ops.control`.
 
-    The stochastic control behavior and the torque disturbances are not
-    ported: `stochastic_control_behavior=True` and a nonzero `p_dist_roll`
-    or `p_dist_steer` raise NotImplementedError (ROADMAP Queue 1 item 9),
-    and their other keywords of the JAX `create` (resampling threshold,
-    budget and cadence, disturbance torques) are not taken.
+    Stochastic control behavior (`stochastic_control_behavior=True`,
+    reference parameters.py:1376-1411): each rider resamples its pole
+    features from the conditional pole model (`polemodel_rt`, a
+    `behavior.PoleModelRT`) once its speed moved more than
+    `controlparam_resampling_speedthresh` from its last update, at most
+    `br_resample_budget` riders per step (0: no cap; the rest defer) and
+    only on every `br_resample_every`-th global step. The gains are then
+    the exact per-rider placement, or K = charpoly(features) M(v) with the
+    Ackermann basis M over speed as a table (`gains_lut=G`:
+    `br_ackermann_lut`, [G, 6, 5]) or a piecewise quintic (`gains_poly=S`:
+    `br_ackermann_poly`); the propagator modes are refused. Torque
+    disturbances (`p_dist_roll`, `p_dist_steer` > 0, any mode): per step
+    and rider a Bernoulli draw adds the roll torque `T_dist_roll` or the
+    steer torque `T_dist_steer`. Both draw from the state's key
+    (`state.agent_streams`), as the JAX package does.
     """
 
     m: Any = None
@@ -550,17 +560,29 @@ class BalancingRiderParams(BicycleParams):
     br_prop_lut: Any = None
     br_gains_poly: Any = None
     br_prop_poly: Any = None
-    # the stochastic parts (not ported; `step` refuses them): the flag,
-    # the disturbance probabilities and "one of them is nonzero", kept
-    # fresh by `replace`
+    # the stochastic control behavior: the flag, the hysteresis, the pole
+    # model, the budget and cadence of the resampling, and the Ackermann
+    # basis as a table or a fit (the stochastic gains_lut / gains_poly)
     stochastic_control_behavior: Any = False
+    controlparam_resampling_speedthresh: Any = 0.8333
+    polemodel_rt: Any = None
+    br_resample_budget: Any = 0
+    br_resample_every: Any = 1
+    br_ackermann_lut: Any = None
+    br_ackermann_poly: Any = None
+    # torque disturbances: the probabilities, the torques, and "one of
+    # the probabilities is nonzero", kept fresh by `replace`
     p_dist_roll: Any = 0.0
     p_dist_steer: Any = 0.0
+    T_dist_roll: Any = 9000.0
+    T_dist_steer: Any = 1000.0
     br_disturb: Any = False
-    POPULATION_SHARED = ("br_gains_lut", "br_prop_lut")
+    POPULATION_SHARED = ("br_gains_lut", "br_prop_lut", "br_ackermann_lut")
     STATIC_FIELDS = ("br_A0", "br_A1", "br_A2", "br_B", "br_B_roll",
-                     "br_gains_poly", "br_prop_poly",
-                     "stochastic_control_behavior", "br_disturb")
+                     "br_gains_poly", "br_prop_poly", "br_ackermann_poly",
+                     "stochastic_control_behavior", "polemodel_rt",
+                     "br_resample_budget", "br_resample_every",
+                     "br_disturb")
     # lower edge of the gains_poly/prop_poly fit band: K(v) has poles at
     # v = 0 and v ~ 1.25 (controllability losses)
     GAINS_POLY_V_LO = 2.0
@@ -570,25 +592,28 @@ class BalancingRiderParams(BicycleParams):
                controlparam_filename="BR1_ImRe5GivenV_pole-model-params"
                                      ".yaml",
                stochastic_control_behavior=False,
+               controlparam_resampling_speedthresh=0.8333,
                controlparam_polemodel_component=0,
                p_dist_roll=0.0, p_dist_steer=0.0,
+               T_dist_roll=9000.0, T_dist_steer=1000.0,
                gains_lut=0, prop_lut=0, prop_poly=0, gains_poly=0,
+               resample_budget=0, resample_every=1,
                calib_mode=False, verbose=True, **kw):
         from cyclistsocialforce_tpu_torch import behavior
         from cyclistsocialforce_tpu_torch.ops import whipple
 
-        p_dist_roll = _chk_range("p_dist_roll", p_dist_roll, 0.0, 1.0)
-        p_dist_steer = _chk_range("p_dist_steer", p_dist_steer, 0.0, 1.0)
-        disturb = bool(np.any(p_dist_roll) or np.any(p_dist_steer))
-        if stochastic_control_behavior or disturb:
-            raise not_ported_stochastic(
-                "stochastic_control_behavior=True" if
-                stochastic_control_behavior else "p_dist_roll/p_dist_steer "
-                "> 0")
+        stochastic = bool(stochastic_control_behavior)
         if prop_lut and prop_poly:
             raise ValueError(
                 "prop_lut and prop_poly are alternative propagator modes: "
                 "pass one")
+        if (prop_lut or prop_poly) and stochastic:
+            raise ValueError(
+                "prop_lut/prop_poly express the closed-loop midpoint "
+                "propagator over speed alone; with stochastic control "
+                "behavior Acl depends on per-agent pole features (use "
+                "gains_lut/gains_poly for the Ackermann-basis forms "
+                "instead)")
 
         p = dict(bicycle_parameter_dict or whipple.BALANCEASSIST_WITH_RIDER)
         # wheelbase forced to the physical parameter set (reference
@@ -621,7 +646,7 @@ class BalancingRiderParams(BicycleParams):
         B_roll[2:4] = Minv[:, 0]
 
         # rider control behavior
-        pole_lin = gains_fixed = None
+        pole_lin = gains_fixed = pm_rt = None
         if gains is not None:
             gains_fixed = np.asarray(gains, dtype=float).reshape(-1)
         elif poles is not None:
@@ -633,6 +658,13 @@ class BalancingRiderParams(BicycleParams):
             pole_lin = np.c_[feats, np.zeros(5)]
         else:
             pm = behavior.load_packaged_polemodel(controlparam_filename)
+            if stochastic:
+                if controlparam_polemodel_component >= pm.gmm.n_components:
+                    raise ValueError(
+                        f"pole model {controlparam_filename} has only "
+                        f"{pm.gmm.n_components} components")
+                pm_rt = behavior.PoleModelRT.from_polemodel(pm)
+            # the mean functions (in stochastic mode the initial features)
             pole_lin = pm.component_mean_function_params()[
                 controlparam_polemodel_component]
 
@@ -671,11 +703,27 @@ class BalancingRiderParams(BicycleParams):
                     f"pole at v ~ 1.25 bounds the fit band)")
             return v_lo
 
-        lut = plut = poly = prop_pl = None
+        def basis_at(vs):
+            """The Ackermann basis M(v) [len(vs), 6, 5] (float64, CPU):
+            K = charpoly(features) M(v) for any pole features."""
+            from cyclistsocialforce_tpu_torch.ops.control import \
+                ackermann_basis
+
+            v = torch.from_numpy(np.asarray(vs, dtype=np.float64))
+            vv = v[:, None, None]
+            t = [torch.from_numpy(a) for a in (A0, A1, A2, B)]
+            return ackermann_basis(t[0] + vv * t[1] + (vv * vv) * t[2],
+                                   t[3].expand(len(v), 5)).numpy()
+
+        lut = plut = poly = prop_pl = ack_lut = ack_poly = None
         if gains_lut and gains_fixed is None:
             vs, dv = grid(gains_lut)
-            lut = (torch.from_numpy(_repair_lut_rows(gains_at(vs))),
-                   v_lo_r, dv)
+            if stochastic:
+                ack_lut = (torch.from_numpy(_repair_lut_rows(basis_at(vs))),
+                           v_lo_r, dv)
+            else:
+                lut = (torch.from_numpy(_repair_lut_rows(gains_at(vs))),
+                       v_lo_r, dv)
         if prop_lut:
             vs, dv = grid(prop_lut)
             plut = (torch.from_numpy(_repair_lut_rows(prop_rows(vs, True))),
@@ -691,18 +739,32 @@ class BalancingRiderParams(BicycleParams):
             from cyclistsocialforce_tpu_torch.ops.piecewise import \
                 fit_piecewise_poly
 
-            poly = fit_piecewise_poly(gains_at, band("gains_poly"), v_hi,
-                                      int(gains_poly))
+            if stochastic:
+                ack_poly = fit_piecewise_poly(
+                    lambda vs: basis_at(vs).reshape(len(vs), 30),
+                    band("gains_poly"), v_hi, int(gains_poly))
+            else:
+                poly = fit_piecewise_poly(gains_at, band("gains_poly"), v_hi,
+                                          int(gains_poly))
 
+        p_dist_roll = _chk_range("p_dist_roll", p_dist_roll, 0.0, 1.0)
+        p_dist_steer = _chk_range("p_dist_steer", p_dist_steer, 0.0, 1.0)
         out = super().create(
             calib_mode=calib_mode, verbose=verbose,
             br_A0=A0, br_A1=A1, br_A2=A2, br_B=B, br_B_roll=B_roll,
             br_pole_lin=pole_lin, br_gains_fixed=gains_fixed,
-            p_dist_roll=p_dist_roll, p_dist_steer=p_dist_steer, **kw)
+            controlparam_resampling_speedthresh=(
+                controlparam_resampling_speedthresh),
+            p_dist_roll=p_dist_roll, p_dist_steer=p_dist_steer,
+            T_dist_roll=T_dist_roll, T_dist_steer=T_dist_steer, **kw)
         return dataclasses.replace(
             out, br_gains_lut=lut, br_prop_lut=plut, br_gains_poly=poly,
-            br_prop_poly=prop_pl, stochastic_control_behavior=False,
-            br_disturb=False)
+            br_prop_poly=prop_pl, br_ackermann_lut=ack_lut,
+            br_ackermann_poly=ack_poly,
+            stochastic_control_behavior=stochastic, polemodel_rt=pm_rt,
+            br_resample_budget=int(resample_budget),
+            br_resample_every=int(resample_every),
+            br_disturb=bool(np.any(p_dist_roll) or np.any(p_dist_steer)))
 
     @staticmethod
     def _gains_sweep(A0, A1, A2, B, pole_lin, gains_fixed):
@@ -746,14 +808,6 @@ def _host(value):
                       else value)
 
 
-def not_ported_stochastic(what: str):
-    """The refusal of the balancing rider's stochastic parts."""
-    return NotImplementedError(
-        f"{what}: the balancing rider's stochastic control behavior and "
-        f"torque disturbances are not ported yet (ROADMAP Queue 1 item 9: "
-        f"they need a per-agent counter-based random stream)")
-
-
 @dataclass(frozen=True)
 class HessBikeRiderParams(BalancingRiderParams):
     """BalancingRider physics under the fixed Hess/Moore neuromuscular
@@ -774,6 +828,24 @@ class HessBikeRiderParams(BalancingRiderParams):
         kw.setdefault("gains", np.zeros(5))
         return super().create(k_delta=k_delta, k_phi=k_phi, k_dphi=k_dphi,
                               k_psi=k_psi, omega=omega, zeta=zeta, **kw)
+
+
+@dataclass(frozen=True)
+class RoadElementParams:
+    """Road-edge repulsion and drawing parameters (reference
+    parameters.py:367-418)."""
+
+    F_0: Any = 0.05
+    sigma: Any = 3.0
+    # drawing style (host-side metadata, reference defaults)
+    roadsurface_color: Any = (0.8, 0.8, 0.8)
+    roadedge_color: Any = "white"
+    roadedge_linewidth: float = 1.0
+
+    @classmethod
+    def create(cls, F_0: float = 0.05, sigma: float = 3.0, **kw):
+        return cls(F_0=float(_chk_nonneg("F_0", F_0)),
+                   sigma=float(_chk_nonneg("sigma", sigma)), **kw)
 
 
 PARAM_CLASSES = {cls.__name__: cls for cls in (

@@ -2,9 +2,10 @@
 
 Counterpart of `cyclistsocialforce_tpu.state`: one dataclass of
 ``[N, ...]`` tensors with the same fields, shapes and dtypes (int32
-counters, bool `znav`/`active`, a 0-d int32 `t_glob`). The JAX state's
-`key` field (a PRNG key read only by the stochastic models) is dropped:
-no model of this package draws random numbers.
+counters, bool `znav`/`active`, a 0-d int32 `t_glob`) and the master
+random key `key`, a [2] int64 tensor holding JAX's two uint32 words: the
+stochastic balancing rider draws from it through `agent_streams`
+(`ops.random`, JAX's threefry streams bit for bit).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from cyclistsocialforce_tpu_torch.ops import random as rnd
 from cyclistsocialforce_tpu_torch.utils.angles import limit_angle
 
 # unified state-vector layout (superset of all models):
@@ -49,6 +51,8 @@ class AgentState:
     pos_hist: torch.Tensor       # [N, H, 2] float; slot t % H = pos @ t
     active: torch.Tensor         # [N] bool
     uid: torch.Tensor            # [N] int32 persistent agent identity
+    key: torch.Tensor            # [2] int64 master random key (constant:
+    #                              draws derive from t_glob and uid)
 
     @property
     def n(self) -> int:
@@ -81,7 +85,7 @@ _DEFAULT_WIDTHS = {"dyn_x": 7, "dyn_gains": 12, "zrid": 2}
 
 def make_state(s0, queue_size: int = 16, hist_len: int = 128,
                v_max_walk=None, dtype=torch.float32, model=None,
-               device="cuda") -> AgentState:
+               device="cuda", seed: int = 0) -> AgentState:
     """Create an AgentState population from initial states.
 
     s0 : array-like [N, k], k <= 8, initial (x, y, psi, v[, ...]);
@@ -94,6 +98,7 @@ def make_state(s0, queue_size: int = 16, hist_len: int = 128,
         model-dependent fields (unused ones become zero-width).
     device : where the state lives (the card unless the caller asks for
         the CPU).
+    seed : the master random key is `jax.random.PRNGKey(seed)`'s.
     """
     widths = dict(_DEFAULT_WIDTHS)
     if model is not None:
@@ -153,7 +158,18 @@ def make_state(s0, queue_size: int = 16, hist_len: int = 128,
         pos_hist=s[:, None, :2].expand(n, hist_len, 2).clone(),
         active=torch.ones((n,), dtype=torch.bool, device=device),
         uid=torch.arange(n, dtype=torch.int32, device=device),
+        key=rnd.key(seed, device),
     )
+
+
+def agent_streams(key, t_glob, uid, salt: int):
+    """Per-agent keys [len(uid), 2], a pure function of (master key, global
+    step clock, agent uid, call-site salt), as the JAX package's
+    `state.agent_streams` draws them: two folds of the master key (salt,
+    then t_glob, a 0-d tensor read on the device), then one per uid. A
+    draw keyed so follows its agent through any row permutation."""
+    ks = rnd.fold_in(rnd.fold_in(key, salt), t_glob)
+    return rnd.fold_in(ks, uid)
 
 
 def set_destinations(state: AgentState, agent: int, x, y, stop=None,

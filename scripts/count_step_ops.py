@@ -8,8 +8,12 @@ Counts: one eager step of the sorted-resident chunk (`Engine.run_chunk`,
 one step, after a warm-up step) of `slice`, `slice_twod`,
 `slice_invpendulum` (poly and exact propagator), planarpoint,
 planarbicycle, `slice_balancingrider` (gains_poly) and the balancing
-rider's other gain modes and the Hess model on the stable crowd, each on
-an n-rider crowd, under a `TorchDispatchMode`
+rider's other gain modes and the Hess model on the stable crowd,
+`slice_stochastic` (bench.py's "stochastic" row: on a step where its
+cadence resamples, on one where it does not, and with the cadence decided
+on the device) and `slice_stochastic_exact`, and the main path with
+`chip_smoke.py`'s road (graph_parity's road case), each on an n-rider
+crowd, under a `TorchDispatchMode`
 that counts every aten operation (views included: on the card a view
 launches no kernel, so the count bounds the device kernels from above).
 A count of operations, not a device figure. Prints one JSON line per
@@ -29,8 +33,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as C  # noqa: E402
 from cyclistsocialforce_tpu_torch.engine import permute_state  # noqa: E402
-from cyclistsocialforce_tpu_torch.scenarios import \
-    build_population  # noqa: E402
+from cyclistsocialforce_tpu_torch.scenarios import (  # noqa: E402
+    build_population, stochastic_row)
 
 
 class Counter(TorchDispatchMode):
@@ -45,12 +49,14 @@ class Counter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def ops_per_step(engine, state):
+def ops_per_step(engine, state, t0=None):
+    """Operations of one sorted-resident step; `t0` the global step as the
+    host knows it (None: a clock-dependent step decides on the device)."""
     cache = engine.neighbor_cache(state)
     state = permute_state(state, cache[0])
-    engine.run_chunk(state, cache, 1, True)
+    engine.run_chunk(state, cache, 1, True, t0=t0)
     with Counter() as counter:
-        engine.run_chunk(state, cache, 1, True)
+        engine.run_chunk(state, cache, 1, True, t0=t0)
     return counter.n
 
 
@@ -80,9 +86,23 @@ def main():
             C.make_model_engine(C.br_model(mode),
                                 C.br_params(mode, "cpu")),
             C.stable_crowd(mode, args.n, f32, "cpu"))
+    clocks = {}
+    for row in ("stochastic", "stochastic_exact"):
+        engine, state = stochastic_row(row, args.n, device="cpu")
+        name = f"slice_{row}"
+        paths[name] = (engine, state)
+        clocks[name] = 0
+        if row == "stochastic":
+            for t0, tag in ((1, "not_resampling"), (None, "device_clock")):
+                paths[f"{name}_{tag}"] = (engine, state)
+                clocks[f"{name}_{tag}"] = t0
+    paths["road"] = (C.make_engine(road=C.road_elements(args.n, f32, "cpu")),
+                     build_population(args.n, C.DENSITY, C.HIST_LEN, C.BLOCK,
+                                      f32, "cpu"))
     for name, (engine, state) in paths.items():
         print(json.dumps({"path": name, "n": args.n,
-                          "aten_ops_per_step": ops_per_step(engine, state)}),
+                          "aten_ops_per_step": ops_per_step(
+                              engine, state, clocks.get(name))}),
               flush=True)
 
 

@@ -5,7 +5,7 @@ reference's golden, in every deterministic gain mode.
 On the CPU: `create` in each mode (exact placement, `gains_lut`,
 `gains_poly`, `prop_lut`, `prop_poly`, fixed gains, fixed poles) against
 JAX's (matrices, pole functions, tables and fits at 1e-12 relative), its
-validation and the refusals of the stochastic parts; `prepare` and one
+validation and what stays refused of the stochastic parts; `prepare` and one
 step of each mode (shared and per-rider parameters, riders whose speed
 does not change holding their cached gains) against the JAX step at
 1e-12; the gains_poly evaluation against JAX's select form, and at the
@@ -160,23 +160,24 @@ def test_create_validation():
 
 
 def test_stochastic_parts_raise():
-    """The stochastic control behavior and the torque disturbances are
-    refused in `create` and in `step`, naming ROADMAP item 9; `replace`
-    keeps `br_disturb` fresh, as the JAX package's does."""
-    for kw in ({"stochastic_control_behavior": True},
-               {"p_dist_roll": 0.05}, {"p_dist_steer": 0.02},
-               {"stochastic_control_behavior": True, "prop_lut": 64}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            BalancingRiderParams.create(**kw)
+    """What stays refused of the stochastic parts, now ported
+    (tests/test_torch_stochastic.py): the propagator modes with the
+    stochastic control behavior raise JAX's ValueError; the stochastic
+    parameters and the disturbances step and prepare; `replace` keeps
+    `br_disturb` fresh, as the JAX package's does."""
+    for kw in ({"prop_lut": 64}, {"prop_poly": 16}):
+        with pytest.raises(ValueError, match="prop"):
+            BalancingRiderParams.create(stochastic_control_behavior=True,
+                                        **kw)
     p = port_params("gains_poly")
     st = prepare(MODELS["balancingrider"], p, stable_state())
     f = torch.ones(st.n, dtype=torch.float64)
-    for bad in (p.replace(stochastic_control_behavior=True),
-                p.replace(p_dist_steer=0.1)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            BR.step(bad, st, f, f)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            prepare(MODELS["balancingrider"], bad, st)
+    for kw in ({"stochastic_control_behavior": True},
+               {"p_dist_steer": 0.1}):
+        other = BalancingRiderParams.create(gains_poly=16, **kw)
+        out = BR.step(other, prepare(MODELS["balancingrider"], other, st),
+                      f, f)
+        assert torch.isfinite(out.s).all()
     assert p.replace(p_dist_steer=0.1).br_disturb is True
     assert p.replace(p_dist_steer=0.1).replace(
         p_dist_steer=0.0).br_disturb is False

@@ -261,12 +261,18 @@ def test_pair_columns_per_leaf_match_jax(jx, sizes):
 
 
 def test_refuses_road_and_scripted():
-    """Road elements and scripted agents are not ported: each raises an
+    """Road elements are ported: `road=` is taken as the JAX package's
+    MixedEngine takes it. Scripted agents are not: `scripted=` raises an
     error that names ROADMAP item 11."""
+    from cyclistsocialforce_tpu_torch.road import (build_road_elements,
+                                                   straight_segment)
+
     specs = [("bicycle2d", BicycleParams.create(), 2)]
-    for kw in (dict(road=object()), dict(scripted=object())):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            MixedEngine.create(specs, **kw)
+    road = build_road_elements([straight_segment((0, 0, 0), 4, 10)],
+                               device=DEV)
+    assert MixedEngine.create(specs, road=road).road is road
+    with pytest.raises(NotImplementedError, match="item 11"):
+        MixedEngine.create(specs, scripted=object())
 
 
 def test_state_slice_and_merge_round_trip():

@@ -27,6 +27,8 @@ STATE_FIELDS = [f.name for f in dataclasses.fields(AgentState)]
 
 def assert_state_equal(port_state, jax_state):
     got = convert.state_to_numpy(port_state)
+    # the key's two uint32 words are int64 in the port
+    got["key"] = got["key"].astype(np.uint32)
     for f in STATE_FIELDS:
         want = np.asarray(getattr(jax_state, f))
         assert got[f].shape == want.shape, f
