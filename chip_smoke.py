@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives ten paths: the main path through K1 (`csrc/pair_forces.cu`,
+It drives twelve paths: the main path through K1 (`csrc/pair_forces.cu`,
 twod field, unscreened), the same path through K2
 (`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled"), a crowd with
 per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
@@ -15,7 +15,9 @@ inverted-pendulum model (the ZOH propagator as a piecewise quintic),
 the balancing rider (the Whipple model, its gains as a piecewise
 quintic), and the stochastic balancing rider in bench.py's two rows
 (pole features resampled from the pole model, budget and cadence, and
-without them) through K1's main form.
+without them) through K1's main form; the main path with 1% of its
+riders scripted through K1's per-rider column form; and the Kaths
+external model on the generic culled path, which has no pair kernel.
 Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
@@ -50,9 +52,11 @@ non-zero):
                end, the time of the first run and of the capture in it; a
                device trace of 40 more graphed steps, which must show 40
                runs of K1's kernel and none of K2's or K3's (a trace for
-               which Kineto's log reports lost records is void and taken
-               again, TRACE_ATTEMPTS in all; a count that disagrees with
-               no loss reported fails); then the
+               which Kineto's log reports lost records, or which shows
+               fewer runs of the path's kernel than the replays launched
+               and nothing else (TRACE_UNDERCOUNT), is void and taken
+               again, TRACE_ATTEMPTS in all; any other disagreement
+               fails); then the
                eager loop (`graph=False`) and the graphed one timed in
                turns, TIMED_ROUNDS runs of each: ms per step of both,
                their spreads and the ratio;
@@ -94,6 +98,21 @@ non-zero):
                and every needy rider at once), each as slice_balancingrider,
                with the resamples per step and the riders still needy after
                each over RESAMPLE_STATS_STEPS eager steps reported;
+  9g. slice_scripted  the main path's crowd and NeighborConfig with every
+               SCRIPTED_EVERY-th rider (1,000) replaying a straight
+               SCRIPT_STEPS-step track (`engine.ScriptedTraj`, uid-indexed,
+               [100,096, 120, 8] float32) and emitting SCRIPTED_FIELD
+               through per-rider f_0 and sigma_1 columns: 240 K1 launches
+               in the column form (`uniform=None`), sorted-resident; every
+               scripted rider exactly at its last point after the run
+               (hold) and on its track after PARITY_STEPS steps (replay);
+  9h. slice_kaths  100,000 Kaths riders (`external.py`, BicycleParams
+               with the Kaths parameter dicts) uniform at DENSITY on the
+               generic culled path (`backend="xla"`: cutoff, blocks and
+               rebuild of the main path, kb from the overflow audit): no
+               pair kernel launched (none counted, none in the trace), the
+               generic path's calls per step and the peak memory of a
+               step reported;
  10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
@@ -138,6 +157,12 @@ non-zero):
                resample the same riders); then the pole-feature and
                disturbance draws of 100,000 riders and of their rows
                shuffled, per uid bit for bit;
+ 12f. parity_scripted, parity_kaths  the slice_scripted and slice_kaths
+               configurations on PARITY_N riders, 45 steps: the card in
+               float32 against the CPU (scripted: against the CPU's
+               float32 run under both tiers and float64 as SCRIPTED_F32
+               says, every scripted rider exactly on its track; Kaths:
+               against float64 under both tiers, finite);
  13. graph_parity  on each of the ten paths 45 steps (two chunks and a
                5-step tail) with `graph=False` and with the graph from the
                same 100,000-rider state: every field of the final state
@@ -149,10 +174,18 @@ non-zero):
                (`graph_parity_models`), and on 4,096-rider stable crowds
                of the balancing rider in each gain mode of BR_MODES and
                of the Hess model, of the stochastic cases of
-               STOCH_MODES, and of the main path with a road
-               (`road_elements`); one eager chunk of each of those
-               twenty-one with every host synchronisation an error (at
-               full width where it is a path);
+               STOCH_MODES, of the main path with a road
+               (`road_elements`) and of slice_scripted and slice_kaths;
+               one eager chunk of each of those twenty-three with every
+               host synchronisation an error (at full width where it is a
+               path);
+ 13b. scenario  a `Scenario` of the main path on the card, N_STEPS steps
+               in chunks of SCENARIO_CHUNK (one simulate call each), and
+               the same run checkpointed at SCENARIO_SPLIT and restored
+               into a fresh engine's scenario: bit-equal final states;
+ 13c. diagnostics  `checked_simulate` of the main path at full width: a
+               clean run reports nothing, a NaN injected at step DIAG_AT
+               is reported at that step;
  14. metrics   `simulate(state, 240, record=False, record_metrics=True)` on
                the main path: [240, 8], finite, 100,000 active and no
                overflow in every row, speeds within the model's limits;
@@ -160,7 +193,8 @@ non-zero):
                first call's state and records are unchanged by the second;
  16. profile   one torch.profiler window of 40 graphed steps of the main
                path, `slice_twod`, `slice_mixed`, `slice_invpendulum`,
-               `slice_balancingrider` and the two stochastic paths:
+               `slice_balancingrider`, the two stochastic paths,
+               `slice_scripted` and `slice_kaths`:
                device kernels and host launches per step, device-busy ms
                per step, the card's idle share, the kernels that take most
                of the time, and the device kernels per step that the twod
@@ -168,8 +202,8 @@ non-zero):
                twod's, the balancing-rider step to the main path's and the
                stochastic steps to the balancing rider's.
 
-They run in this order: 1-9f (the timed phases), 16, then 13-15 and
-10-12e. The CPU reference runs of 10-12e start after 16 in CPU_WORKERS
+They run in this order: 1-9h (the timed phases), 16, then 13-15, 13b,
+13c and 10-12f. The CPU reference runs of 10-12e start after 16 in CPU_WORKERS
 worker processes of one thread each (`CpuReferences`, the longest first)
 and are collected by their phases at the end: no timed phase shares the
 host with them.
@@ -177,8 +211,9 @@ host with them.
 Then the wall seconds of each phase and of the script, a JSON line with
 the kernels' launch counts (each from its own path, with every count set
 to 0 just before it: the replayed launches, and the warm-up's beside
-them; K1's on each of its six paths under `paths`), the block-64 and
-block-256 forms under `blocks`,
+them; K1's on each of its paths under `paths`, its column form's on
+slice_scripted under `columns`), the block-64 and block-256 forms under
+`blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
 kernel's, same work, same call), the nvidia-smi line, and last
@@ -377,6 +412,28 @@ OPS_TWOD, OPS_LEGACY, OPS_FOV, OPS_P2R, OPS_FAMILY = 67, 35, 5, 4, 1
 OPS_SFU_TWOD, OPS_SFU_LEGACY = 5, 2
 # calls timed in turns (a, b, b, a) for the in-call yardsticks
 YARDSTICK_REPS = 50
+# slice_scripted: every SCRIPTED_EVERY-th rider of the main path's crowd
+# (1,000 of the 100,000) replays a straight SCRIPT_STEPS-step track along
+# its initial heading at its initial speed, then holds its last point; the
+# scripted riders emit the crossing car's field of tests/test_scripted.py
+# (SCRIPTED_FIELD) through per-rider f_0 and sigma_1 columns, which puts
+# K1 on its column form (`uniform=None`). Its parity run scripts the
+# PARITY_N crowd the same way
+SCRIPTED_EVERY, SCRIPT_STEPS = 100, 120
+SCRIPTED_FIELD = {"f_0": 12.0, "sigma_1": 8.0}
+# SCRIPTED_F32: on the CPU, the plain version in float32 against float64
+# on the parity_scripted crowd leaves one rider of 6,144 2.6e-2 m apart
+# after 45 steps (past the cap; 4 beyond 1e-3 m, inside the 99.9% tier),
+# the field discontinuities' story (see PARITY_N: a 4,096-rider draw of
+# the unscripted crowd once did the same). So the card is held to the
+# CPU float32 run under both tiers, and to float64 under every tier that
+# the CPU's own float32 run meets
+# the scenario phase: Scenario chunks of SCENARIO_CHUNK steps, one
+# simulate call (one graph replay) each, a checkpoint at SCENARIO_SPLIT
+SCENARIO_CHUNK, SCENARIO_SPLIT = 20, 120
+# the diagnostics phase: checked_simulate over DIAG_STEPS steps of the
+# main path at full width, a NaN injected into one rider at DIAG_AT
+DIAG_STEPS, DIAG_AT = 30, 17
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 
@@ -402,14 +459,136 @@ def neighbor_config(**kw):
     return NeighborConfig(**{**cfg, **kw})
 
 
-def make_engine(params=None, road=None, **kw):
+def make_engine(params=None, road=None, scripted=None, **kw):
     from cyclistsocialforce_tpu_torch import Engine
     from cyclistsocialforce_tpu_torch.models import MODELS
     from cyclistsocialforce_tpu_torch.params import BicycleParams
 
     return Engine.create(params or BicycleParams.create(),
                          MODELS["bicycle2d"], rep_force="twod",
-                         neighbors=neighbor_config(**kw), road=road)
+                         neighbors=neighbor_config(**kw), road=road,
+                         scripted=scripted)
+
+
+def scripted_setup(state):
+    """(params, ScriptedTraj, scripted uids) of the slice_scripted
+    configuration on `state`'s crowd: every SCRIPTED_EVERY-th active rider
+    on a straight SCRIPT_STEPS-step track from its initial state (row k
+    the point k + 1 steps ahead), with per-rider f_0 and sigma_1
+    (SCRIPTED_FIELD on the scripted riders, BicycleParams' defaults on
+    the rest) in the state's dtype on its device."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import ScriptedTraj
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    base = BicycleParams.create()
+    s = state.s.double().cpu().numpy()
+    uids = np.flatnonzero(state.active.cpu().numpy()
+                          & (np.arange(state.n) % SCRIPTED_EVERY == 0))
+    ahead = base.t_s * np.arange(1, SCRIPT_STEPS + 1)
+    tracks = {}
+    for a in uids.tolist():
+        x, y, psi, v = s[a, :4]
+        tracks[a] = np.stack([x + v * ahead * np.cos(psi),
+                              y + v * ahead * np.sin(psi),
+                              np.full(SCRIPT_STEPS, psi),
+                              np.full(SCRIPT_STEPS, v)], axis=1)
+    scripted = ScriptedTraj.create(state.n, tracks, dtype=state.s.dtype,
+                                   device=state.device)
+    cols = {}
+    for f, value in SCRIPTED_FIELD.items():
+        col = torch.full((state.n,), float(getattr(base, f)),
+                         dtype=state.s.dtype, device=state.device)
+        col[torch.as_tensor(uids, device=state.device)] = value
+        cols[f] = col
+    return base.replace(**cols), scripted, uids
+
+
+def scripted_engine(state, **kw):
+    """The main path's engine (K1, unscreened) with slice_scripted's
+    scripts and per-rider field columns on `state`'s crowd; `kw` changes
+    the NeighborConfig."""
+    params, scripted, _ = scripted_setup(state)
+    return make_engine(params, scripted=scripted, **kw)
+
+
+def scripts_followed(engine, state, final, steps):
+    """Every scripted rider of `final` (the run of `steps` steps from
+    `state`) exactly at its script's row steps (replay) or, past the
+    script's end, at its last row (hold)."""
+    import torch
+
+    sc = engine.scripted
+    rows = sc.mask.nonzero()[:, 0]
+    at = torch.clamp(torch.full_like(rows, steps), max=SCRIPT_STEPS - 1)
+    want = sc.traj[rows, at, :4].to(final.s.dtype)
+    got = final.s[rows, :4]
+    mode = "replay" if steps < SCRIPT_STEPS else "hold"
+    exact = bool(torch.equal(got, want))
+    out = {"scripted_riders": int(rows.numel()), "steps": steps,
+           "mode": mode, "exactly_on_script": exact,
+           "max_abs_from_script": float((got - want).abs().max())}
+    if not exact:
+        raise AssertionError(f"scripted riders off their scripts after "
+                             f"{steps} steps ({mode}): {out}")
+    return out
+
+
+def make_kaths_engine(params=None, **kw):
+    """The Kaths external model (`external`, BicycleParams with the Kaths
+    parameter dicts) on the generic culled path (backend "xla") with the
+    main path's cutoff, blocks and rebuild interval, `kw` changed."""
+    from cyclistsocialforce_tpu_torch import Engine, NeighborConfig, external
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    kaths = external.KATHS_VELOANISO_PARAMS
+    cfg = dict(cutoff=CUTOFF, block=BLOCK, block_src=BLOCK_SRC, kb=KB,
+               rebuild_every=REBUILD, backend="xla")
+    return Engine.create(params or BicycleParams.create(
+        rep_force=kaths, dest_force=kaths), external,
+        neighbors=NeighborConfig(**{**cfg, **kw}))
+
+
+def kaths_crowd(n, dtype, device, pad=BLOCK):
+    """The bench crowd (`build_population`) as Kaths riders, each riding
+    toward its one destination."""
+    from cyclistsocialforce_tpu_torch import external
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
+    return build_population(n, DENSITY, HIST_LEN, pad, dtype, device,
+                            model=external)
+
+
+def kaths_report(engine, state):
+    """slice_kaths's line: no pair kernel, the generic path's calls per
+    step, and the peak device memory of its eager step over the state's
+    own."""
+    import torch
+
+    cfg = engine.neighbors
+
+    def report(final):
+        cache = engine.neighbor_cache(state)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.step_with_forces(state, cache)
+        torch.cuda.synchronize()
+        blocks = state.n // cfg.block
+        per_call = engine.generic_blocks_per_call()
+        return {"pair_kernel": None,
+                "note": "the generic culled path has no kernel in either "
+                        "package: it launches no pair kernel",
+                "generic_calls_per_step": -(-blocks // per_call),
+                "blocks_per_call": per_call,
+                "tile_pairs_per_step": blocks * cfg.kb * cfg.block_src
+                * cfg.block,
+                "step_peak_bytes_over_state": torch.cuda.max_memory_allocated()
+                - base}
+
+    return report
 
 
 def make_legacy_engine(params=None, **kw):
@@ -1047,7 +1226,15 @@ DROP_PATTERN = re.compile(r"dropped|buffer size configured|overflow",
 KINETO_WARNING = 2
 # a trace whose records Kineto reports lost is void and taken again, up to
 # this many times in all; a count that disagrees with no loss reported fails
+# unless it is a pure undercount (TRACE_UNDERCOUNT)
 TRACE_ATTEMPTS = 3
+# TRACE_UNDERCOUNT: a trace may lose a record without Kineto's log saying
+# so: on an H100 a slice_mixed trace once showed 39 of 40 K1 runs with
+# the replay counters at 40 and no loss in the log (ROADMAP Queue 3.12).
+# A trace that shows fewer runs of the path's own kernel than the replays
+# launched, none of another kernel and none by a wrapper is therefore
+# void as well; one more run than the replays, another kernel, or a
+# launch by a wrapper still fails at once
 
 
 @contextlib.contextmanager
@@ -1110,7 +1297,8 @@ def phase_slice(phase, engine, state, kernel, report=None):
     state, no table overflow at t = 0 and t = end. Then the eager loop and
     the graphed one timed in turns, TIMED_ROUNDS runs of each. `report`:
     a function of the run's final state whose dict goes into the run's
-    line."""
+    line. `kernel` None: a path that launches no pair kernel (the generic
+    culled path), held to none launched and none in the trace."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
@@ -1163,13 +1351,17 @@ def phase_slice(phase, engine, state, kernel, report=None):
         by_wrapper = named(PF.launch_counts())
         agree = (traced == replayed == only(PROFILE_STEPS)
                  and by_wrapper == only(0))
+        undercount = (not agree and replayed == only(PROFILE_STEPS)
+                      and by_wrapper == only(0)
+                      and all(traced[k] <= replayed[k] for k in traced))
         emit(f"{phase}_trace", steps=PROFILE_STEPS, attempt=attempt,
              device_trace_kernels=traced, counted_replayed=replayed,
              counted_by_wrappers=by_wrapper, lost_records_reported=lost,
-             void=bool(lost) and not agree)
+             undercount=undercount,
+             void=(bool(lost) or undercount) and not agree)
         if agree:
             break
-        if not lost:
+        if not (lost or undercount):
             raise AssertionError(
                 f"{phase}: the device trace of {PROFILE_STEPS} graphed "
                 f"steps shows {traced}, the replay counters {replayed}, "
@@ -1177,8 +1369,9 @@ def phase_slice(phase, engine, state, kernel, report=None):
                 f"lost record")
     else:
         raise AssertionError(
-            f"{phase}: all {TRACE_ATTEMPTS} device traces were void (the "
-            f"profiler reported lost records): the replays are unchecked")
+            f"{phase}: all {TRACE_ATTEMPTS} device traces were void (lost "
+            f"records reported, or an undercount): the replays are "
+            f"unchecked")
 
     runs = {"eager": [], "graphed": []}
     for _ in range(TIMED_ROUNDS):
@@ -1204,6 +1397,8 @@ def phase_slice(phase, engine, state, kernel, report=None):
          spread_ms_per_step={how: ms(max(r) - min(r))
                              for how, r in runs.items()},
          eager_over_graphed=med["eager"] / med["graphed"], runs_s=runs)
+    if kernel is None:
+        return 0, 0
     return launches[kernel.__name__], warm_up[kernel.__name__]
 
 
@@ -1431,6 +1626,13 @@ def cpu_case(kind, **kw):
         n = 2 * PARITY_MIXED_HALF
         return make_mixed_engine(n, kb=kw["kb"]), with_queues(twod_crowd(
             n, f64, "cpu", None))
+    if kind == "parity_scripted":
+        st = build_population(PARITY_N, DENSITY, HIST_LEN, BLOCK,
+                              getattr(torch, kw["dtype"]), "cpu")
+        return scripted_engine(st), st
+    if kind == "parity_kaths":
+        return make_kaths_engine(kb=kw["kb"]), kaths_crowd(PARITY_N, f64,
+                                                           "cpu")
     if kind == "parity_invpendulum":
         params = ip_params(kw["exact"])
         engine = make_model_engine("invpendulum", params)
@@ -1506,12 +1708,15 @@ class CpuReferences:
                  wall_s=time.perf_counter() - self.t0)
 
 
-def cpu_specs(db_kb, leg_kb, mixed_kb):
+def cpu_specs(db_kb, leg_kb, mixed_kb, kaths_kb):
     """Every CPU reference run of the parity phases, the longest first."""
-    specs = [("parity_legacy", {"kb": leg_kb, "dtype": d})
-             for d in ("float64", "float32")]
+    specs = [("parity_kaths", {"kb": kaths_kb})]
+    specs += [("parity_legacy", {"kb": leg_kb, "dtype": d})
+              for d in ("float64", "float32")]
     specs += [("parity_mixed", {"kb": mixed_kb}), ("parity_twod", {}),
               ("parity", {})]
+    specs += [("parity_scripted", {"dtype": d})
+              for d in ("float64", "float32")]
     specs += [("parity_invpendulum", {"exact": e, "pairs32": p})
               for e in (True, False) for p in (False, True)]
     specs += [("parity_balancingrider", {"mode": m, "pairs32": p})
@@ -1879,6 +2084,139 @@ def poly_float32_excess(poly, v, got):
     return best
 
 
+def phase_parity_scripted(cpu):
+    """slice_scripted's configuration on the PARITY_N crowd, 45 steps:
+    every scripted rider of the card's run exactly on its script
+    (replay); the card in float32 (K1's column form) against the plain
+    version on the CPU in float32 under both tiers, and against the CPU
+    in float64 under both tiers but where the CPU's own float32 run fails
+    a tier too (SCRIPTED_F32: reported beside it)."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+
+    st = build_population(PARITY_N, DENSITY, HIST_LEN, BLOCK, torch.float32,
+                          "cuda")
+    engine = scripted_engine(st)
+    audit_overflow(engine, st, "parity_scripted t=0")
+    card = card_final(engine, st)
+    replay = scripts_followed(engine, st, card, PARITY_STEPS)
+    cpu32 = cpu.get("parity_scripted", dtype="float32")
+    cpu64 = cpu.get("parity_scripted", dtype="float64")
+    vs32, vs64 = parity_errors(card, cpu32), parity_errors(card, cpu64)
+    base = parity_errors(cpu32, cpu64)
+    excused = [k for k in vs64["failed"] if k in base["failed"]]
+    info = dict(steps=PARITY_STEPS, rebuild_every=REBUILD, n=PARITY_N,
+                scripts=replay)
+    emit("parity_scripted", runs="card float32 K1 columns vs CPU float32 "
+         "plain (enforced)", cpu_run_s=cpu32.seconds, **info, **vs32)
+    emit("parity_scripted", runs="card float32 K1 columns vs CPU float64 "
+         "plain (enforced but where the CPU's float32 run fails too)",
+         cpu_run_s=cpu64.seconds, **info, **vs64, excused=excused,
+         cpu_float32_vs_float64={
+             k: base[k] for k in ("max", "p99.9", "n_over_tol", "failed")})
+    failed = vs32["failed"] + [k for k in vs64["failed"]
+                               if k not in excused]
+    if failed:
+        raise AssertionError(f"parity_scripted failed: {failed}")
+
+
+def phase_parity_kaths(kb, cpu):
+    """slice_kaths's configuration on the PARITY_N crowd, 45 steps: the
+    card in float32 against the CPU in float64 (the generic culled path
+    on both) under both tiers, and every state finite."""
+    import torch
+
+    st = kaths_crowd(PARITY_N, torch.float32, "cuda")
+    engine = make_kaths_engine(kb=kb)
+    audit_overflow(engine, st, "parity_kaths t=0")
+    card = card_final(engine, st)
+    if not torch.isfinite(card.s).all():
+        raise AssertionError("parity_kaths: non-finite state on the card")
+    ref = cpu.get("parity_kaths", kb=kb)
+    compare_runs("parity_kaths", card, ref, n=PARITY_N,
+                 cpu_run_s=ref.seconds, finite=True,
+                 runs="card float32 vs CPU float64, generic culled path")
+
+
+def phase_scenario(state):
+    """A `Scenario` of the main path on the card: N_STEPS steps in chunks
+    of SCENARIO_CHUNK (each one simulate call, one graph replay), and the
+    same run interrupted at SCENARIO_SPLIT by a checkpoint that a fresh
+    engine's scenario restores: bit for bit the straight run's final
+    state."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import _STATE_FIELDS
+    from cyclistsocialforce_tpu_torch.scenario import Scenario
+
+    straight = Scenario(make_engine(), state, chunk=SCENARIO_CHUNK)
+    straight.run(n_steps=N_STEPS)
+    first = Scenario(make_engine(), state, chunk=SCENARIO_CHUNK)
+    first.run(n_steps=SCENARIO_SPLIT)
+    build = pathlib.Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    path = build / "scenario_checkpoint.npz"
+    t0 = time.perf_counter()
+    first.checkpoint(path)
+    resumed = Scenario(make_engine(), state, chunk=SCENARIO_CHUNK)
+    meta = resumed.restore(path)
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = path.stat().st_size
+    path.unlink()
+    resumed.run(n_steps=N_STEPS - SCENARIO_SPLIT)
+    torch.cuda.synchronize()
+    differ = [f for f in _STATE_FIELDS
+              if not torch.equal(getattr(straight.state, f),
+                                 getattr(resumed.state, f))]
+    emit("scenario", n=state.n, steps=N_STEPS, chunk=SCENARIO_CHUNK,
+         checkpoint_at=SCENARIO_SPLIT, restored_i=meta["i"],
+         resumed_i=resumed.i, checkpoint_and_restore_s=ckpt_s,
+         checkpoint_bytes=ckpt_bytes, fields_differing=differ,
+         straight_metrics=straight.metrics.summary(),
+         straight_ms_per_step_by_chunk=[
+             1e3 * t for t in straight.metrics.step_wall_times()])
+    if differ or resumed.i != N_STEPS or meta["i"] != SCENARIO_SPLIT:
+        raise AssertionError(f"scenario: the resumed run differs from the "
+                             f"straight one in {differ} (steps "
+                             f"{resumed.i})")
+
+
+def phase_diagnostics(state):
+    """`checked_simulate` of the main path at full width on the card: a
+    clean run reports nothing; a run whose model step turns one rider's y
+    into NaN at step DIAG_AT reports that step."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.diagnostics import checked_simulate
+    from cyclistsocialforce_tpu_torch.models import MODELS
+
+    engine = make_engine()
+    t0 = time.perf_counter()
+    clean, (fin, _) = checked_simulate(engine, DIAG_STEPS)(state)
+    clean_s = time.perf_counter() - t0
+    step = MODELS["bicycle2d"].step
+    victim = int(torch.nonzero(state.active)[0, 0])
+
+    def poisoned(params, st, fx, fy):
+        new = step(params, st, fx, fy)
+        s = new.s.clone()
+        s[victim, 1] = torch.where(st.i[victim] == DIAG_AT, float("nan"),
+                                   s[victim, 1])
+        return new.replace(s=s)
+
+    engine.model_step = poisoned
+    err, (_, traj) = checked_simulate(engine, DIAG_STEPS)(state)
+    finite_before = bool(torch.isfinite(traj[:DIAG_AT]).all())
+    want = f"non-finite state at step {DIAG_AT}"
+    emit("diagnostics", n=state.n, steps=DIAG_STEPS, clean=clean.get(),
+         clean_run_s=clean_s, injected_at=DIAG_AT, reported=err.get(),
+         finite_before=finite_before)
+    if clean.get() is not None or err.get() != want or not finite_before:
+        raise AssertionError(f"diagnostics: clean run {clean.get()!r}, "
+                             f"injected run {err.get()!r} (want {want!r})")
+
+
 def parity_errors(a, b):
     """Per-quantity error summary of final states `a` and `b`, and the
     list of checks that failed (see PARITY_TOL)."""
@@ -1961,6 +2299,10 @@ def main():
     parity_mixed_engine = audited_engine(
         lambda **kw: make_mixed_engine(n_mixed, **kw), "parity_mixed",
         parity_mixed_state)
+    scr_engine = scripted_engine(state)
+    kaths_state = kaths_crowd(N_AGENTS, torch.float32, "cuda")
+    kaths_engine = audited_engine(make_kaths_engine, "slice_kaths",
+                                  kaths_state)
     seconds = {}
 
     def timed(label, fn, *args):
@@ -1977,6 +2319,12 @@ def main():
                                      leg_engine, leg_db_engine, state)
     forms.update(mixed_forms)
     forms.update(timed("kernel_forms", phase_block_forms, state))
+    # K1's column form on slice_scripted's own packs
+    forms["k1_columns_scripted"] = timed(
+        "kernel_forms", check_form, "kernel_forms", "k1_columns_scripted",
+        PF.pair_forces_neighbors, sorted_inputs(scr_engine, state),
+        dict(block=BLOCK, block_src=BLOCK_SRC), dict(block=BLOCK,
+                                                     block_src=BLOCK_SRC))
     vs_k1.update(mixed_vs_k1)
     paths = {"slice": (engine, state),
              "slice_unrolled": (make_engine(backend="pallas_unrolled"),
@@ -1988,28 +2336,40 @@ def main():
              "slice_invpendulum": (ip_engine, ip_state),
              "slice_balancingrider": (br_engine, br_state),
              "slice_stochastic": (stoch_engine, stoch_state),
-             "slice_stochastic_exact": (exact_engine, exact_state)}
+             "slice_stochastic_exact": (exact_engine, exact_state),
+             "slice_scripted": (scr_engine, state),
+             "slice_kaths": (kaths_engine, kaths_state)}
     k1, k2, k3 = PF.KERNELS
     kernel_of = {"slice": k1, "slice_unrolled": k2, "slice_db": k3,
                  "slice_legacy": k1, "slice_twod": k1, "slice_mixed": k1,
                  "slice_invpendulum": k1, "slice_balancingrider": k1,
-                 "slice_stochastic": k1, "slice_stochastic_exact": k1}
+                 "slice_stochastic": k1, "slice_stochastic_exact": k1,
+                 "slice_scripted": k1, "slice_kaths": None}
 
     def stochastic_report(engine, state):
         return lambda final: {**fallen_share(final),
                               **resample_stats(engine, state)}
 
+    def scripted_report(final):
+        """Hold after the run; replay after PARITY_STEPS graphed steps."""
+        replay, _ = scr_engine.simulate(state, PARITY_STEPS, record=False)
+        return {"hold": scripts_followed(scr_engine, state, final, N_STEPS),
+                "replay": scripts_followed(scr_engine, state, replay,
+                                           PARITY_STEPS)}
+
     reports = {"slice_balancingrider": fallen_share,
                "slice_stochastic": stochastic_report(stoch_engine,
                                                      stoch_state),
                "slice_stochastic_exact": stochastic_report(exact_engine,
-                                                           exact_state)}
+                                                           exact_state),
+               "slice_scripted": scripted_report,
+               "slice_kaths": kaths_report(kaths_engine, kaths_state)}
     launches = {path: timed(path, phase_slice, path, *paths[path],
                             kernel_of[path], reports.get(path))
                 for path in paths}
     profiled = ("slice", "slice_twod", "slice_mixed", "slice_invpendulum",
                 "slice_balancingrider", "slice_stochastic",
-                "slice_stochastic_exact")
+                "slice_stochastic_exact", "slice_scripted", "slice_kaths")
     per_step = {path: timed("profile", phase_profile, path, *paths[path])
                 for path in profiled}
     emit("profile", twod_device_activities_per_step_over_slice=(
@@ -2020,17 +2380,22 @@ def main():
         per_step["slice_balancingrider"] - per_step["slice"]),
         stochastic_device_activities_per_step_over_balancingrider={
             path: per_step[path] - per_step["slice_balancingrider"]
-            for path in ("slice_stochastic", "slice_stochastic_exact")})
+            for path in ("slice_stochastic", "slice_stochastic_exact")},
+        scripted_device_activities_per_step_over_slice=(
+            per_step["slice_scripted"] - per_step["slice"]))
 
     # the CPU reference runs, in worker processes, after every timed
     # phase: the card-only phases run meanwhile, the parity phases
     # collect them last
     cpu = CpuReferences()
     cpu.start(cpu_specs(db_engine.neighbors.kb, leg_engine.neighbors.kb,
-                        parity_mixed_engine.neighbors.kb))
+                        parity_mixed_engine.neighbors.kb,
+                        kaths_engine.neighbors.kb))
     try:
         card_phases(timed, paths, engine, twod_engine, ip_engine,
                     br_engine, state)
+        timed("scenario", phase_scenario, state)
+        timed("diagnostics", phase_diagnostics, state)
         timed("parity", phase_parity, cpu)
         timed("parity_db", phase_parity_db, db_engine, state, cpu)
         timed("parity_legacy", phase_parity_legacy, leg_engine, cpu)
@@ -2045,6 +2410,9 @@ def main():
         timed("parity_balancingrider", phase_parity_balancingrider,
               br_state, cpu)
         timed("parity_stochastic", phase_parity_stochastic, cpu)
+        timed("parity_scripted", phase_parity_scripted, cpu)
+        timed("parity_kaths", phase_parity_kaths, kaths_engine.neighbors.kb,
+              cpu)
     finally:
         cpu.close()
     emit("phase_seconds", **seconds)
@@ -2084,6 +2452,10 @@ def card_phases(timed, paths, engine, twod_engine, ip_engine, br_engine,
                                   BLOCK, torch.float32, "cuda")
     model_cases["road"] = (make_engine(road=road_elements(
         GRAPH_PARITY_RECORD_N, torch.float32, "cuda")), road_state)
+    model_cases["slice_scripted"] = (scripted_engine(road_state), road_state)
+    small_kaths = kaths_crowd(GRAPH_PARITY_RECORD_N, torch.float32, "cuda")
+    model_cases["slice_kaths"] = (audited_engine(
+        make_kaths_engine, "graph_parity kaths", small_kaths), small_kaths)
     timed("graph_parity", phase_graph_parity, paths, {
         **model_cases,
         "slice": (engine, build_population(
@@ -2129,6 +2501,7 @@ def kernels_line(launches, kernel, forms, vs_k1, kernel_of):
          "mixed": {**mixed("k1_mixed_screen", "slice_legacy"),
                    "vs_k3_mixed": vs_k1["k3_mixed"]},
          "two_family": mixed("k1_two_family_screen", "slice_mixed"),
+         "columns": mixed("k1_columns_scripted", "slice_scripted"),
          "blocks": blocks("k1")},
         {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
          "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",

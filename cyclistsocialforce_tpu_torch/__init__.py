@@ -2,10 +2,13 @@
 
 Counterpart of `cyclistsocialforce_tpu` (JAX, Pallas, TPU) for one NVIDIA
 H100: the seven models (the balancing rider's stochastic behavior
-included, on JAX's random streams), `MixedEngine`, the road, and both
-repulsive fields summed densely or over a block-sparse neighbor table by
-hand-written CUDA kernels (`ops/pair_forces.py`, `csrc/`). The package
-imports torch and never JAX.
+included, on JAX's random streams), `MixedEngine`, the road, scripted
+agents (`engine.ScriptedTraj`), and both repulsive fields summed densely
+or over a block-sparse neighbor table by hand-written CUDA kernels
+(`ops/pair_forces.py`, `csrc/`); the Kaths external model through the
+engine's force hooks (`external.py`), the scenario runner with its
+checkpoints (`scenario.py`) and the runtime checks (`diagnostics.py`).
+The package imports torch and never JAX.
 """
 
 from cyclistsocialforce_tpu_torch import engine, params, state

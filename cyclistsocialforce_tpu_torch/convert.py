@@ -12,7 +12,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from cyclistsocialforce_tpu_torch.params import PARAM_CLASSES, to_leaf
+from cyclistsocialforce_tpu_torch.params import (PARAM_CLASSES,
+                                                 PARAM_DICT_FIELDS,
+                                                 param_dict, to_leaf)
 from cyclistsocialforce_tpu_torch.state import AgentState
 
 
@@ -41,9 +43,13 @@ def _leaf_from_jax(cls, name, value, device):
     population-shared table (`ip_zoh_lut`, `br_gains_lut`: table, v_lo,
     dv) a float64 tensor on `device` with its two floats, and a per-rider
     pole set (the JAX population's tuple of [N] arrays) an [N, k]
-    tensor."""
+    tensor, and an external model's parameter dict (`rep_force`,
+    `dest_force`, whose values JAX's `as_population` broadcasts per
+    agent) a dict of floats."""
     if value is None:
         return value
+    if name in PARAM_DICT_FIELDS:
+        return param_dict(name, {k: np.asarray(v) for k, v in value.items()})
     if name == "polemodel_rt":
         return polemodel_rt_from_jax(value)
     if name in getattr(cls, "STATIC_FIELDS", ()):
@@ -85,6 +91,15 @@ def road_from_jax(road, device="cuda"):
     n = np.shape(road.weights)
     return RoadElements(leaf("vertices", n + (2,)), leaf("weights", n),
                         leaf("F_0", n), leaf("sigma", n))
+
+
+def scripted_from_jax(sc, device="cuda"):
+    """The port's `engine.ScriptedTraj` (the trajectories in their dtype)
+    on `device` of a JAX `ScriptedTraj`."""
+    from cyclistsocialforce_tpu_torch.engine import ScriptedTraj
+
+    return ScriptedTraj(*(torch.from_numpy(np.array(getattr(sc, f))).to(
+        device) for f in ("traj", "mask", "length")))
 
 
 def params_from_jax(p, device="cuda"):

@@ -4,17 +4,24 @@ Counterpart of `cyclistsocialforce_tpu.engine`: one agent population on a
 shared space, advanced step by step --
 
   1. destination force with the destination-queue and navigation-FSM
-     updates (`dest_force_straight`, or `dest_force_hm`),
-  2. pairwise repulsive forces of the "twod" or "legacy" field: dense
-     over all pairs (`Engine.repulsive_sum`, plain PyTorch, as the JAX
-     package computes it outside any Pallas kernel), or culled over the
-     block-sparse neighbor table (`repulsive_sum_neighbors`, the pair
-     kernels of `ops.pair_forces`; the legacy field takes their mixed-
-     family form with every row legacy),
-  3. repulsive-force magnitude clamp and summation (`ops.forces`), plus
-     the road-edge repulsion of a `RoadElements` (`ops.forces.road_edge_force`),
+     updates (`dest_force_straight`, `dest_force_hm`, `dest_force_spline`
+     or an external model's callable), none for scripted agents,
+  2. pairwise repulsive forces of the "twod" or "legacy" field or of a
+     custom tile: dense over all pairs (`Engine.repulsive_sum`, plain
+     PyTorch, as the JAX package computes it outside any Pallas kernel),
+     or culled over the block-sparse neighbor table
+     (`repulsive_sum_neighbors`: the pair kernels of `ops.pair_forces`
+     for the named fields, the legacy field in their mixed-family form
+     with every row legacy; a custom tile per receiver block through
+     `repulsive_sum_neighbors_generic`, which has no kernel in either
+     package),
+  3. the repulsion reduced over the sources and combined with the
+     destination force (the magnitude clamp of `ops.forces`, or an
+     external model's `rep_reduce` and `combine_forces` hooks), plus the
+     road-edge repulsion of a `RoadElements` (`ops.forces.road_edge_force`),
   4. one dynamics step of every agent (the model's `step`),
-  5. bookkeeping: inactive agents frozen, step counters, position ring.
+  5. bookkeeping: inactive agents frozen, scripted agents replayed
+     (`ScriptedTraj`), step counters, position ring.
 
 Every stage is a batched function over the [N] agent axis. The culled
 pair stage runs its CUDA kernel on CUDA tensors and its plain version on
@@ -35,6 +42,7 @@ import warnings
 import weakref
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -351,13 +359,25 @@ def rep_tile_legacy(params, src, recv):
 # the named repulsive fields; the name is the engine's pair family
 REP_FORCES = {"twod": rep_tile_twod, "legacy": rep_tile_legacy}
 
+# the pairs one call of the generic culled path evaluates at most (its
+# tiles' temporaries take ~20 x 4 bytes a pair in float32)
+GENERIC_TILE_PAIRS = 1 << 24
 
-# the pair kernels NeighborConfig.backend selects (the JAX package's names)
-BACKENDS = ("pallas", "pallas_unrolled", "pallas_db")
-# JAX-only backends: the XLA gather path and the Pallas interpreter, whose
-# role the plain version plays in the port
-JAX_ONLY_BACKENDS = ("xla", "interpret", "interpret_unrolled",
-                     "interpret_db")
+
+# the pair kernels NeighborConfig.backend selects for the named families
+# (the JAX package's names)
+KERNEL_BACKENDS = ("pallas", "pallas_unrolled", "pallas_db")
+# the generic culled path of custom force tiles, which has no kernel in
+# either package (`Engine.repulsive_sum_neighbors_generic`)
+GENERIC_BACKEND = "xla"
+BACKENDS = KERNEL_BACKENDS + (GENERIC_BACKEND,)
+# JAX-only backends: the Pallas interpreter, whose role the plain version
+# plays in the port
+JAX_ONLY_BACKENDS = ("interpret", "interpret_unrolled", "interpret_db")
+# the hint for a backend the port runs as each kernel's plain version
+PLAIN_VERSION_HINT = (" (the port runs each kernel's plain version on CPU "
+                      "tensors: pick the kernel by name and put the state "
+                      "on the CPU)")
 
 
 @dataclass(frozen=True)
@@ -380,7 +400,10 @@ class NeighborConfig:
         every source tile staged up front, never screened) or "pallas_db"
         (K3, a ring of tiles, always tile-screened at `cutoff`, needs
         block_src == block). The names are the JAX package's; CPU tensors
-        run each kernel's plain version in the same form.
+        run each kernel's plain version in the same form. "xla" is the
+        generic culled path of custom force tiles (external models), the
+        only backend they take; `Engine.create` refuses it for the named
+        families, whose pairs always go through a kernel on the card.
     screen : K1 skips every table tile in which no pair lies within
         `cutoff` (the cutoff without the skin).
     sub : with `screen`, K1 screens strips of `sub` sources instead of
@@ -401,9 +424,10 @@ class NeighborConfig:
         budget), which the port has no use for.
     """
 
+    # the JAX package's positional order (cyclistsocialforce_tpu.engine
+    # NeighborConfig.__init__)
     cutoff: float = 60.0
     block: int = 128
-    block_src: int = 0
     kb: int = 16
     backend: str = "pallas"
     rebuild_every: int = 1
@@ -413,6 +437,7 @@ class NeighborConfig:
     sub: int = 0
     screen: bool = True
     rebuild_mode: str = "chunked"
+    block_src: int = 0
     table_chunk: int = 0
     row_segments: int = 1
 
@@ -422,9 +447,8 @@ class NeighborConfig:
             raise ValueError(f"block_src ({bs}) must divide block "
                              f"({self.block}) and be a multiple of 8")
         if self.backend not in BACKENDS:
-            hint = (" (the port runs each kernel's plain version on CPU "
-                    "tensors: pick the kernel by name and put the state on "
-                    "the CPU)" if self.backend in JAX_ONLY_BACKENDS else "")
+            hint = (PLAIN_VERSION_HINT if self.backend in JAX_ONLY_BACKENDS
+                    else "")
             raise ValueError(f"backend {self.backend!r} is not one of "
                              f"{BACKENDS}{hint}")
         if self.backend == "pallas_db" and bs != int(self.block):
@@ -476,6 +500,44 @@ def _uniform_pair_params(params):
         vals.append(flat[0])
     vals[-1] = math.cos(0.5 * vals[-1])
     return tuple(vals)
+
+
+def _registered(registry: dict, name: str, what: str):
+    """The function a registry name names."""
+    if name not in registry:
+        raise ValueError(f"{what} {name!r} is not one of "
+                         f"{sorted(registry)}")
+    return registry[name]
+
+
+def pair_family_of(rep_force):
+    """The pair family of a repulsive tile: "twod" and "legacy" for the
+    named fields, "custom" for any other callable, None without one."""
+    if rep_force is None:
+        return None
+    for name, fn in REP_FORCES.items():
+        if rep_force is fn:
+            return name
+    return "custom"
+
+
+def _check_backend(family, cfg: NeighborConfig | None):
+    """A custom tile is culled only by the generic path (backend "xla"),
+    the named families only by a pair kernel."""
+    if cfg is None:
+        return
+    if family == "custom" and cfg.backend != GENERIC_BACKEND:
+        raise ValueError(
+            "custom force tiles (e.g. external models) support neighbor "
+            "culling only with the 'xla' backend (the generic "
+            "per-receiver-block path preserves arbitrary rep_reduce "
+            "hooks); the pair kernels serve the named families ('twod', "
+            "'legacy')")
+    if family in REP_FORCES and cfg.backend == GENERIC_BACKEND:
+        raise ValueError(
+            f"backend {GENERIC_BACKEND!r} is the generic path of custom "
+            f"force tiles; the {family!r} field goes through one of "
+            f"{KERNEL_BACKENDS}{PLAIN_VERSION_HINT}")
 
 
 def build_neighbor_cache(cfg: NeighborConfig, state: AgentState):
@@ -567,12 +629,50 @@ class RoadElements:
                               for f in dataclasses.fields(self)))
 
 
-def not_ported_scripted():
-    """The refusal of scripted agents."""
-    return NotImplementedError(
-        "scripted=: scripted agents (ScriptedTraj) are not ported yet "
-        "(ROADMAP Queue 1 item 11, infrastructure and heterogeneous "
-        "crowds)")
+@dataclass(frozen=True)
+class ScriptedTraj:
+    """Prescribed trajectories of uncontrolled agents (counterpart of the
+    JAX package's `engine.ScriptedTraj`; reference UncontrolledVehicle,
+    vehicle.py:920-987): a scripted agent ignores every force and replays
+    `traj[uid, i]` at its step counter i, holding its last state once the
+    script runs out, while it still emits its repulsive field on everyone
+    else (give it car-like field parameters through per-agent params).
+
+    traj [N, T, 8] float, mask [N] bool (which agents are scripted),
+    length [N] int32 (valid steps per agent). The tables are indexed by
+    the persistent agent uid, so a replay follows its agent through any
+    row permutation (the sorted-resident chunks). An engine keeps its own
+    copy in the state's dtype on its device (`Engine.scripted_tensors`)."""
+
+    traj: torch.Tensor
+    mask: torch.Tensor
+    length: torch.Tensor
+
+    @classmethod
+    def create(cls, n: int, trajectories: dict, dtype=torch.float64,
+               device="cuda") -> "ScriptedTraj":
+        """Build from {agent index: [T_a, k] array-like, k <= 8} on the
+        host (missing trailing state entries are zero)."""
+        np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+        t_max = max((np.shape(t)[0] for t in trajectories.values()),
+                    default=1)
+        traj = np.zeros((n, t_max, STATE_DIM), dtype=np_dtype)
+        mask = np.zeros((n,), dtype=bool)
+        length = np.zeros((n,), dtype=np.int32)
+        for a, t in trajectories.items():
+            t = np.asarray(t, dtype=np_dtype)
+            traj[a, :t.shape[0], :t.shape[1]] = t
+            mask[a] = True
+            length[a] = t.shape[0]
+        return cls(traj=torch.from_numpy(traj).to(device),
+                   mask=torch.from_numpy(mask).to(device),
+                   length=torch.from_numpy(length).to(device))
+
+    def to(self, dtype=None, device=None) -> "ScriptedTraj":
+        """The tables on `device`, the trajectories in `dtype`."""
+        return ScriptedTraj(traj=self.traj.to(dtype=dtype, device=device),
+                            mask=self.mask.to(device=device),
+                            length=self.length.to(device=device))
 
 
 _PER_AGENT_FIELDS = (
@@ -771,8 +871,10 @@ class ChunkRunner:
 
 class Engine(nn.Module):
     """One shared space with one homogeneous-model agent population and a
-    named repulsive field ("twod" or "legacy"), dense or culled. Build
-    with `Engine.create`.
+    repulsive field, dense or culled: a named one ("twod" or "legacy",
+    culled through the pair kernels) or a custom tile (an external model,
+    culled through `repulsive_sum_neighbors_generic`). Build with
+    `Engine.create`.
 
     Parameters shared by the population are Python floats, and the
     state's device decides where each step runs. The engine owns two
@@ -786,6 +888,7 @@ class Engine(nn.Module):
     ...) empties both caches, and the next `simulate` captures anew."""
 
     # may `simulate` keep the rows in cell-sorted order within a chunk
+    # (an engine's `create(sorted_resident=)` sets its own)
     sorted_resident = True
 
     # what a captured chunk and the kept pack columns read from the engine
@@ -793,13 +896,15 @@ class Engine(nn.Module):
         "params", "model_step", "state_widths", "dest_force", "dest_kw",
         "rep_force", "pair_family", "neighbors", "full_fov", "uniform_pair",
         "priority_p2r", "rep_chunk", "step_constants", "road",
-        "clock_hook"))
+        "clock_hook", "scripted", "rep_reduce", "combine_forces"))
 
     def __init__(self, params, model_step, state_widths, dest_force,
-                 rep_force, pair_family: str, neighbors, full_fov: bool,
+                 rep_force, pair_family, neighbors, full_fov: bool,
                  uniform_pair, priority_p2r: bool = False,
                  rep_chunk: int | None = None, dest_kw=None,
-                 step_constants=None, road=None, clock_hook=None):
+                 step_constants=None, road=None, clock_hook=None,
+                 scripted=None, rep_reduce=None, combine_forces=None,
+                 sorted_resident: bool = True):
         super().__init__()
         self.params = params
         self.model_step = model_step
@@ -808,7 +913,17 @@ class Engine(nn.Module):
         # what the destination force decided once (`dest_force_kw`)
         self.dest_kw = dest_kw if dest_kw is not None else {}
         self.rep_force = rep_force
+        # "twod", "legacy", "custom" (a callable tile) or None (no pair
+        # stage: the model declares no repulsive force)
         self.pair_family = pair_family
+        self.scripted = scripted             # ScriptedTraj or None
+        # the external-model hooks: how the pair channels reduce over the
+        # sources (None: `ops.forces.sum_sources`) and how the reduced
+        # repulsion meets the destination force (None:
+        # `ops.forces.clamp_add_dest`)
+        self.rep_reduce = rep_reduce
+        self.combine_forces = combine_forces
+        self.sorted_resident = bool(sorted_resident)
         self.neighbors = neighbors
         self.full_fov = full_fov
         self.uniform_pair = uniform_pair
@@ -830,60 +945,75 @@ class Engine(nn.Module):
             self._runners.clear()
 
     @classmethod
-    def create(cls, params, model, dest_force=None, rep_force=None,
-               priority_rule: str = "unregulated",
-               rep_chunk: int | None = None,
-               neighbors: NeighborConfig | None = None, rep_reduce=None,
-               combine_forces=None, road=None, scripted=None):
-        """Build an engine from a model module (`models.MODELS`).
+    def create(cls, params, model, road=None, dest_force=None,
+               rep_force=None, priority_rule: str = "unregulated",
+               rep_chunk: int | None = None, scripted=None,
+               rep_reduce=None, combine_forces=None,
+               neighbors: NeighborConfig | None = None,
+               sorted_resident: bool | None = None):
+        """Build an engine from a model module (`models.MODELS`, or an
+        external model such as `external`). The parameters are the JAX
+        package's, in its order.
 
+        road : a `RoadElements` (`road.build_road_elements`): every
+            vertex repels every agent, added after the repulsive forces.
         dest_force, rep_force : registry names (`DEST_FORCES`,
-            `REP_FORCES`); omitted, the model's `DEST_FORCE` /
-            `REP_FORCE` apply (bicycle2d: "straight", "legacy").
+            `REP_FORCES`) or callables (the reference's strategy
+            injection: `dest_force(params, state) -> (fx, fy, state)`,
+            `rep_force(params, src, recv) -> ([S, R], [S, R])` over (x, y,
+            psi, v) bundles); omitted, the model's `DEST_FORCE` /
+            `REP_FORCE` apply (bicycle2d: "straight", "legacy"). A
+            callable tile is the "custom" pair family.
         priority_rule : "p2r" (priority to the right) masks out every
             source to the receiver's left in the pair stage; any other
             value leaves the field unregulated, as in the JAX package.
         rep_chunk : receivers per chunk of the dense pair stage (None: all
             at once); it must divide N.
+        scripted : a `ScriptedTraj` of agents that replay a script.
+        rep_reduce, combine_forces : the external-model hooks (given, or
+            the model's `REP_REDUCE` / `COMBINE_FORCES`): `rep_reduce(fx,
+            fy, tracked) -> (fx, fy)` over the source axis, and
+            `combine_forces(frx, fry, fdx, fdy) -> (fx, fy)`.
         neighbors : a NeighborConfig selects the culled pair stage; None
-            the dense one.
-        road : a `RoadElements` (`road.build_road_elements`): every
-            vertex repels every agent, added after the repulsive clamp.
-
-        Custom force callables, `rep_reduce`, `combine_forces` and
-        `scripted` (ROADMAP Queue 1 item 11) are not ported and raise
-        NotImplementedError."""
-        if scripted is not None:
-            raise not_ported_scripted()
+            the dense one. The named families take the kernel backends,
+            a custom tile only "xla" (the generic culled path).
+        sorted_resident : may `simulate` keep the rows in cell-sorted
+            order within a chunk (None: the model's `SORTED_RESIDENT`,
+            True without one; False for a custom tile, which the generic
+            path culls in the rows' own order whatever this says)."""
+        if scripted is not None and not isinstance(scripted, ScriptedTraj):
+            raise TypeError(f"scripted must be a ScriptedTraj, got "
+                            f"{type(scripted).__name__}")
         dest = dest_force if dest_force is not None else model.DEST_FORCE
+        if isinstance(dest, str):
+            dest = _registered(DEST_FORCES, dest, "destination force")
         rep = rep_force if rep_force is not None else model.REP_FORCE
-        if not isinstance(dest, str) or dest not in DEST_FORCES:
-            raise NotImplementedError(
-                f"destination force {dest!r} is not ported (have "
-                f"{sorted(DEST_FORCES)})")
-        if not isinstance(rep, str) or rep not in REP_FORCES:
-            raise NotImplementedError(
-                f"repulsive force {rep!r} is not ported (have "
-                f"{sorted(REP_FORCES)})")
-        if (rep_reduce is not None or combine_forces is not None
-                or getattr(model, "REP_REDUCE", None) is not None
-                or getattr(model, "COMBINE_FORCES", None) is not None):
-            raise NotImplementedError(
-                "rep_reduce and combine_forces hooks are not ported")
+        if isinstance(rep, str):
+            rep = _registered(REP_FORCES, rep, "repulsive force")
+        family = pair_family_of(rep)
+        _check_backend(family, neighbors)
+        if sorted_resident is None:
+            sorted_resident = (family != "custom" and bool(
+                getattr(model, "SORTED_RESIDENT", True)))
         return cls(params=params, model_step=model.step,
                    state_widths=getattr(model, "STATE_WIDTHS", None),
-                   dest_force=DEST_FORCES[dest],
-                   dest_kw=dest_force_kw(DEST_FORCES[dest], params),
-                   rep_force=REP_FORCES[rep],
-                   pair_family=rep, neighbors=neighbors,
+                   dest_force=dest, dest_kw=dest_force_kw(dest, params),
+                   rep_force=rep, pair_family=family, neighbors=neighbors,
                    full_fov=_hfov_is_full(params),
                    uniform_pair=(_uniform_pair_params(params)
-                                 if rep == "twod" else None),
+                                 if family == "twod" else None),
                    priority_p2r=(priority_rule == "p2r"),
                    rep_chunk=rep_chunk,
                    step_constants=getattr(model, "step_constants", None),
                    road=road, clock_hook=getattr(model, "clock_period",
-                                                 None))
+                                                 None),
+                   scripted=scripted,
+                   rep_reduce=(rep_reduce
+                               or getattr(model, "REP_REDUCE", None)),
+                   combine_forces=(combine_forces
+                                   or getattr(model, "COMBINE_FORCES",
+                                              None)),
+                   sorted_resident=sorted_resident)
 
     def with_params(self, params):
         """Engine with `params` swapped in and the fields derived from
@@ -901,7 +1031,9 @@ class Engine(nn.Module):
                           if self.pair_family == "twod" else None),
             priority_p2r=self.priority_p2r, rep_chunk=self.rep_chunk,
             step_constants=self.step_constants, road=self.road,
-            clock_hook=self.clock_hook)
+            clock_hook=self.clock_hook, scripted=self.scripted,
+            rep_reduce=self.rep_reduce, combine_forces=self.combine_forces,
+            sorted_resident=self.sorted_resident)
 
     # ---- the dense pair stage ----
 
@@ -909,7 +1041,8 @@ class Engine(nn.Module):
         """Summed repulsive force (fx, fy) [N] on every agent from every
         other agent: the [N, N] (or, with `rep_chunk`, [N, rep_chunk]
         receiver-chunk) tiles of the field, masked by
-        `ops.forces.untracked_foes_tile` and summed over the sources."""
+        `ops.forces.untracked_foes_tile` and reduced over the sources
+        (`reduce_sources`)."""
         n = state.n
         s = state.s
         src = (s[:, X], s[:, Y], s[:, PSI], s[:, V])
@@ -923,7 +1056,7 @@ class Engine(nn.Module):
                 src[0], src[1], idx, state.active, hfov, recv[0], recv[1],
                 recv[2], ri, state.active[ri],
                 priority_p2r=self.priority_p2r)
-            return F.sum_sources(fpx, fpy, ~untracked)
+            return self.reduce_sources(fpx, fpy, ~untracked)
 
         c = self.rep_chunk
         if c is None or c >= n:
@@ -1047,13 +1180,121 @@ class Engine(nn.Module):
                                     priority_p2r=self.priority_p2r,
                                     mixed=mixed, count=count)
 
+    def generic_blocks_per_call(self) -> int:
+        """Receiver blocks per call of the generic culled path: as many
+        as keep one call's [kb * block_src, block] tiles within
+        GENERIC_TILE_PAIRS pairs (at least one)."""
+        cfg = self.neighbors
+        per_block = cfg.kb * cfg.block_src * cfg.block
+        return max(1, GENERIC_TILE_PAIRS // per_block)
+
+    def repulsive_sum_neighbors_generic(self, state: AgentState,
+                                        cache=None):
+        """Culled pairwise forces (fx, fy) [N] of a custom tile (external
+        models, reference external.py:44-182; the JAX package's
+        `repulsive_sum_neighbors_generic`): each receiver block gathers
+        the (x, y, psi, v) bundles of its kb * block_src table sources
+        and evaluates `rep_force` and the reduction (`reduce_sources`)
+        over that one [kb * block_src, block] tile, so a receiver-side
+        reduction of any kind (the Kaths nearest-neighbour min) holds
+        exactly. Invalid table slots are folded into the source mask.
+
+        Per-agent parameter tensors are viewed on the RECEIVER side: the
+        tile sees params whose [N, ...] tensors are sliced to its
+        receiver block (a custom tile reads per-agent parameters at the
+        receivers). The blocks run `generic_blocks_per_call()` at a time
+        under `torch.func.vmap`, one block per hook call as in the JAX
+        package's `lax.map` (1-D `src` [kb * block_src], `recv`
+        [block]), which bounds a call's tiles to GENERIC_TILE_PAIRS
+        pairs. The path has no kernel in either package: it runs as
+        PyTorch operations on any device."""
+        cfg = self.neighbors
+        n = state.n
+        blk, bs = cfg.block, cfg.block_src
+        npad = -(-n // blk) * blk
+        s = state.s
+        dev = s.device
+        if cache is None:
+            cache = self.neighbor_cache(state)
+        perm, nbr, valid = cache[0], cache[1], cache[2]
+        perm = perm.long()
+
+        def pad(a, fill=None):
+            """`a` padded to npad rows (by `fill`, or its first row) and
+            put in the table's cell-sorted order."""
+            if npad != n:
+                tail = (a[:1] if fill is None
+                        else torch.full((1,), fill, dtype=a.dtype,
+                                        device=dev))
+                a = torch.cat([a, tail.expand((npad - n,) + a.shape[1:])])
+            return a[perm]
+
+        # pad rows sit at agent 0's position, inactive
+        x, y = pad(s[:, X]), pad(s[:, Y])
+        psi, v = pad(s[:, PSI], 0.0), pad(s[:, V], 0.0)
+        act = pad(state.active, False)
+        hfov = pad(_per_agent(self.params.hfov, n, s), 1.0)
+        idx = torch.arange(npad, device=dev)[perm]
+        nblk = npad // blk
+
+        # receiver-block views of the per-agent parameter tensors
+        names, blocked = [], []
+        for f in dataclasses.fields(self.params):
+            a = getattr(self.params, f.name)
+            if isinstance(a, torch.Tensor) and a.ndim >= 1:
+                if a.shape[0] != n:
+                    raise ValueError(
+                        f"params.{f.name} has {a.shape[0]} rows for {n} "
+                        f"agents")
+                names.append(f.name)
+                blocked.append(pad(a.to(dev)).reshape((nblk, blk)
+                                                      + a.shape[1:]))
+
+        def recv_block(xs, ys, psis, vs, ids, src_ok, hfovs, xr, yr, pr,
+                       vr, ir, ar, *leaves):
+            """One receiver block's tile, reduced (the hook contract)."""
+            params = dataclasses.replace(self.params,
+                                         **dict(zip(names, leaves)))
+            fpx, fpy = self.rep_force(params, (xs, ys, psis, vs),
+                                      (xr, yr, pr, vr))
+            untracked = F.untracked_foes_tile(
+                xs, ys, ids, src_ok, hfovs, xr, yr, pr, ir, ar,
+                priority_p2r=self.priority_p2r)
+            return self.reduce_sources(fpx, fpy, ~untracked)
+
+        batched = torch.func.vmap(recv_block)
+        lane = torch.arange(bs, device=dev)
+        recv = [a.reshape(nblk, blk) for a in (x, y, psi, v, idx, act)]
+        per_call = self.generic_blocks_per_call()
+        outs = []
+        for lo in range(0, nblk, per_call):
+            hi = min(nblk, lo + per_call)
+            take = (nbr[lo:hi].long()[:, :, None] * bs
+                    + lane).reshape(hi - lo, -1)
+            src_ok = act[take] & valid[lo:hi].repeat_interleave(bs, dim=1)
+            outs.append(batched(
+                x[take], y[take], psi[take], v[take], idx[take], src_ok,
+                hfov[take], *(a[lo:hi] for a in recv),
+                *(b[lo:hi] for b in blocked)))
+        frx = torch.cat([o[0] for o in outs]).reshape(npad)
+        fry = torch.cat([o[1] for o in outs]).reshape(npad)
+        fx = torch.empty_like(frx)
+        fy = torch.empty_like(fry)
+        fx[perm] = frx
+        fy[perm] = fry
+        return fx[:n], fy[:n]
+
     def repulsive_sum_neighbors(self, state: AgentState, cache=None,
                                 presorted: bool = False):
         """Culled pairwise forces (fx, fy) [N]. `cache` is a prebuilt
         `neighbor_cache` (amortized rebuilds). With presorted=True the
         rows are already in the cache's cell-sorted order (the
         sorted-resident path of `simulate`; N a multiple of the block):
-        the pack gather and the force scatter are skipped."""
+        the pack gather and the force scatter are skipped. A custom tile
+        takes the generic path (`repulsive_sum_neighbors_generic`), which
+        never runs presorted."""
+        if self.pair_family == "custom":
+            return self.repulsive_sum_neighbors_generic(state, cache)
         cfg = self.neighbors
         n = state.n
         npad = -(-n // cfg.block) * cfg.block
@@ -1078,19 +1319,31 @@ class Engine(nn.Module):
         its queue and navigation-FSM updates."""
         return self.dest_force(self.params, state, **self.dest_kw)
 
+    def reduce_sources(self, fx_pair, fy_pair, tracked):
+        """The pair channels reduced over the source axis: the engine's
+        `rep_reduce` hook, or the masked sum."""
+        return (self.rep_reduce or F.sum_sources)(fx_pair, fy_pair, tracked)
+
     def calc_forces(self, state: AgentState, nbr_cache=None,
                     presorted: bool = False):
         """Total social force per agent: (fx, fy, state), the state
         carrying the navigation-FSM updates of the destination force
-        (reference intersection.py:747-864)."""
+        (reference intersection.py:747-864). Scripted agents take no
+        destination force (reference vehicle.py:985-986), so the clamp
+        zeroes the repulsion they receive too."""
         fx, fy, state = self.destination_forces(state)
-        if state.n > 1:
+        if self.scripted is not None:
+            smask = self.scripted_tensors(state).mask[state.uid.long()]
+            fx = torch.where(smask, 0.0, fx)
+            fy = torch.where(smask, 0.0, fy)
+        if self.pair_family is not None and state.n > 1:
             if self.neighbors is not None:
                 frx, fry = self.repulsive_sum_neighbors(
                     state, nbr_cache, presorted=presorted)
             else:
                 frx, fry = self.repulsive_sum(state)
-            fx, fy = F.clamp_add_dest(frx, fry, fx, fy)
+            fx, fy = (self.combine_forces or F.clamp_add_dest)(frx, fry,
+                                                               fx, fy)
         if self.road is not None:
             road = self.road_tensors(state)
             rx, ry = F.road_edge_force(state.s[:, X], state.s[:, Y],
@@ -1107,11 +1360,40 @@ class Engine(nn.Module):
             self._columns[key] = self.road.to(state.s.dtype, state.device)
         return self._columns[key]
 
+    def scripted_tensors(self, state: AgentState) -> ScriptedTraj:
+        """The script tables in the state's dtype on its device, built
+        once and kept with the pack columns (a captured chunk reads them
+        by address)."""
+        key = ("scripted", state.s.dtype, state.device)
+        if key not in self._columns:
+            sc = self.scripted
+            if sc.mask.shape[0] < state.n:
+                raise ValueError(
+                    f"the scripts cover {sc.mask.shape[0]} agents and the "
+                    f"state has {state.n}: ScriptedTraj.create(n=...) "
+                    f"takes every row, padding rows included")
+            self._columns[key] = sc.to(state.s.dtype, state.device)
+        return self._columns[key]
+
     def finish_step(self, before: AgentState, new: AgentState):
-        """Freeze inactive agents, advance the step counters and record
-        the position ring slot of the new global step (out of place)."""
+        """Freeze inactive agents, replay the scripted agents, advance the
+        step counters and record the position ring slot of the new global
+        step (out of place). A scripted agent takes `traj[uid, i]` at its
+        incremented counter i while i < its length and holds its pre-step
+        state after (reference vehicle.py:973-977)."""
         merged = _freeze_inactive(before.active, before, new)
         i = merged.i + before.active.to(merged.i.dtype)
+        if self.scripted is not None:
+            sc = self.scripted_tensors(before)
+            uid = merged.uid.long()
+            length = sc.length[uid]
+            smask = sc.mask[uid]
+            idx = torch.clamp(torch.minimum(i, length - 1), min=0).long()
+            replay = sc.traj[uid, idx]
+            live = i < length
+            s = torch.where((smask & live)[:, None], replay, merged.s)
+            s = torch.where((smask & ~live)[:, None], before.s, s)
+            merged = merged.replace(s=s)
         t1 = merged.t_glob + 1
         slot = (t1 % merged.hist_len).long().reshape(1)
         pos_hist = merged.pos_hist.index_copy(1, slot, merged.s[:, None, :2])
@@ -1362,6 +1644,7 @@ class Engine(nn.Module):
 
         n_chunks, rem = divmod(n_steps, k)
         presorted = (sorted_resident and self.sorted_resident
+                     and self.pair_family != "custom"
                      and state.n % self.neighbors.block == 0)
         ident = torch.arange(state.n, device=state.device)
         for c in range(n_chunks):

@@ -86,17 +86,22 @@ class MixedEngine(eng.Engine):
     columns, the config's screen), else dense."""
 
     sorted_resident = False
+    # the named families only: the pair channels are summed and clamped
+    rep_reduce = None
+    combine_forces = None
     _FROZEN_BY_A_CAPTURE = frozenset((
-        "groups", "neighbors", "full_fov", "priority_p2r", "road"))
+        "groups", "neighbors", "full_fov", "priority_p2r", "road",
+        "scripted"))
 
     def __init__(self, groups, neighbors=None, priority_p2r: bool = False,
-                 full_fov: bool = False, road=None):
+                 full_fov: bool = False, road=None, scripted=None):
         nn.Module.__init__(self)
         self.groups = tuple(groups)
         self.neighbors = neighbors
         self.priority_p2r = priority_p2r
         self.full_fov = full_fov
         self.road = road
+        self.scripted = scripted
         self.pair_family = "mixed"
         self.uniform_pair = None
         self._columns = {}
@@ -108,13 +113,22 @@ class MixedEngine(eng.Engine):
                neighbors=None):
         """group_specs : (model module or `models.MODELS` name, params,
             n_agents) per group, in row order. Each group takes its model's
-            `DEST_FORCE` and `REP_FORCE` (a registry name).
-        priority_rule, neighbors, road : as for `Engine.create`.
-        scripted : not ported (raises)."""
+            `DEST_FORCE` (a registry name or a callable) and `REP_FORCE` (a
+            registry name).
+        priority_rule, neighbors, road, scripted : as for
+            `Engine.create` (the scripts indexed by uid over all groups'
+            rows)."""
         from cyclistsocialforce_tpu_torch.models import MODELS
 
-        if scripted is not None:
-            raise eng.not_ported_scripted()
+        if scripted is not None and not isinstance(scripted,
+                                                   eng.ScriptedTraj):
+            raise TypeError(f"scripted must be a ScriptedTraj, got "
+                            f"{type(scripted).__name__}")
+        if neighbors is not None and neighbors.backend == eng.GENERIC_BACKEND:
+            raise ValueError(
+                f"backend {eng.GENERIC_BACKEND!r} is the generic path of "
+                f"custom force tiles; MixedEngine's fields go through one "
+                f"of {eng.KERNEL_BACKENDS}{eng.PLAIN_VERSION_HINT}")
         groups, lo = [], 0
         for model, params, n in group_specs:
             if isinstance(model, str):
@@ -125,10 +139,8 @@ class MixedEngine(eng.Engine):
                     f"MixedEngine supports the named force families "
                     f"{sorted(eng.REP_FORCES)}; custom tiles need a "
                     f"dedicated Engine")
-            if not isinstance(dest, str) or dest not in eng.DEST_FORCES:
-                raise NotImplementedError(
-                    f"destination force {dest!r} is not ported")
-            fn = eng.DEST_FORCES[dest]
+            fn = (eng._registered(eng.DEST_FORCES, dest, "destination force")
+                  if isinstance(dest, str) else dest)
             groups.append(ModelGroup(
                 params=params, model=model, dest_force=fn,
                 dest_kw=eng.dest_force_kw(fn, params), rep_name=rep, lo=lo,
@@ -137,11 +149,17 @@ class MixedEngine(eng.Engine):
         return cls(groups, neighbors=neighbors,
                    priority_p2r=(priority_rule == "p2r"),
                    full_fov=all(eng._hfov_is_full(g.params)
-                                for g in groups), road=road)
+                                for g in groups), road=road,
+                   scripted=scripted)
 
     @property
     def n(self) -> int:
         return self.groups[-1].hi
+
+    def step(self, state: AgentState, nbr_cache=None) -> AgentState:
+        """One step; `nbr_cache` a prebuilt `neighbor_cache` (None: the
+        culled stage builds its own)."""
+        return self.step_with_forces(state, nbr_cache)[0]
 
     # ---- per-group parts of the step ----
 

@@ -117,6 +117,26 @@ def _repair_lut_rows(tab):
     return tab
 
 
+# the external models' parameter dicts of VehicleParams
+PARAM_DICT_FIELDS = ("rep_force", "dest_force")
+
+
+def param_dict(name: str, value) -> dict:
+    """A parameter slot of an external model as a plain dict of Python
+    floats (None: empty). A value per agent is refused: the slots hold
+    numbers shared by the population."""
+    out = {}
+    for key, v in (value or {}).items():
+        arr = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v,
+                         dtype=np.float64)
+        if arr.size != 1 and not np.all(arr == arr.reshape(-1)[0]):
+            raise ValueError(
+                f"params.{name}[{key!r}] differs between agents: the "
+                f"parameter dicts hold values shared by the population")
+        out[key] = float(arr.reshape(-1)[0])
+    return out
+
+
 def _nested(arr):
     """A numpy array as nested tuples of Python floats."""
     return (tuple(_nested(a) for a in arr) if arr.ndim else float(arr))
@@ -166,6 +186,11 @@ class VehicleParams:
     sigma_1: Any = 5.0
     sigma_2: Any = 0.3
     sigma_3: Any = 4.9
+    # the parameter slots of external force models (reference
+    # vehicle.py:111-125, external.py:141-181; `external.KATHS_*`): plain
+    # dicts of numbers shared by the population, never tensors
+    rep_force: dict = dataclasses.field(default_factory=dict)
+    dest_force: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def create(cls, calib_mode: bool = False, verbose: bool = True, **kw):
@@ -175,6 +200,8 @@ class VehicleParams:
                 ("t_s", "d_arrived_inter", "d_arrived_stop", "v_max_stop",
                  "v_max_harddecel", "hfov", "f_0", "e_0", "e_1",
                  "sigma_0", "sigma_1", "sigma_2", "sigma_3")}
+        slots = {f: param_dict(f, kw.pop(f, None))
+                 for f in PARAM_DICT_FIELDS}
         base["t_s"] = _chk_nonneg("t_s", base["t_s"])
         base["d_arrived_inter"] = _chk_nonneg("d_arrived_inter",
                                               base["d_arrived_inter"])
@@ -213,7 +240,8 @@ class VehicleParams:
                  f"instead it was {s3}")
         base["sigma_3"] = s3
         fields = {**base, **kw}
-        return cls(**{k: to_leaf(k, v) for k, v in fields.items()})
+        return cls(**{k: to_leaf(k, v) for k, v in fields.items()},
+                   **slots)
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -881,7 +909,7 @@ def as_population(params, n: int, device="cuda"):
     upd = {}
     for f in dataclasses.fields(params):
         val = getattr(params, f.name)
-        if val is None or f.name in static:
+        if val is None or f.name in static or f.name in PARAM_DICT_FIELDS:
             continue
         if f.name in shared:
             upd[f.name] = tuple(v.to(device) if isinstance(v, torch.Tensor)

@@ -84,9 +84,10 @@ _DEFAULT_WIDTHS = {"dyn_x": 7, "dyn_gains": 12, "zrid": 2}
 
 
 def make_state(s0, queue_size: int = 16, hist_len: int = 128,
-               v_max_walk=None, dtype=torch.float32, model=None,
-               device="cuda", seed: int = 0) -> AgentState:
-    """Create an AgentState population from initial states.
+               v_max_walk=None, dtype=torch.float32, seed: int = 0,
+               model=None, device="cuda") -> AgentState:
+    """Create an AgentState population from initial states (the JAX
+    package's parameters in its order, then `device`).
 
     s0 : array-like [N, k], k <= 8, initial (x, y, psi, v[, ...]);
         missing trailing entries are zero-filled.
@@ -94,11 +95,11 @@ def make_state(s0, queue_size: int = 16, hist_len: int = 128,
         ring-buffer length H.
     v_max_walk : optional; initialises the riding/walking FSM from the
         initial speed, otherwise agents start riding.
+    seed : the master random key is `jax.random.PRNGKey(seed)`'s.
     model : optional model module; its `STATE_WIDTHS` right-size the
         model-dependent fields (unused ones become zero-width).
     device : where the state lives (the card unless the caller asks for
         the CPU).
-    seed : the master random key is `jax.random.PRNGKey(seed)`'s.
     """
     widths = dict(_DEFAULT_WIDTHS)
     if model is not None:

@@ -14,8 +14,9 @@ from round to round. A process drives the seven paths `slice`,
 `slice_unrolled`, `slice_db`, `slice_legacy`, `slice_twod`,
 `slice_mixed` and `slice_invpendulum` through its
 `chip_smoke.phase_slice` (launch counts, device traces and overflow
-audits included; the best of its timed runs), and `slice_balancingrider`
-where its `chip_smoke` has that path. Prints one JSON line per process
+audits included; the best of its timed runs), and
+`slice_balancingrider`, `slice_stochastic` and `slice_stochastic_exact`
+where its `chip_smoke` has those paths. Prints one JSON line per process
 and path, then per path both medians (one where only this checkout has
 the path), the spread of each checkout's own rounds and the rounds this
 checkout won, and the nvidia-smi line last.
@@ -72,6 +73,12 @@ if hasattr(CS, "br_params"):
                         torch.float32, "cuda", hist_len=CS.HIST_LEN)
     CS.phase_slice("slice_balancingrider", CS.make_model_engine(
         "balancingrider", CS.br_params()), br, k1)
+    del br
+if hasattr(CS, "stochastic_path"):
+    for row in ("stochastic", "stochastic_exact"):
+        eng, st = CS.stochastic_path(row)
+        CS.phase_slice("slice_" + row, eng, st, k1)
+        del eng, st
 """
 
 

@@ -100,8 +100,11 @@ def test_step_and_state_round_trip():
 
 
 def test_create_rejects_unported_configurations():
-    """The legacy field (bicycle2d's default), the dense stage and the
-    spline destination force are ported; what is not still raises."""
+    """The legacy field (bicycle2d's default), the dense stage, the
+    spline destination force and the external-model hooks (callable
+    forces, `rep_reduce`, `combine_forces`) are ported; what is still
+    refused raises: an unknown name, the generic culled path ("xla") for
+    a named field, a kernel backend for a custom tile."""
     p = BicycleParams.create()
     model = MODELS["bicycle2d"]
     culled = Engine.create(p, model, neighbors=NeighborConfig())
@@ -112,13 +115,33 @@ def test_create_rejects_unported_configurations():
     spline = Engine.create(p, model, rep_force="twod", dest_force="spline",
                            neighbors=NeighborConfig())
     assert spline.dest_kw == {"lookback": 100}
-    with pytest.raises(NotImplementedError):
-        Engine.create(p, model, dest_force=lambda *a: None)
-    with pytest.raises(NotImplementedError):
-        Engine.create(p, model, rep_force=lambda *a: None)
-    with pytest.raises(NotImplementedError):
-        Engine.create(p, model, rep_reduce=lambda *a: None)
-    with pytest.raises(NotImplementedError):
-        Engine.create(p, model, combine_forces=lambda *a: None)
+
+    def dest(params, state):
+        return state.s[:, 3], state.s[:, 2], state
+
+    def tile(params, src, recv):
+        return (src[0][:, None] * 0 + recv[0][None, :] * 0,) * 2
+
+    def reduce(fx, fy, tracked):
+        return fx.sum(0), fy.sum(0)
+
+    def combine(frx, fry, fdx, fdy):
+        return frx + fdx, fry + fdy
+
+    hooked = Engine.create(p, model, dest_force=dest, rep_force=tile,
+                           rep_reduce=reduce, combine_forces=combine)
+    assert hooked.dest_force is dest and hooked.rep_force is tile
+    assert (hooked.pair_family, hooked.rep_reduce, hooked.combine_forces) \
+        == ("custom", reduce, combine)
+    assert Engine.create(p, model, rep_reduce=reduce).pair_family \
+        == "legacy"
+    with pytest.raises(ValueError, match="destination force"):
+        Engine.create(p, model, dest_force="nonesuch")
+    with pytest.raises(ValueError, match="repulsive force"):
+        Engine.create(p, model, rep_force="nonesuch")
+    with pytest.raises(ValueError, match="plain version"):
+        Engine.create(p, model, neighbors=NeighborConfig(backend="xla"))
+    with pytest.raises(ValueError, match="custom force tiles"):
+        Engine.create(p, model, rep_force=tile, neighbors=NeighborConfig())
     with pytest.raises(ValueError):
         NeighborConfig(block=128, block_src=48)

@@ -261,9 +261,10 @@ def test_pair_columns_per_leaf_match_jax(jx, sizes):
 
 
 def test_refuses_road_and_scripted():
-    """Road elements are ported: `road=` is taken as the JAX package's
-    MixedEngine takes it. Scripted agents are not: `scripted=` raises an
-    error that names ROADMAP item 11."""
+    """Road elements and scripted agents are ported: `road=` and
+    `scripted=` are taken as the JAX package's MixedEngine takes them. A
+    `scripted` that is not a `ScriptedTraj` is refused, and so is the
+    generic culled path ("xla"), which serves custom tiles only."""
     from cyclistsocialforce_tpu_torch.road import (build_road_elements,
                                                    straight_segment)
 
@@ -271,8 +272,12 @@ def test_refuses_road_and_scripted():
     road = build_road_elements([straight_segment((0, 0, 0), 4, 10)],
                                device=DEV)
     assert MixedEngine.create(specs, road=road).road is road
-    with pytest.raises(NotImplementedError, match="item 11"):
+    sc = TE.ScriptedTraj.create(2, {0: np.zeros((4, 4))}, device=DEV)
+    assert MixedEngine.create(specs, scripted=sc).scripted is sc
+    with pytest.raises(TypeError, match="ScriptedTraj"):
         MixedEngine.create(specs, scripted=object())
+    with pytest.raises(ValueError, match="plain version"):
+        MixedEngine.create(specs, neighbors=TE.NeighborConfig(backend="xla"))
 
 
 def test_state_slice_and_merge_round_trip():

@@ -196,11 +196,17 @@ def test_default_config_screens_like_jax(jx):
 def test_neighbor_config_defaults_and_checks():
     cfg = TE.NeighborConfig()
     assert (cfg.backend, cfg.screen, cfg.sub) == ("pallas", True, 0)
-    for backend in ("xla", "interpret", "interpret_db", "pallas_fast"):
+    for backend in ("interpret", "interpret_db", "pallas_fast"):
         with pytest.raises(ValueError, match="backend"):
             TE.NeighborConfig(backend=backend)
     with pytest.raises(ValueError, match="plain version"):
-        TE.NeighborConfig(backend="xla")
+        TE.NeighborConfig(backend="interpret")
+    # "xla" is the generic path of custom tiles: a named field refuses it
+    # where the engine is built
+    with pytest.raises(ValueError, match="plain version"):
+        TE.Engine.create(BicycleParams.create(), bicycle2d,
+                         rep_force="twod",
+                         neighbors=TE.NeighborConfig(backend="xla"))
     with pytest.raises(ValueError, match="block_src != block"):
         TE.NeighborConfig(backend="pallas_db", block_src=64)
     TE.NeighborConfig(backend="pallas_db", block_src=128)

@@ -10,8 +10,8 @@ in one vertex chunk and in many; engines with a road, dense and culled,
 and a `MixedEngine` with a road, against JAX's at 1e-9 m; and golden
 `curve_balancingrider.npz` (tests/test_parity_curve.py) at that test's own
 bars: 1e-8 m and forces within 1e-8 over 1,500 steps, 0.2 m over 2,500
-and at the end. `Engine.create` takes `road=` and refuses `scripted=`
-(ROADMAP Queue 1 item 11) as `MixedEngine.create` does.
+and at the end. `Engine.create` takes `road=` beside `scripted=`, as
+`MixedEngine.create` does.
 """
 
 import types
@@ -68,20 +68,23 @@ def curve_collection(mod, params):
 
 
 def test_engine_create_takes_road_and_refuses_scripted():
-    """`Engine.create(road=...)` keeps the road; `scripted=` raises
-    NotImplementedError naming ROADMAP Queue 1 item 11 (a TypeError before
-    the keyword existed); `MixedEngine.create` the same."""
+    """`Engine.create(road=...)` keeps the road, and `scripted=` takes a
+    `ScriptedTraj` beside it; anything else given as `scripted` is
+    refused with a TypeError. `MixedEngine.create` the same."""
     road = TR.build_road_elements([TR.straight_segment((0, 0, 0), 4, 10)],
                                   device=DEV)
     p = BicycleParams.create()
-    eng = TE.Engine.create(p, MODELS["bicycle2d"], road=road)
-    assert eng.road is road
+    sc = TE.ScriptedTraj.create(2, {1: np.zeros((3, 4))}, device=DEV)
+    eng = TE.Engine.create(p, MODELS["bicycle2d"], road=road, scripted=sc)
+    assert eng.road is road and eng.scripted is sc
     assert eng.with_params(p).road is road
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert eng.with_params(p).scripted is sc
+    with pytest.raises(TypeError, match="ScriptedTraj"):
         TE.Engine.create(p, MODELS["bicycle2d"], scripted=object())
-    mixed = MixedEngine.create([("bicycle2d", p, 2)], road=road)
-    assert mixed.road is road
-    with pytest.raises(NotImplementedError, match="item 11"):
+    mixed = MixedEngine.create([("bicycle2d", p, 2)], road=road,
+                               scripted=sc)
+    assert mixed.road is road and mixed.scripted is sc
+    with pytest.raises(TypeError, match="ScriptedTraj"):
         MixedEngine.create([("bicycle2d", p, 2)], scripted=object())
 
 

@@ -68,6 +68,10 @@ def test_state_replace_and_to():
 def _params_equal(port, jax_p):
     for f in dataclasses.fields(type(port)):
         got = getattr(port, f.name)
+        if isinstance(got, dict):      # an external model's parameter slot
+            assert got == TP.param_dict(f.name, getattr(jax_p, f.name)), \
+                f.name
+            continue
         want = np.asarray(getattr(jax_p, f.name))
         got = np.asarray(got.numpy() if isinstance(got, torch.Tensor)
                          else got, dtype=np.float64)

@@ -156,16 +156,17 @@ def test_create_matches_jax(jx, mode):
 
 def test_refusals_that_stay():
     """`prop_lut` and `prop_poly` with stochastic behavior raise JAX's
-    ValueError; `scripted=` raises NotImplementedError naming ROADMAP
-    Queue 1 item 11 in `Engine.create` and `MixedEngine.create`."""
+    ValueError; a `scripted=` that is not a `ScriptedTraj` raises
+    TypeError in `Engine.create` and `MixedEngine.create` (scripted
+    agents are ported: tests/test_torch_scripted.py)."""
     for kw in ({"prop_lut": 256}, {"prop_poly": 16}):
         with pytest.raises(ValueError, match="prop"):
             BalancingRiderParams.create(stochastic_control_behavior=True,
                                         **kw)
     model = MODELS["balancingrider"]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="ScriptedTraj"):
         TE.Engine.create(port_params("exact"), model, scripted=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="ScriptedTraj"):
         MixedEngine.create([(model, port_params("exact"), 2)],
                            scripted=object())
 
