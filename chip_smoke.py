@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-It drives twelve paths: the main path through K1 (`csrc/pair_forces.cu`,
+It drives thirteen paths: the main path through K1 (`csrc/pair_forces.cu`,
 twod field, unscreened), the same path through K2
 (`csrc/pair_forces_unrolled.cu`, backend "pallas_unrolled"), a crowd with
 per-rider field parameters through K3 (`csrc/pair_forces_db.cu`, backend
@@ -17,8 +17,10 @@ quintic), and the stochastic balancing rider in bench.py's two rows
 (pole features resampled from the pole model, budget and cadence, and
 without them) through K1's main form; the main path with 1% of its
 riders scripted through K1's per-rider column form; and the Kaths
-external model on the generic culled path, which has no pair kernel.
-Phases, each
+external model on the generic culled path, which has no pair kernel;
+and the SUMO co-simulation of the packaged grid2x2 net through K1's
+mixed form at receiver block 64, a calibration, a pole-model fit and the
+field plots' evaluations. Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
 
@@ -113,6 +115,32 @@ non-zero):
                pair kernel launched (none counted, none in the trace), the
                generic path's calls per step and the peak memory of a
                step reported;
+  9i. sumo     the packaged grid2x2 net (4 junctions) through
+               FakeTraCI under the full demand of grid2x2.rou.xml (44
+               riders, SUMO_NET), SumoCoSimulation(bicycle_type="bicycle",
+               capacity=SUMO_CAPACITY, neighbors=SUMO_NEIGHBORS:
+               K1's mixed form, tile screen, receiver block 64) stepped
+               until FakeTraCI expects no vehicle (SUMO_MAX_STEPS at
+               most, the cut printed; on the card each junction's step
+               is a replay of its captured step after an eager table
+               build): K1 launched once per (junction, step) that held a
+               rider (replays) and once per junction by the capture's
+               warm-up, no K2 or K3 (every count set to 0 just before), every rider handed over at both
+               junctions of its route and back and finished, states and
+               pushes finite; ms per step with the handover, the engine
+               steps, the pushes and FakeTraCI apart; then K1's form
+               there against its plain version on the fullest junction's
+               packs (`kernel_forms`' k1_mixed_screen_sumo; the same form
+               on the 100,000-rider legacy crowd is
+               k1_mixed_screen_block64);
+  9j. calibration  CAL_TRACKS synthetic bicycle2d tracks of CAL_STEPS
+               steps made on the card, `Calibration.run` from CAL_GUESS
+               recovering k_p_v within CAL_TOL (one objective a CUDA-graph
+               replay, its seconds printed), `evaluate_population` of
+               CAL_TRACKS candidates over every track (one replay of
+               65,536 riders) equal to the per-candidate objective;
+  9k. gmm_fit  `fit_pole_model` at the packaged BR1 fit's size (GMM_*:
+               161 fits of 100 EM restarts), its seconds;
  10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
@@ -186,6 +214,18 @@ non-zero):
  13c. diagnostics  `checked_simulate` of the main path at full width: a
                clean run reports nothing, a NaN injected at step DIAG_AT
                is reported at that step;
+ 13d. viz_fields  `density_map` of the N_AGENTS crowd on the card equal
+               to numpy.histogram2d cell for cell, and `eval_force_field`
+               of a FIELD_N-rider crowd over FIELD_GRID^2 points (held to
+               the CPU's at the end), matplotlib never imported;
+ 13e. sumo_parity, calibration_parity, gmm_fit_parity,
+               viz_fields_parity  each against its CPU run (float64; the
+               sumo run with float32 pairs): the same riders enter and
+               leave each junction within one step and the pushed
+               positions within `parity`'s two tiers; CAL_CPU tracks'
+               replay and an objective within 1e-10 relative; the same
+               selected hyperparameters and the best means within 1e-8;
+               the field within FIELD_RTOL of its largest value;
  14. metrics   `simulate(state, 240, record=False, record_metrics=True)` on
                the main path: [240, 8], finite, 100,000 active and no
                overflow in every row, speeds within the model's limits;
@@ -202,18 +242,19 @@ non-zero):
                twod's, the balancing-rider step to the main path's and the
                stochastic steps to the balancing rider's.
 
-They run in this order: 1-9h (the timed phases), 16, then 13-15, 13b,
-13c and 10-12f. The CPU reference runs of 10-12e start after 16 in CPU_WORKERS
-worker processes of one thread each (`CpuReferences`, the longest first)
-and are collected by their phases at the end: no timed phase shares the
-host with them.
+They run in this order: 1-9k (the timed phases), 16, then 13-15, 13b,
+13c, 13d, 10-12f and 13e. The CPU reference runs of 10-12f and 13e
+start after 16 in CPU_WORKERS worker processes of one thread each
+(`CpuReferences`, the longest first) and are collected by their phases
+at the end: no timed phase shares the host with them.
 
 Then the wall seconds of each phase and of the script, a JSON line with
 the kernels' launch counts (each from its own path, with every count set
 to 0 just before it: the replayed launches, and the warm-up's beside
 them; K1's on each of its paths under `paths`, its column form's on
-slice_scripted under `columns`), the block-64 and block-256 forms under
-`blocks`,
+slice_scripted under `columns`, K1's launches on `sumo` under `paths`
+and its sumo form under `mixed_block64`), the block-64 and block-256
+forms under `blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
 kernel's, same work, same call), the nvidia-smi line, and last
@@ -434,6 +475,37 @@ SCENARIO_CHUNK, SCENARIO_SPLIT = 20, 120
 # the diagnostics phase: checked_simulate over DIAG_STEPS steps of the
 # main path at full width, a NaN injected into one rider at DIAG_AT
 DIAG_STEPS, DIAG_AT = 30, 17
+# the sumo path: the packaged grid2x2 net (4 junctions) under the full
+# demand of its grid2x2.rou.xml (each flow's `number` riders departing
+# evenly over [begin, end), on the flow's route, speed and start offset
+# drawn as demos/demo_sumo.py draws them), bicycle2d riders with the
+# legacy field, SUMO_CAPACITY slots a junction, the culled stage through
+# K1's mixed form at receiver block 64 (SUMO_NEIGHBORS: one receiver
+# block, a table over the whole junction, so culled equals dense). It
+# runs until FakeTraCI expects no vehicle, at most SUMO_MAX_STEPS steps
+# (the demand ends near step 18,500)
+SUMO_NET, SUMO_CAPACITY, SUMO_MAX_STEPS, SUMO_SEED = "grid2x2", 64, 25_000, 0
+SUMO_NEIGHBORS = dict(cutoff=100.0, block=64, block_src=32, kb=2)
+# the calibration phase: CAL_TRACKS synthetic bicycle2d tracks of
+# CAL_STEPS steps at k_p_v = CAL_TRUTH (demos/demo_calibration.py's
+# inputs, made on the card in float64), split CAL_SPLIT; Nelder-Mead from
+# CAL_GUESS (CAL_MAXITER iterations) recovers the truth within CAL_TOL;
+# the candidate batch is CAL_TRACKS candidates over every track, held to
+# the per-candidate objective on CAL_CHECK of them; CAL_CPU tracks are
+# held to the CPU's replay
+CAL_TRACKS, CAL_STEPS, CAL_TRUTH, CAL_SPLIT = 256, 1000, 10.0, 0.75
+CAL_GUESS, CAL_MAXITER, CAL_TOL, CAL_CHECK, CAL_CPU = 4.0, 60, 1e-3, 8, 16
+# the gmm_fit phase: `fit_pole_model` at the size of the packaged BR1
+# fit (its YAML metadata: 154 samples of ImRe5GivenV features, 10 folds,
+# 100 EM restarts), components 1-4 and the four covariance types; the
+# samples drawn from the packaged BR1 model at GMM_SAMPLES speeds spread
+# evenly over the reference's speed grid (1.5-5.5 m/s)
+GMM_MODEL = "BR1_ImRe5GivenV_pole-model-params.yaml"
+GMM_SAMPLES, GMM_FOLDS, GMM_INIT, GMM_SEED = 154, 10, 100, 0
+# viz_fields: density_map of the N_AGENTS crowd (DENSITY_BINS cells a
+# side) against numpy.histogram2d; eval_force_field of a FIELD_N-rider
+# twod crowd over a FIELD_GRID x FIELD_GRID grid against the CPU
+DENSITY_BINS, FIELD_N, FIELD_GRID, FIELD_RTOL = 512, 4096, 256, 1e-9
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 
@@ -1676,7 +1748,9 @@ class CpuReferences:
     def _key(kind, kw):
         return kind, tuple(sorted(kw.items()))
 
-    def start(self, specs):
+    def start(self, specs, first=()):
+        """Submit `first` ((name, fn, args) runs, the longest first), then
+        the parity runs `specs`."""
         import concurrent.futures
         import multiprocessing
 
@@ -1684,9 +1758,18 @@ class CpuReferences:
         self.pool = concurrent.futures.ProcessPoolExecutor(
             CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
             initializer=_cpu_worker_init)
+        for name, fn, args in first:
+            self.submit(name, fn, *args)
         for kind, kw in specs:
             self.futures[self._key(kind, kw)] = self.pool.submit(
                 cpu_reference, kind, kw)
+
+    def submit(self, name, fn, *args):
+        """Another CPU run, `fn(*args)` in a worker, under `name`."""
+        self.futures[name] = self.pool.submit(fn, *args)
+
+    def result(self, name):
+        return self.futures[name].result()
 
     def get(self, kind, **kw):
         import types
@@ -2217,6 +2300,555 @@ def phase_diagnostics(state):
                              f"injected run {err.get()!r} (want {want!r})")
 
 
+def sumo_demand():
+    """The packaged demand of SUMO_NET: [(vehicle, route edges, depart s,
+    speed, start offset)], each flow's `number` riders departing evenly
+    over [begin, end) (SUMO's spacing of a `number=` flow), the speed and
+    offset of each drawn as demos/demo_sumo.py draws them."""
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+
+    from cyclistsocialforce_tpu_torch.sumo.net import SUMO_DATA_DIR
+
+    root = ET.parse(os.path.join(SUMO_DATA_DIR,
+                                 f"{SUMO_NET}.rou.xml")).getroot()
+    routes = {r.get("id"): tuple(r.get("edges").split())
+              for r in root.iter("route")}
+    rng = np.random.default_rng(SUMO_SEED)
+    demand = []
+    for flow in root.iter("flow"):
+        begin, end = float(flow.get("begin")), float(flow.get("end"))
+        number = int(flow.get("number"))
+        for i in range(number):
+            demand.append((f"{flow.get('id')}.{i}", routes[flow.get("route")],
+                           begin + i * (end - begin) / number,
+                           float(rng.uniform(3.0, 5.0)),
+                           float(rng.uniform(0.0, 10.0))))
+    return demand
+
+
+class PushRecorder:
+    """A transport that passes every call to `inner` (a FakeTraCI) and
+    records each moveToXY push as (step, vehicle, x, y)."""
+
+    def __init__(self, inner):
+        self.inner, self.pushes, self.step = inner, [], 0
+        rec = self
+
+        class _Vehicle:
+            def __getattr__(self, name):
+                return getattr(inner.vehicle, name)
+
+            def moveToXY(self, vid, edge_id, lane_index, x, y, angle=None,
+                         keepRoute=6):
+                rec.pushes.append((rec.step, vid, x, y))
+                inner.vehicle.moveToXY(vid, edge_id, lane_index, x, y,
+                                       angle=angle, keepRoute=keepRoute)
+
+        self.vehicle = _Vehicle()
+        self.lane, self.simulation = inner.lane, inner.simulation
+
+    def simulationStep(self):
+        self.step += 1
+        self.inner.simulationStep()
+
+    def close(self):
+        self.inner.close()
+
+
+def run_sumo(device, keep_form=False):
+    """The sumo path on `device` (on the CPU in float64 with the pair
+    stage in float32, `float32_pairs`): SumoCoSimulation.step until
+    FakeTraCI expects no vehicle or SUMO_MAX_STEPS. Returns the steps, the
+    pushes, each rider's (junction: [enter step, exit step]), the
+    (junction, step) pairs that held a rider, the seconds of the handover,
+    the engine steps, the pushes and FakeTraCI apart, and with
+    `keep_form` the cell-sorted packs of the fullest junction (what K1
+    took there)."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch import NeighborConfig
+    from cyclistsocialforce_tpu_torch.sumo import (FakeTraCI,
+                                                   SumoCoSimulation,
+                                                   load_packaged_net)
+
+    cuda = torch.device(device).type == "cuda"
+    net = load_packaged_net(SUMO_NET)
+    fake = FakeTraCI(net, step_length=0.01)
+    demand = sumo_demand()
+    for vid, route, depart, speed, offset in demand:
+        fake.add_vehicle(vid, route, speed=speed, depart=depart,
+                         depart_pos=offset)
+    rec = PushRecorder(fake)
+    cs = SumoCoSimulation(net, rec, bicycle_type="bicycle",
+                          capacity=SUMO_CAPACITY,
+                          neighbors=NeighborConfig(**SUMO_NEIGHBORS),
+                          device=device)
+    if not cuda:
+        for ins in cs.intersections:
+            ins.engine = float32_pairs(ins.engine)
+    clock = dict.fromkeys(("handover", "engine", "push", "transport"), 0.0)
+    occupied = [0]
+
+    def timed(key, fn, sync=False):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            clock[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def counted(ins, step):
+        def run():
+            occupied[0] += bool(ins._slots)
+            step()
+        return run
+
+    cs.allocate_road_users = timed("handover", cs.allocate_road_users)
+    for ins in cs.intersections:
+        ins.step = timed("engine", counted(ins, ins.step), sync=cuda)
+        ins.push_positions = timed("push", ins.push_positions)
+    rec.simulationStep = timed("transport", rec.simulationStep)
+
+    handovers = {vid: {} for vid, *_ in demand}
+    inside = {ins.id: set() for ins in cs.intersections}
+    fullest, form = 0, None
+    steps = 0
+    t0 = time.perf_counter()
+    while fake.simulation.getMinExpectedNumber() > 0 \
+            and steps < SUMO_MAX_STEPS:
+        cs.step()
+        steps += 1
+        for ins in cs.intersections:
+            now = set(ins._slots)
+            for vid in now - inside[ins.id]:
+                handovers[vid][ins.id] = [steps, None]
+            for vid in inside[ins.id] - now:
+                handovers[vid][ins.id][1] = steps
+            inside[ins.id] = now
+            if keep_form and len(now) > fullest:
+                # the packs as the culled stage hands them to K1 (float32)
+                fullest = len(now)
+                nbr, valid, src, recv = sorted_inputs(ins.engine, ins.state)
+                form = (nbr.clone(), valid.clone(), src.float(),
+                        recv.float())
+    wall = time.perf_counter() - t0
+    pos = np.array([p[2:] for p in rec.pushes], dtype=float)
+    replayed = [sum(n) for n in zip(*(ins.engine.graph_launches()
+                                      for ins in cs.intersections))]
+    return {"steps": steps, "riders": len(demand),
+            "done": fake.simulation.getMinExpectedNumber() == 0,
+            "left_inside": sum(len(v) for v in inside.values()),
+            "pushes": [p[:2] for p in rec.pushes], "positions": pos,
+            "handovers": handovers, "occupied": occupied[0],
+            "replayed_launches": replayed,
+            "captures": sum(len(ins.engine._runners)
+                            for ins in cs.intersections),
+            "fullest_junction": fullest, "wall_s": wall, "clock_s": clock,
+            "finite": bool(np.isfinite(pos).all() and all(
+                torch.isfinite(ins.state.s).all()
+                for ins in cs.intersections)),
+            "route_junctions": {
+                vid: sorted(net.edges[e].to_node for e in route[:-1])
+                for vid, route, *_ in demand},
+            "form": form}
+
+
+def phase_sumo():
+    """The sumo path on the card: every count set to 0 just before the
+    run; K1 launched once per (junction, step) that held a rider (each
+    junction's captured step replayed, its replays counted by its engine)
+    and once more per junction by the capture's warm-up (counted by the
+    wrapper), no K2 or K3; every rider handed over at both junctions of
+    its route and back, and finished; finite states and pushes. Then K1's
+    form there (mixed, tile screen, block 64) against its plain version
+    on the fullest junction's packs. Returns (K1's replayed and warm-up
+    launches, the run, the form's numbers)."""
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    k1, k2, k3 = PF.KERNELS
+    PF.reset_launches()
+    run = run_sumo("cuda", keep_form=True)
+    names = [fn.__name__ for fn in PF.KERNELS]
+    warm_up = dict(zip(names, PF.launch_counts()))
+    counts = dict(zip(names, run["replayed_launches"]))
+    missing = [vid for vid, junctions in run["route_junctions"].items()
+               if sorted(run["handovers"][vid]) != junctions
+               or any(e is None for _, e in run["handovers"][vid].values())]
+    per_step = {k: 1e3 * v / run["steps"] for k, v in run["clock_s"].items()}
+    emit("sumo", net=SUMO_NET, riders=run["riders"], steps=run["steps"],
+         cut=run["steps"] >= SUMO_MAX_STEPS, max_steps=SUMO_MAX_STEPS,
+         capacity=SUMO_CAPACITY, neighbors=SUMO_NEIGHBORS,
+         all_finished=run["done"], left_inside=run["left_inside"],
+         junction_steps_with_riders=run["occupied"],
+         kernel_launches=counts, warm_up_launches=warm_up,
+         captures=run["captures"], pushes=len(run["pushes"]),
+         fullest_junction=run["fullest_junction"], finite=run["finite"],
+         riders_missing_a_handover=missing, wall_s=run["wall_s"],
+         ms_per_step=1e3 * run["wall_s"] / run["steps"],
+         ms_per_step_parts=per_step,
+         engine_ms_per_junction_step=(1e3 * run["clock_s"]["engine"]
+                                      / max(run["occupied"], 1)))
+    if counts != {k1.__name__: run["occupied"], k2.__name__: 0,
+                  k3.__name__: 0} or warm_up != {
+                      k1.__name__: run["captures"], k2.__name__: 0,
+                      k3.__name__: 0}:
+        raise AssertionError(
+            f"sumo: expected {run['occupied']} replayed and "
+            f"{run['captures']} warm-up K1 launches and none of K2 or K3, "
+            f"counted {counts} and {warm_up}")
+    if not (run["done"] and run["left_inside"] == 0 and not missing
+            and run["finite"]):
+        raise AssertionError(
+            f"sumo: finished {run['done']}, {run['left_inside']} riders "
+            f"left inside, {len(missing)} riders without both handovers, "
+            f"finite {run['finite']}")
+    kw = dict(block=SUMO_NEIGHBORS["block"],
+              block_src=SUMO_NEIGHBORS["block_src"], mixed=True, screen=True,
+              cutoff=SUMO_NEIGHBORS["cutoff"])
+    form = check_form("kernel_forms", "k1_mixed_screen_sumo", k1,
+                      run.pop("form"), kw, kw)
+    return (counts[k1.__name__], warm_up[k1.__name__]), run, form
+
+
+def phase_block64_mixed(state):
+    """K1's mixed form with the tile screen at receiver block 64 (the sumo
+    path's form: block_src 32, cutoff 100 m) on the legacy field of the
+    N_AGENTS crowd, kb from the audit, against its plain version."""
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    engine = audited_engine(make_legacy_engine, "legacy block 64", state,
+                            block=SUMO_NEIGHBORS["block"],
+                            block_src=SUMO_NEIGHBORS["block_src"])
+    kw = dict(block=SUMO_NEIGHBORS["block"],
+              block_src=SUMO_NEIGHBORS["block_src"], mixed=True, screen=True,
+              cutoff=LEG_CUTOFF)
+    return check_form("kernel_forms", "k1_mixed_screen_block64", PF.KERNELS[0],
+                      sorted_inputs(engine, state), kw, kw)
+
+
+def compare_sumo(card, cpu):
+    """The sumo run on the card against the CPU's (float64, the pair stage
+    in float32): the same riders enter and leave the same junctions, each
+    handover within one step (how many are equal is reported), and the
+    pushed positions of the (step, rider) pairs both made within
+    `parity`'s two tiers."""
+    import numpy as np
+
+    diffs, keys_differ = [], []
+    for vid, junctions in card["handovers"].items():
+        other = cpu["handovers"][vid]
+        if sorted(junctions) != sorted(other):
+            keys_differ.append(vid)
+            continue
+        for j, steps in junctions.items():
+            diffs += [abs(a - b) for a, b in zip(steps, other[j])]
+    diffs = np.asarray(diffs)
+    at = {key: i for i, key in enumerate(cpu["pushes"])}
+    both = [(i, at[key]) for i, key in enumerate(card["pushes"])
+            if key in at]
+    a = card["positions"][[i for i, _ in both]]
+    b = cpu["positions"][[j for _, j in both]]
+    err = np.hypot(a[:, 0] - b[:, 0], a[:, 1] - b[:, 1])
+    n_over = int((err > PARITY_TOL["pos"]).sum())
+    ok = bool(not keys_differ and diffs.max() <= 1
+              and n_over <= (1.0 - PARITY_QUANTILE) * err.size
+              and err.max() <= PARITY_CAP["pos"])
+    emit("sumo_parity", runs="card (K1 float32 pairs, float64 state) vs CPU "
+         "float64 with float32 pairs", steps={"card": card["steps"],
+                                             "cpu": cpu["steps"]},
+         handovers=int(diffs.size), handovers_equal=int((diffs == 0).sum()),
+         handovers_one_step_apart=int((diffs == 1).sum()),
+         max_handover_step_diff=int(diffs.max()),
+         riders_with_other_junctions=keys_differ,
+         pushes_compared=len(both),
+         pushes_unmatched={"card": len(card["pushes"]) - len(both),
+                           "cpu": len(cpu["pushes"]) - len(both)},
+         pos_max=float(err.max()), pos_p99_9=float(np.quantile(err, 0.999)),
+         n_over_tol=n_over, tol=PARITY_TOL["pos"], cap=PARITY_CAP["pos"],
+         cpu_run_s=cpu["wall_s"], ok=ok)
+    if not ok:
+        raise AssertionError("sumo_parity failed")
+
+
+def calibration_tracks(device):
+    """CAL_TRACKS tracks of CAL_STEPS steps made by the port's bicycle2d at
+    k_p_v = CAL_TRUTH on `device` in float64, with the inputs and initial
+    states of demos/demo_calibration.py's `synth_tracks` (numpy seeded)."""
+    import numpy as np
+
+    from cyclistsocialforce_tpu_torch.calibration import (Calibration,
+                                                          CalibrationData)
+    from cyclistsocialforce_tpu_torch.models import MODELS
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    n, steps = CAL_TRACKS, CAL_STEPS
+    rng = np.random.default_rng(0)
+    s0 = np.zeros((n, 5))
+    s0[:, 2] = rng.uniform(-0.4, 0.4, n)
+    s0[:, 3] = rng.uniform(2.0, 5.0, n)
+    t = np.arange(steps) * 0.01
+    fx = 3.5 + np.sin(2 * np.pi * 0.25 * t)[None, :] \
+        + rng.normal(0, 0.1, (n, 1))
+    fy = np.sin(2 * np.pi * 0.2 * t + rng.uniform(0, np.pi, (n, 1)))
+    inputs = np.stack([fx * np.ones((n, steps)), fy], axis=2)
+    lengths = np.full((n,), steps, dtype=np.int32)
+    blank = CalibrationData(s0, inputs, np.zeros((n, steps, 2)), lengths)
+    truth = Calibration(MODELS["bicycle2d"],
+                        BicycleParams.create(k_p_v=CAL_TRUTH), ["k_p_v"],
+                        blank, fix_speed=False, verbose=False, device=device)
+    obs = truth.simulate(truth.params, blank).cpu().numpy()
+    return CalibrationData(s0, inputs, obs, lengths)
+
+
+def calibration_of(data, device, test=None):
+    from cyclistsocialforce_tpu_torch.calibration import Calibration
+    from cyclistsocialforce_tpu_torch.models import MODELS
+    from cyclistsocialforce_tpu_torch.params import BicycleParams
+
+    return Calibration(MODELS["bicycle2d"], BicycleParams.create(),
+                       ["k_p_v"], data, test_data=test,
+                       objective_features=(0, 1), fix_speed=False,
+                       maxiter=CAL_MAXITER, verbose=False, device=device)
+
+
+def calibration_check(data, device):
+    """What the CPU is held to: the replay of `data` at the truth and one
+    objective off it."""
+    cal = calibration_of(data, device)
+    out = cal.simulate(cal.params.replace(k_p_v=CAL_TRUTH), data)
+    return {"outputs": out.cpu().numpy(), "objective": cal.objective([7.0])}
+
+
+def phase_calibration():
+    """The calibration on the card: the tracks, the first objective (its
+    replay captured as a CUDA graph), one objective's seconds, `run` from
+    CAL_GUESS, the test error, and the batch of CAL_TRACKS candidates over
+    every track (one replay of CAL_TRACKS^2 riders) held to the
+    per-candidate objective; returns the CAL_CPU tracks and the card's
+    numbers for the CPU check."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.calibration import CalibrationData
+
+    t0 = time.perf_counter()
+    data = calibration_tracks("cuda")
+    make_s = time.perf_counter() - t0
+    train, test = data.split(CAL_SPLIT, rng=np.random.default_rng(1))
+    cal = calibration_of(train, "cuda", test)
+    t0 = time.perf_counter()
+    cal.objective([CAL_GUESS])
+    first_s = time.perf_counter() - t0
+    times = []
+    for v in np.linspace(5.0, 9.0, 9):
+        t0 = time.perf_counter()
+        cal.objective([v])
+        times.append(time.perf_counter() - t0)
+    # the same replay eager (`simulate`, no graph), for comparison
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cal.simulate(cal.params.replace(k_p_v=CAL_GUESS), train)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xopt, res = cal.run([CAL_GUESS])
+    run_s = time.perf_counter() - t0
+    test_err = cal.test()
+    full = calibration_of(data, "cuda")
+    cands = np.linspace(6.0, 14.0, CAL_TRACKS)[:, None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errs = full.evaluate_population(cands)
+    batch_s = time.perf_counter() - t0
+    pick = np.linspace(0, CAL_TRACKS - 1, CAL_CHECK).astype(int)
+    singles = np.array([full.objective(cands[i]) for i in pick])
+    rel = np.abs(errs[pick] - singles) / np.abs(singles)
+    ok = bool(abs(xopt[0] - CAL_TRUTH) < CAL_TOL and rel.max() <= 1e-12
+              and np.isfinite(errs).all())
+    emit("calibration", tracks=CAL_TRACKS, steps=CAL_STEPS,
+         train=len(train), test=len(test), make_tracks_s=make_s,
+         first_objective_s=first_s, objective_s=statistics.median(times),
+         objective_graphed=cal._replays[id(train)].graph is not None,
+         eager_replay_s=eager_s,
+         run_s=run_s, x=float(xopt[0]), truth=CAL_TRUTH, tol=CAL_TOL,
+         iters=res["iters"], calls=res["calls"], error=res["error"],
+         test_error=test_err, batch_riders=CAL_TRACKS * CAL_TRACKS,
+         batch_s=batch_s, batch_vs_objective_max_rel=float(rel.max()),
+         batch_argmin_k_p_v=float(cands[np.argmin(errs), 0]), ok=ok)
+    if not ok:
+        raise AssertionError("calibration failed")
+    sub = CalibrationData(data.s0[:CAL_CPU], data.inputs[:CAL_CPU],
+                          data.objectives[:CAL_CPU], data.lengths[:CAL_CPU])
+    return sub, calibration_check(sub, "cuda")
+
+
+def compare_calibration(card, cpu):
+    import numpy as np
+
+    a, b = card["outputs"], cpu["outputs"]
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    rel_obj = abs(card["objective"] - cpu["objective"]) / abs(cpu["objective"])
+    emit("calibration_parity", tracks=CAL_CPU, steps=CAL_STEPS,
+         outputs_max_rel=rel, objective_rel=rel_obj, tol=1e-10)
+    if not (rel <= 1e-10 and rel_obj <= 1e-10):
+        raise AssertionError("calibration_parity failed")
+
+
+def gmm_samples():
+    """GMM_SAMPLES raw ImRe5GivenV feature rows drawn from the packaged
+    GMM_MODEL at speeds spread evenly over 1.5-5.5 m/s (numpy seeded)."""
+    import numpy as np
+
+    from cyclistsocialforce_tpu_torch.behavior import load_packaged_polemodel
+
+    pm = load_packaged_polemodel(GMM_MODEL)
+    rng = np.random.default_rng(GMM_SEED)
+    v = np.linspace(1.5, 5.5, GMM_SAMPLES)
+    return np.array([np.r_[vi, pm.sample_pole_features(1, v=vi,
+                                                       rng=rng)[0][0]]
+                     for vi in v])
+
+
+def fit_gmm_model(device):
+    """`fit_pole_model` of `gmm_samples()` on `device` at the packaged BR1
+    fit's size; its selected hyperparameters (read from the grid search it
+    runs), the mixture and the seconds."""
+    import numpy as np
+
+    from cyclistsocialforce_tpu_torch import behavior, gmm_fit
+
+    seen = {}
+    grid_search = gmm_fit.fit_optimize
+
+    def recorded(*args, **kw):
+        gmm, info = grid_search(*args, **kw)
+        seen.update(info)
+        return gmm, info
+
+    X = gmm_samples()
+    gmm_fit.fit_optimize = recorded
+    try:
+        t0 = time.perf_counter()
+        pm = behavior.fit_pole_model(
+            X, "ImRe5GivenV", range_components=(1, 5),
+            covariance_types=gmm_fit.COVARIANCE_TYPES, k_crossval=GMM_FOLDS,
+            n_init=GMM_INIT, seed=GMM_SEED, device=device)
+        seconds = time.perf_counter() - t0
+    finally:
+        gmm_fit.fit_optimize = grid_search
+    return {"hyperparameters": seen["hyperparameters"],
+            "fits": len(seen["gridsearch"]) * GMM_FOLDS + 1,
+            "means": np.asarray(pm.gmm.means),
+            "weights": np.asarray(pm.gmm.weights),
+            "scores_val": seen["scores_val"], "seconds": seconds}
+
+
+def phase_gmm_fit():
+    out = fit_gmm_model("cuda")
+    emit("gmm_fit", samples=GMM_SAMPLES, folds=GMM_FOLDS, n_init=GMM_INIT,
+         fits=out["fits"], seconds=out["seconds"],
+         hyperparameters=out["hyperparameters"],
+         scores_val=out["scores_val"])
+    return out
+
+
+def compare_gmm_fit(card, cpu):
+    """The same hyperparameters as the CPU's fit, the best model's means
+    within 1e-8 (matched component by component: a tie between restarts
+    may order them otherwise)."""
+    import numpy as np
+
+    same = card["hyperparameters"] == cpu["hyperparameters"]
+    err = None
+    if same:
+        order = [int(np.argmin(np.abs(cpu["means"] - m).sum(axis=1)))
+                 for m in card["means"]]
+        err = float(np.abs(card["means"] - cpu["means"][order]).max()) \
+            if sorted(order) == list(range(len(order))) else math.inf
+    emit("gmm_fit_parity", card=card["hyperparameters"],
+         cpu=cpu["hyperparameters"], means_max_abs=err, tol=1e-8,
+         cpu_seconds=cpu["seconds"])
+    if not (same and err <= 1e-8):
+        raise AssertionError("gmm_fit_parity failed")
+
+
+def field_case(device):
+    """eval_force_field of a FIELD_N-rider crowd (the twod field) over a
+    FIELD_GRID x FIELD_GRID grid over its extent, in float64 on
+    `device`."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.scenarios import build_population
+    from cyclistsocialforce_tpu_torch.viz import eval_force_field
+
+    st = build_population(FIELD_N, DENSITY, HIST_LEN, None, torch.float64,
+                          device)
+    xy = st.s[:, :2].cpu().numpy()
+    lo, hi = xy.min(axis=0) - 5.0, xy.max(axis=0) + 5.0
+    gx, gy = np.meshgrid(np.linspace(lo[0], hi[0], FIELD_GRID),
+                         np.linspace(lo[1], hi[1], FIELD_GRID))
+    t0 = time.perf_counter()
+    fx, fy = eval_force_field(gx, gy, engine=make_engine(), state=st,
+                              psi_recv=0.3)
+    return {"fx": fx, "fy": fy, "seconds": time.perf_counter() - t0}
+
+
+def phase_viz_fields(state):
+    """density_map of the N_AGENTS crowd on the card (positions in
+    float64) against numpy.histogram2d, cell for cell; the card's
+    eval_force_field (compared with the CPU's at the end); matplotlib
+    never imported."""
+    import numpy as np
+    import torch
+
+    from cyclistsocialforce_tpu_torch.viz import density_map
+
+    act = state.active.cpu().numpy()
+    xy = state.s[:, :2].double().cpu().numpy()[act]
+    xlim = (float(xy[:, 0].min()), float(xy[:, 0].max()))
+    ylim = (float(xy[:, 1].min()), float(xy[:, 1].max()))
+    s = state.s.double()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    H, _ = density_map(s[:, 0], s[:, 1], xlim, ylim, bins=DENSITY_BINS,
+                       active=state.active)
+    density_s = time.perf_counter() - t0
+    want, _, _ = np.histogram2d(xy[:, 0], xy[:, 1], bins=DENSITY_BINS,
+                                range=[xlim, ylim])
+    n_diff = int((H != want.T).sum())
+    field = field_case("cuda")
+    ok = bool(n_diff == 0 and H.sum() == act.sum()
+              and "matplotlib" not in sys.modules)
+    emit("viz_fields", density_bins=DENSITY_BINS, riders=int(act.sum()),
+         counted=float(H.sum()), cells_differing=n_diff,
+         density_s=density_s, field_riders=FIELD_N,
+         field_points=FIELD_GRID * FIELD_GRID,
+         field_s=field["seconds"],
+         matplotlib_imported="matplotlib" in sys.modules, ok=ok)
+    if not ok:
+        raise AssertionError("viz_fields failed")
+    return field
+
+
+def compare_field(card, cpu):
+    import numpy as np
+
+    scale = max(np.abs(cpu["fx"]).max(), np.abs(cpu["fy"]).max())
+    rel = max(np.abs(card["fx"] - cpu["fx"]).max(),
+              np.abs(card["fy"] - cpu["fy"]).max()) / scale
+    emit("viz_fields_parity", max_rel=float(rel), tol=FIELD_RTOL,
+         cpu_seconds=cpu["seconds"], card_seconds=card["seconds"],
+         matplotlib_imported="matplotlib" in sys.modules)
+    if not (rel <= FIELD_RTOL and "matplotlib" not in sys.modules):
+        raise AssertionError("viz_fields_parity failed")
+
+
 def parity_errors(a, b):
     """Per-quantity error summary of final states `a` and `b`, and the
     list of checks that failed (see PARITY_TOL)."""
@@ -2319,6 +2951,8 @@ def main():
                                      leg_engine, leg_db_engine, state)
     forms.update(mixed_forms)
     forms.update(timed("kernel_forms", phase_block_forms, state))
+    forms["k1_mixed_screen_block64"] = timed("kernel_forms",
+                                             phase_block64_mixed, state)
     # K1's column form on slice_scripted's own packs
     forms["k1_columns_scripted"] = timed(
         "kernel_forms", check_form, "kernel_forms", "k1_columns_scripted",
@@ -2367,6 +3001,12 @@ def main():
     launches = {path: timed(path, phase_slice, path, *paths[path],
                             kernel_of[path], reports.get(path))
                 for path in paths}
+    # the co-simulation (eager steps, the wrapper counts every launch),
+    # the calibration and the pole-model fit
+    launches["sumo"], sumo_run, forms["k1_mixed_screen_sumo"] = timed(
+        "sumo", phase_sumo)
+    cal_tracks, cal_card = timed("calibration", phase_calibration)
+    gmm_card = timed("gmm_fit", phase_gmm_fit)
     profiled = ("slice", "slice_twod", "slice_mixed", "slice_invpendulum",
                 "slice_balancingrider", "slice_stochastic",
                 "slice_stochastic_exact", "slice_scripted", "slice_kaths")
@@ -2390,12 +3030,18 @@ def main():
     cpu = CpuReferences()
     cpu.start(cpu_specs(db_engine.neighbors.kb, leg_engine.neighbors.kb,
                         parity_mixed_engine.neighbors.kb,
-                        kaths_engine.neighbors.kb))
+                        kaths_engine.neighbors.kb),
+              first=(("gmm_fit", fit_gmm_model, ("cpu",)),
+                     ("sumo", run_sumo, ("cpu",)),
+                     ("viz_fields", field_case, ("cpu",)),
+                     ("calibration", calibration_check,
+                      (cal_tracks, "cpu"))))
     try:
         card_phases(timed, paths, engine, twod_engine, ip_engine,
                     br_engine, state)
         timed("scenario", phase_scenario, state)
         timed("diagnostics", phase_diagnostics, state)
+        field_card = timed("viz_fields", phase_viz_fields, state)
         timed("parity", phase_parity, cpu)
         timed("parity_db", phase_parity_db, db_engine, state, cpu)
         timed("parity_legacy", phase_parity_legacy, leg_engine, cpu)
@@ -2413,6 +3059,13 @@ def main():
         timed("parity_scripted", phase_parity_scripted, cpu)
         timed("parity_kaths", phase_parity_kaths, kaths_engine.neighbors.kb,
               cpu)
+        timed("sumo_parity", compare_sumo, sumo_run, cpu.result("sumo"))
+        timed("calibration_parity", compare_calibration, cal_card,
+              cpu.result("calibration"))
+        timed("gmm_fit_parity", compare_gmm_fit, gmm_card,
+              cpu.result("gmm_fit"))
+        timed("viz_fields_parity", compare_field, field_card,
+              cpu.result("viz_fields"))
     finally:
         cpu.close()
     emit("phase_seconds", **seconds)
@@ -2496,12 +3149,15 @@ def kernels_line(launches, kernel, forms, vs_k1, kernel_of):
          "source": SRC + "pair_forces.cu", "replaces": TPU + "75",
          **counted("slice"), **kernel,
          "vs_k2_uniform": vs_k1["k2_uniform"],
-         "paths": {name: counted(name) for name, fn in kernel_of.items()
-                   if fn is k1},
+         "paths": {**{name: counted(name)
+                      for name, fn in kernel_of.items() if fn is k1},
+                   "sumo": counted("sumo")},
          "mixed": {**mixed("k1_mixed_screen", "slice_legacy"),
                    "vs_k3_mixed": vs_k1["k3_mixed"]},
          "two_family": mixed("k1_two_family_screen", "slice_mixed"),
          "columns": mixed("k1_columns_scripted", "slice_scripted"),
+         "mixed_block64": {**mixed("k1_mixed_screen_sumo", "sumo"),
+                           "crowd": forms["k1_mixed_screen_block64"]},
          "blocks": blocks("k1")},
         {"name": "pair_forces_neighbors_unrolled", "route": "cuda",
          "source": SRC + "pair_forces_unrolled.cu", "replaces": TPU + "401",

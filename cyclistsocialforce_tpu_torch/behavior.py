@@ -11,6 +11,11 @@ construction. The stochastic balancing rider samples its pole features
 in the step from `PoleModelRT` (torch, batched over riders, the JAX
 package's draws from the same keys).
 
+The host side also samples pole features and poles (numpy's generators,
+the JAX package's draws), fits the preprocessing and, through
+`gmm_fit`, the mixture (`fit_pole_model`), and reads and writes the
+reference's YAML files (PyYAML, imported where it is used).
+
 The packaged models are the reference's fitted YAML files, kept here as
 JSON twins (`data/balancingriderparams/*.json`, the same values): JSON is
 in the standard library, so loading one needs no YAML parser.
@@ -23,6 +28,7 @@ import json
 import math
 import os
 from dataclasses import dataclass, field
+from datetime import datetime
 
 import numpy as np
 import torch
@@ -74,6 +80,72 @@ class GMMData:
     @property
     def n_features(self):
         return self.means.shape[1]
+
+    def sample(self, n_samples, rng):
+        """Draw samples; returns (samples [n, F], component labels [n])."""
+        labels = rng.choice(self.n_components, size=n_samples,
+                            p=self.weights / self.weights.sum())
+        out = np.empty((n_samples, self.n_features))
+        for k in range(self.n_components):
+            m = labels == k
+            if np.any(m):
+                out[m] = rng.multivariate_normal(
+                    self.means[k], self.covariances[k], size=int(m.sum()))
+        return out, labels
+
+    def scale_variance(self, factor):
+        """New GMMData with every component's covariance scaled by
+        `factor` (the reference's variance_scale: cov -> S cov S^T with
+        S = sqrt(factor) I, i.e. factor * cov;
+        controlbehavior.py:246-254)."""
+        if factor <= 0:
+            raise ValueError("variance scale factor must be positive")
+        return GMMData(means=self.means,
+                       covariances=self.covariances * float(factor),
+                       weights=self.weights)
+
+    def marginal_pdf_1d(self, x, idx):
+        """Marginal density of feature `idx` at locations `x`
+        (reference eval_1d_marginal_pdf_samples,
+        controlbehavior.py:280-307: the marginal of a GMM is the 1D
+        mixture of the per-component marginals). Vectorized over
+        components instead of a per-component scipy loop.
+
+        Returns (x flattened, densities)."""
+        x = np.asarray(x, dtype=float).reshape(-1)
+        mu = self.means[:, idx]                      # [K]
+        var = self.covariances[:, idx, idx]          # [K]
+        z = (x[None, :] - mu[:, None]) ** 2 / var[:, None]
+        comp = np.exp(-0.5 * z) / np.sqrt(2.0 * np.pi * var[:, None])
+        return x, (self.weights[:, None] * comp).sum(axis=0)
+
+    def marginal_pdf_1d_range(self, xlim, idx, n_samples=200):
+        """Marginal density of feature `idx` over a uniform grid
+        (reference eval_1d_marginal_pdf, controlbehavior.py:309-332)."""
+        return self.marginal_pdf_1d(
+            np.linspace(xlim[0], xlim[1], n_samples), idx)
+
+    def marginal_pdf_2d(self, xlim, ylim, idx_x, idx_y, n_samples=200):
+        """Joint marginal density of features (idx_x, idx_y) on an
+        n x n grid (reference eval_2d_marginal_pdf,
+        controlbehavior.py:334-377).
+
+        Returns (locations [n*n, 2], densities [n*n])."""
+        x = np.linspace(xlim[0], xlim[1], n_samples)
+        y = np.linspace(ylim[0], ylim[1], n_samples)
+        X, Y = np.meshgrid(x, y)
+        pts = np.stack([X.ravel(), Y.ravel()], axis=1)       # [P, 2]
+        sel = [idx_x, idx_y]
+        mu = self.means[:, sel]                              # [K, 2]
+        cov = self.covariances[:, sel][:, :, sel]            # [K, 2, 2]
+        det = cov[:, 0, 0] * cov[:, 1, 1] - cov[:, 0, 1] * cov[:, 1, 0]
+        d = pts[None, :, :] - mu[:, None, :]                 # [K, P, 2]
+        # quadratic form through the analytic 2x2 inverse
+        q = (cov[:, 1, 1, None] * d[:, :, 0] ** 2
+             - 2.0 * cov[:, 0, 1, None] * d[:, :, 0] * d[:, :, 1]
+             + cov[:, 0, 0, None] * d[:, :, 1] ** 2) / det[:, None]
+        comp = np.exp(-0.5 * q) / (2.0 * np.pi * np.sqrt(det[:, None]))
+        return pts, (self.weights[:, None] * comp).sum(axis=0)
 
 
 def conditional_gmm(gmm: GMMData, idx_given: int, x_given: float) -> GMMData:
@@ -203,6 +275,37 @@ class Preprocessing:
             Xf = Xf[:, sparse]
         return Xf
 
+    def fit(self, X, features, log_transform=True, normalize=True):
+        """Fit the pipeline on raw feature data [n, F] (reference
+        fit_transform, controlbehavior.py:884-914): log-shift on
+        'real'/'mag' features with a = 0.9 min(sign*x), then Yeo-Johnson
+        (lambda via MLE grid) with standardization."""
+        X = np.asarray(X, dtype=float)
+        self.n_features = X.shape[1]
+        Xt = X.copy()
+        if log_transform:
+            import re as _re
+            idx = [i for i, f in enumerate(features)
+                   if (m := _re.findall(r"p\d_(.{1,5})", f))
+                   and m[0] in ("real", "mag")]
+            self.log_features = np.asarray(idx, dtype=int)
+            sub = X[:, idx]
+            self.log_sign = np.sign(sub[0, :])
+            sub = sub * self.log_sign
+            self.log_a = 0.9 * np.min(sub, axis=0)
+            Xt[:, idx] = np.log(sub - self.log_a)
+        from scipy.stats import yeojohnson as _scipy_yj
+        lams = np.array([_scipy_yj(Xt[:, j])[1]
+                         for j in range(self.n_features)])
+        self.lambdas = lams
+        Xt = yeojohnson(Xt, lams)
+        if normalize:
+            self.scaler_mean = Xt.mean(axis=0)
+            self.scaler_scale = Xt.std(axis=0)
+            Xt = (Xt - self.scaler_mean) / self.scaler_scale
+            self.n_samples_seen = X.shape[0]
+        return Xt
+
 
 def pole_features_to_poles(feats, feature_names):
     """[.., F] pole features -> [.., P] complex poles, each complex pole
@@ -233,9 +336,10 @@ def pole_features_to_poles(feats, feature_names):
 class PoleModel:
     """A fitted (conditional) GMM over closed-loop pole features
     (reference PoleModel, controlbehavior.py:989-2137): loading, and the
-    component means as linear functions of speed. Sampling, fitting,
-    marginal densities and export are not ported (ROADMAP Queue 1 item
-    12); the runtime sampler is `PoleModelRT`."""
+    component means as linear functions of speed, YAML import and export,
+    and sampling with stability rejection (controlbehavior.py:1339-1469,
+    numpy's generators as in the JAX package); the runtime sampler is
+    `PoleModelRT`."""
 
     feature_set: str
     gmm: GMMData
@@ -335,6 +439,59 @@ class PoleModel:
             out[i] = coef.T                            # [F-1, 2]
         return out
 
+    @classmethod
+    def import_from_yaml(cls, filepath):
+        """The model of one of the reference's YAML parameter files
+        (PyYAML, imported here: the card's machine may lack it)."""
+        import yaml
+
+        with open(filepath) as f:
+            data = yaml.safe_load(f)
+        return cls.from_dict(data)
+
+    def export_to_yaml(self, filepath):
+        """Write the model in the reference's YAML schema
+        (controlbehavior.py:1987-2137)."""
+        import yaml
+
+        pre = self.preprocessing
+        pp = dict(
+            power_transform=("yeo-johnson" if pre.lambdas is not None
+                             else "none"),
+            normalize=pre.scaler_mean is not None,
+            log_transform=pre.has_log,
+            power_transform_params=(
+                {"lambdas": pre.lambdas.tolist()}
+                if pre.lambdas is not None else {}),
+            standard_scaler_params=(
+                {"mean": pre.scaler_mean.tolist(),
+                 "scale": pre.scaler_scale.tolist(),
+                 "n_samples_seen": int(pre.n_samples_seen)}
+                if pre.scaler_mean is not None else {}),
+            log_transform_params=(
+                {"a": pre.log_a.reshape(1, -1).tolist(),
+                 "sign": pre.log_sign.reshape(1, -1).tolist(),
+                 "log_transform_features": pre.log_features.tolist()}
+                if pre.has_log else {}),
+        )
+        gmd = dict(
+            means=self.gmm.means.tolist(),
+            covariances=self.gmm.covariances.tolist(),
+            weights=self.gmm.weights.tolist(),
+            n_features=int(self.gmm.n_features),
+            n_components=int(self.gmm.n_components),
+            covariance_type="full",
+        )
+        gmd.update(self.metadata.get("scores", {}))
+        presets = dict(self.metadata.get("presets", {}))
+        presets["feature_set"] = self.feature_set
+        presets.setdefault("features", list(self.features))
+        data = dict(presets=presets, gmm_data=gmd,
+                    preprocessing_pipeline=pp,
+                    metadata=dict(data_created=str(datetime.now())))
+        with open(filepath, "w") as f:
+            yaml.dump(data, f)
+
     def mean_poles(self, v, component=0):
         """Mean pole locations of one component at speed v, complex, in
         the reference's ordering (update_control_params, reference
@@ -346,6 +503,100 @@ class PoleModel:
                  + self._linfit[component, :, 1] * float(v))
         names = [self.features[i] for i in self._rest_indices()]
         return pole_features_to_poles(feats[None], names)[0]
+
+    # ---- sampling
+
+    def sample_pole_features(self, n_samples, v=None, rng=None,
+                             max_retries=100):
+        """Sample raw pole features; resamples non-finite inverse-transform
+        results (reference PoleModel.sample, controlbehavior.py:1339-1412).
+        """
+        rng = rng or np.random.default_rng()
+        if self.is_conditional:
+            if v is None:
+                raise ValueError("conditional pole model: pass the speed v")
+            g = conditional_gmm(self.gmm, self.idx_given,
+                                self._transform_given(v)[0])
+        else:
+            g = self.gmm
+        samples, labels = g.sample(n_samples, rng)
+        out = self.preprocessing.inverse_transform(
+            samples, sparse_column_indices=self._rest_indices())
+        for _ in range(max_retries):
+            bad = ~np.all(np.isfinite(out), axis=1)
+            if not np.any(bad):
+                return out, labels
+            res, lab = g.sample(int(bad.sum()), rng)
+            out[bad] = self.preprocessing.inverse_transform(
+                res, sparse_column_indices=self._rest_indices())
+            labels[bad] = lab
+        raise RuntimeError("Sampling error!")
+
+    def sample_poles(self, n_samples=1, X_given=None, rng=None,
+                     ensure_stable=True, max_retries=1000):
+        """Sample complex pole sets, rejecting unstable draws (reference
+        sample_poles, controlbehavior.py:1414-1469)."""
+        feats, labels = self.sample_pole_features(n_samples, X_given, rng)
+        names = [self.features[i] for i in self._rest_indices()]
+        poles = pole_features_to_poles(feats, names)
+        if ensure_stable:
+            rng = rng or np.random.default_rng()
+            for _ in range(max_retries):
+                bad = np.any(np.real(poles) > 0, axis=1)
+                if not np.any(bad):
+                    return poles, labels
+                f2, l2 = self.sample_pole_features(int(bad.sum()), X_given,
+                                                   rng)
+                poles[bad] = pole_features_to_poles(f2, names)
+                labels[bad] = l2
+            raise TimeoutError(
+                f"Couldn't find {n_samples} stable poles after "
+                f"{max_retries} draws!")
+        return poles, labels
+
+
+def fit_pole_model(raw_features, feature_set,
+                   range_components=(1, 5),
+                   covariance_types=("full", "tied", "diag", "spherical"),
+                   k_crossval=10, n_init=20, log_transform=True,
+                   normalize=True, seed=0, verbose=False,
+                   device="cuda") -> PoleModel:
+    """Fit a pole model from raw pole-feature data [n, F].
+
+    The reference's full fitting pipeline (PoleModel.fit_optimize +
+    PreprocessingPipeline.fit_transform, controlbehavior.py:884-914,
+    1273-1334): fit the log-shift / Yeo-Johnson / scaler preprocessing,
+    then grid-search a (conditional-capable) GMM over n_components x
+    covariance_type with k-fold CV -- here EM runs as a restart batch on
+    `device` (see gmm_fit).
+    """
+    from cyclistsocialforce_tpu_torch import gmm_fit
+
+    features, _ = PREDEFINED_FEATURE_SETS[feature_set]
+    X = np.asarray(raw_features, dtype=float)
+    if X.shape[1] != len(features):
+        raise ValueError(
+            f"feature_set {feature_set} expects {len(features)} columns "
+            f"({features}), got {X.shape[1]}")
+    pre = Preprocessing(n_features=X.shape[1])
+    Xt = pre.fit(X, features, log_transform=log_transform,
+                 normalize=normalize)
+    gmm, info = gmm_fit.fit_optimize(
+        Xt, range_components=range_components,
+        covariance_types=covariance_types, k_crossval=k_crossval,
+        n_init=n_init, seed=seed, verbose=verbose, device=device)
+    meta = {"presets": {"feature_set": feature_set,
+                        "features": list(features),
+                        "gridsearch_selection_metric": "NLL",
+                        "n_gmm_inits": n_init,
+                        "riderbike_model": None},
+            "scores": {"scores_val": info["scores_val"],
+                       "scores_test": info["scores_train"],
+                       "n_samples_train": int(X.shape[0]),
+                       "n_samples_test": 0,
+                       "k_crossval": k_crossval}}
+    return PoleModel(feature_set=feature_set, gmm=gmm, preprocessing=pre,
+                     metadata=meta)
 
 
 def packaged_polemodel_path(filename) -> str:
@@ -625,7 +876,39 @@ class PoleModelRT:
         return self.sample_features_info(key, v)[0]
 
 
+def combine_outliers(outliers_by_model):
+    """Combine per-model outlier flags into one any-model mask
+    (reference controlbehavior.get_outliers_all_models,
+    controlbehavior.py:41-63 -- there a pandas merge over per-model
+    CSVs keyed by sample_id; here a file-format-free equivalent over
+    {model_name: (sample_ids, outlier_flags)} or plain flag arrays).
+
+    Returns (sample_ids, combined [S] bool) where combined[s] is True if
+    ANY model flags that sample. Models may list samples in different
+    orders; ids missing from a model are treated as not flagged by it."""
+    ids = None
+    per_model = {}
+    for name, entry in outliers_by_model.items():
+        if isinstance(entry, tuple):
+            sid, flags = entry
+        else:
+            flags = entry
+            sid = np.arange(len(flags))
+        sid = np.asarray(sid)
+        flags = np.asarray(flags, dtype=bool)
+        if sid.shape != flags.shape:
+            raise ValueError(f"model {name!r}: ids and flags must align")
+        per_model[name] = (sid, flags)
+        ids = sid if ids is None else np.union1d(ids, sid)
+    combined = np.zeros(ids.shape, dtype=bool)
+    for sid, flags in per_model.values():
+        pos = np.searchsorted(ids, sid)
+        combined[pos] |= flags
+    return ids, combined
+
+
 __all__ = ["DATA_DIR", "GMMData", "PREDEFINED_FEATURE_SETS", "PoleModel",
-           "PoleModelRT", "Preprocessing", "conditional_gmm", "load_packaged_polemodel",
+           "PoleModelRT", "Preprocessing", "combine_outliers",
+           "conditional_gmm", "fit_pole_model", "load_packaged_polemodel",
            "packaged_polemodel_path", "pole_features_to_poles",
            "yeojohnson", "yeojohnson_inverse"]

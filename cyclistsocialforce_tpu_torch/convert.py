@@ -7,6 +7,7 @@ test can hand the same inputs to both packages.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -135,3 +136,37 @@ def group_specs_from_jax(mixed_engine, device="cuda") -> list:
         specs.append((by_name[name], params_from_jax(g.params, device),
                       int(g.hi) - int(g.lo)))
     return specs
+
+
+def gmm_from_jax(gmm):
+    """The port's `behavior.GMMData` of a JAX `GMMData` (numpy on both
+    sides)."""
+    from cyclistsocialforce_tpu_torch.behavior import GMMData
+
+    return GMMData(np.array(gmm.means), np.array(gmm.covariances),
+                   np.array(gmm.weights))
+
+
+def polemodel_from_jax(pm):
+    """The port's `behavior.PoleModel` of a JAX `PoleModel`: its feature
+    set, mixture, metadata and `Preprocessing` (every array copied)."""
+    from cyclistsocialforce_tpu_torch.behavior import PoleModel, Preprocessing
+
+    src = pm.preprocessing
+    pre = Preprocessing(n_features=int(src.n_features))
+    for f in ("lambdas", "scaler_mean", "scaler_scale", "log_a", "log_sign",
+              "log_features"):
+        value = getattr(src, f)
+        setattr(pre, f, None if value is None else np.array(value))
+    pre.n_samples_seen = int(src.n_samples_seen)
+    return PoleModel(feature_set=pm.feature_set, gmm=gmm_from_jax(pm.gmm),
+                     preprocessing=pre, metadata=copy.deepcopy(pm.metadata))
+
+
+def calibration_data_from_jax(data):
+    """The port's `calibration.CalibrationData` of a JAX
+    `CalibrationData`."""
+    from cyclistsocialforce_tpu_torch.calibration import CalibrationData
+
+    return CalibrationData(np.array(data.s0), np.array(data.inputs),
+                           np.array(data.objectives), np.array(data.lengths))

@@ -1112,8 +1112,12 @@ class Engine(nn.Module):
             v = values[name]
             if per_agent(v):
                 # per-agent table in original row order: index by uid so
-                # a row's parameters follow it through permutations
-                return v.to(device=dev, dtype=dtype)[state.uid.long()]
+                # a row's parameters follow it through permutations; a
+                # uid past the table reads its last row, as JAX's
+                # clamped gather does (the SUMO bridge numbers entrants
+                # on from the capacity)
+                return v.to(device=dev, dtype=dtype)[
+                    state.uid.long().clamp_max(v.shape[0] - 1)]
             return kept(name, lambda: torch.full((n,), float(v), dtype=dtype,
                                                  device=dev), float(v))
 

@@ -257,5 +257,72 @@ def choice_index(key, p_cumsum) -> torch.Tensor:
                               r[..., None].contiguous())[..., 0]
 
 
-__all__ = ["MASK", "bits32", "bits64", "choice_index", "fold_in", "key",
-           "erfinv", "normal", "split", "threefry2x32", "uniform"]
+def randint(key, shape, minval, maxval, dtype=torch.int64) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval, dtype)` per key of
+    the batch [..., 2], bit for bit, for int32 and int64 (`minval`,
+    `maxval` ints or integer tensors broadcast against the batch and
+    `shape`): two draws of nbits random bits from `split(key)`, higher
+    and lower, and minval + ((higher % span) * (2^nbits % span) + lower %
+    span) % span, span = maxval - minval (1 where maxval <= minval), in
+    unsigned nbits arithmetic. int64 spans must stay below 2^31, where
+    that arithmetic fits an int64 exactly."""
+    if dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"randint takes int32 or int64, got {dtype}")
+    shape = tuple(int(s) for s in shape)
+    dev = key.device
+    lo = torch.as_tensor(minval, dtype=torch.int64, device=dev)
+    hi = torch.as_tensor(maxval, dtype=torch.int64, device=dev)
+    info = torch.iinfo(dtype)
+    # the bounds converted to dtype by clipping, maxval's excess noted
+    # (JAX's _convert_and_clip_integer)
+    over = hi > info.max
+    lo = lo.clamp(info.min, info.max)
+    hi = hi.clamp(info.min, info.max)
+    span = torch.where(hi <= lo, 1, hi - lo)
+    span = torch.where(over & (hi > lo), span + 1, span)
+    k1, k2 = split(key).unbind(-2)
+    if dtype == torch.int32:
+        if bool((span >= 1 << 32).any()):
+            raise ValueError("randint in int32 takes spans below 2^32")
+        higher, lower = bits32(k1, shape), bits32(k2, shape)
+        half = 65536 % span
+        mult = ((half * half) & MASK) % span
+        off = ((higher % span) * mult) & MASK
+        off = ((off + lower % span) & MASK) % span
+        return (lo + off).to(dtype)
+    if bool((span >= 1 << 31).any()):
+        raise ValueError("randint in int64 takes spans below 2^31")
+    two32 = (1 << 32) % span
+
+    def rem64(words):
+        # (hi << 32 | lo) % span of the two 32-bit words of a 64-bit draw
+        return ((words[0] % span) * two32 + words[1] % span) % span
+
+    mult = two32 * two32 % span
+    off = (rem64(bits64(k1, shape)) * mult + rem64(bits64(k2, shape))) \
+        % span
+    return lo + off
+
+
+def gumbel(key, shape, dtype=torch.float32) -> torch.Tensor:
+    """`jax.random.gumbel(key, shape, dtype)` in its default "low" mode
+    per key of the batch [..., 2]: -log(-log(u)), u the uniform draw on
+    [tiny, 1) (bit for bit in float64, where 1 - tiny rounds to 1)."""
+    tiny = float(torch.finfo(dtype).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, dtype, tiny, 1.0)))
+
+
+def categorical(key, logits) -> torch.Tensor:
+    """`jax.random.categorical(key, logits)` over the last axis, per key
+    of the batch [..., 2] (broadcast against logits [..., K]): the
+    argmax of a Gumbel draw of the logits' shape plus the logits (the
+    first index of a tie, as JAX's argmax; -inf logits are never taken
+    while one is finite). Returns int64 indices [...]."""
+    k = logits.shape[-1]
+    g = gumbel(key, (k,), logits.dtype)
+    return torch.argmax(g + logits, dim=-1)
+
+
+__all__ = ["MASK", "bits32", "bits64", "categorical", "choice_index",
+           "fold_in", "gumbel", "key", "erfinv", "normal", "randint",
+           "split", "threefry2x32", "uniform"]

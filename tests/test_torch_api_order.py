@@ -20,10 +20,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from cyclistsocialforce_tpu_torch import behavior as TB  # noqa: E402
+from cyclistsocialforce_tpu_torch import calibration as TC  # noqa: E402
 from cyclistsocialforce_tpu_torch import engine as TE  # noqa: E402
+from cyclistsocialforce_tpu_torch import gmm_fit as TG  # noqa: E402
 from cyclistsocialforce_tpu_torch import mixed as TM  # noqa: E402
 from cyclistsocialforce_tpu_torch import params as TP  # noqa: E402
 from cyclistsocialforce_tpu_torch import state as TS  # noqa: E402
+from cyclistsocialforce_tpu_torch import sumo as TSU  # noqa: E402
+from cyclistsocialforce_tpu_torch import viz as TV  # noqa: E402
 from cyclistsocialforce_tpu_torch.models import MODELS  # noqa: E402
 
 torch.set_num_threads(1)
@@ -35,12 +40,26 @@ DEV = "cpu"   # the port's entry points default to the card
 def jx():
     """The JAX package's modules used as the reference."""
     pytest.importorskip("jax")
-    from cyclistsocialforce_tpu import engine, mixed, params, state
+    from cyclistsocialforce_tpu import (behavior, calibration, engine,
+                                        gmm_fit, mixed, params, state, sumo,
+                                        viz)
     from cyclistsocialforce_tpu.models import MODELS as JMODELS
     from cyclistsocialforce_tpu.models import hessbikerider
 
     return types.SimpleNamespace(JE=engine, JM=mixed, JP=params, JS=state,
-                                 MODELS=JMODELS, hess=hessbikerider)
+                                 MODELS=JMODELS, hess=hessbikerider,
+                                 JB=behavior, JC=calibration, JG=gmm_fit,
+                                 JSU=sumo, JV=viz)
+
+
+PORT = {"SU": TSU, "G": TG, "B": TB, "C": TC, "V": TV}
+
+
+def _attr(module, dotted):
+    obj = module
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj
 
 
 def param_names(fn):
@@ -90,6 +109,35 @@ SHARED = {
                     "PlanarPointBicycleParams", "PlanarBicycleParams",
                     "InvPendulumBicycleParams", "BalancingRiderParams",
                     "RoadElementParams")},
+    # the host-side layers: the JAX module's attribute of the same
+    # dotted name as the port's
+    **{f"{mod}.{name}": (lambda mod, name: lambda j: tuple(
+        _attr(m, name) for m in (getattr(j, "J" + mod), PORT[mod])))(
+            mod, name)
+       for mod, names in {
+           "SU": ("SumoCoSimulation", "SumoIntersection",
+                  "SumoIntersection.add_road_user", "FakeTraCI",
+                  "FakeTraCI.add_vehicle", "get_transport",
+                  "SumoNetwork.parse", "SumoNetwork.lane_end_points",
+                  "load_packaged_net"),
+           "G": ("fit_gmm", "score_nll", "fit_optimize", "score_gmm",
+                 "score_conditional_gmm", "n_parameters"),
+           "B": ("GMMData.sample", "GMMData.marginal_pdf_2d",
+                 "Preprocessing.fit", "PoleModel.import_from_yaml",
+                 "PoleModel.export_to_yaml",
+                 "PoleModel.sample_pole_features", "PoleModel.sample_poles",
+                 "fit_pole_model", "combine_outliers"),
+           "C": ("Calibration", "CalibrationData.split", "sse_timesteps",
+                 "maesse_samples", "Calibration.simulate",
+                 "Calibration.objective", "Calibration.evaluate_population",
+                 "Calibration.run", "Calibration.per_track_errors",
+                 "Calibration.test"),
+           "V": ("SceneDrawing", "SceneDrawing.render", "animate",
+                 "write_video", "plot_states", "plot_forces",
+                 "eval_force_field", "plot_force_field",
+                 "eval_potential_field", "density_map", "plot_density",
+                 "plot_fft", "plot_gridsearch", "plot_marginals")}.items()
+       for name in names},
 }
 
 
@@ -100,6 +148,8 @@ def test_jax_parameters_are_a_prefix_of_the_ports(jx, name):
     want, got = param_names(jfn), param_names(tfn)
     assert got[:len(want)] == want, (
         f"{name}: the JAX package takes {want}, the port {got}")
+    if "device" in got:
+        assert got[-1] == "device", f"{name}: device is not last: {got}"
 
 
 def test_neighbor_config_positional_arguments(jx):

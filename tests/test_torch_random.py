@@ -9,7 +9,10 @@ one multiply-add, which the bounds of `normal` leave exact). `normal` goes throu
 the port's copy of XLA's erfinv (and, in float64, of XLA's log1p): in
 float32 within 4 ulps of JAX's draw, in float64 within 1e-15 (what is
 left is XLA's fused multiply-adds). `jax.random.choice` with weights
-(`choice_index`) picks the same indices.
+(`choice_index`) picks the same indices. `randint` (int32 and int64) is
+bit-equal over 10,000 keys; `gumbel`'s uniform on [tiny, 1) is bit-equal
+in both float types, and `categorical` (the argmax of Gumbel draws plus
+the logits, -inf entries included) picks the same indices.
 """
 
 import numpy as np
@@ -171,3 +174,77 @@ def test_choice_index_matches_jax():
     got = R.choice_index(port_keys(keys),
                          torch.cumsum(torch.from_numpy(w), dim=-1))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+N_KEYS = 10_000
+RANGES = ((0, 10), (0, 154), (-7, 3), (5, 5), (3, -2), (0, 2**20 + 3),
+          (-(2**30), 2**30 - 5))
+INT_DTYPES = ((jnp.int32, torch.int32), (jnp.int64, torch.int64))
+
+
+@pytest.mark.parametrize("dtypes", INT_DTYPES, ids=["int32", "int64"])
+def test_randint_matches_jax(dtypes):
+    """`randint` over 10,000 keys (scalar draws, the k-means++ seed's
+    form) and on shape [8, 5], for spans of 1 to 2^31 and empty ranges
+    (maxval <= minval gives minval; int64 spans below 2^31, int32 up to
+    2^32 - 1): bit-equal to `jax.random.randint`."""
+    jd, td = dtypes
+    keys = jax.random.split(jax.random.PRNGKey(11), N_KEYS)
+    tk = port_keys(keys)
+    for lo, hi in RANGES:
+        want = jax.vmap(lambda k: jax.random.randint(k, (), lo, hi, jd))(
+            keys)
+        got = R.randint(tk, (), lo, hi, td)
+        assert got.dtype == td
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        jk = jax.random.PRNGKey(lo & 0xFFFF)
+        np.testing.assert_array_equal(
+            R.randint(R.key(lo & 0xFFFF, "cpu"), (8, 5), lo, hi, td).numpy(),
+            np.asarray(jax.random.randint(jk, (8, 5), lo, hi, jd)))
+    if td == torch.int64:
+        return
+    # int32 spans up to 2^32 - 1, and a maxval past int32's range (the
+    # span one larger, as JAX has it)
+    want = jax.vmap(lambda k: jax.random.randint(
+        k, (), -(2**31), 2**31 - 1, jnp.int32))(keys)
+    np.testing.assert_array_equal(
+        R.randint(tk, (), -(2**31), 2**31 - 1, torch.int32).numpy(),
+        np.asarray(want))
+    want = jax.vmap(lambda k: jax.random.randint(k, (), 2**31 - 9, 2**31,
+                                                 jnp.int32))(keys)
+    np.testing.assert_array_equal(
+        R.randint(tk, (), 2**31 - 9, 2**31, torch.int32).numpy(),
+        np.asarray(want))
+
+
+@pytest.mark.parametrize("dtypes", DTYPES, ids=["float32", "float64"])
+def test_gumbel_and_categorical_match_jax(dtypes):
+    """`gumbel` ("low" mode: -log(-log(u)), u on [tiny, 1)) and
+    `categorical` over 10,000 keys, on random logits and on logits with
+    -inf entries (k-means++'s log of a zero distance is finite; a row of
+    -inf but one entry always takes that entry): the uniforms bit for
+    bit, the Gumbel draws within 2 ulps and the indices equal."""
+    jd, td = dtypes
+    keys = jax.random.split(jax.random.PRNGKey(5), N_KEYS)
+    tk = port_keys(keys)
+    tiny = float(jnp.finfo(jd).tiny)
+    np.testing.assert_array_equal(
+        R.uniform(tk, (4,), td, tiny, 1.0).numpy(),
+        np.asarray(jax.vmap(lambda k: jax.random.uniform(
+            k, (4,), jd, tiny, 1.0))(keys)))
+    g = R.gumbel(tk, (4,), td).numpy()
+    want = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (4,), jd))(
+        keys))
+    eps = np.finfo(want.dtype).eps
+    np.testing.assert_array_less(np.abs(g - want),
+                                 2 * eps * np.maximum(np.abs(want), 1.0))
+    rng = np.random.default_rng(2)
+    logits = rng.normal(0, 2, (N_KEYS, 5)).astype(want.dtype)
+    logits[rng.random((N_KEYS, 5)) < 0.3] = -np.inf
+    logits[::7] = -np.inf
+    logits[::7, 3] = 0.5
+    for lg in (logits, logits[:1].repeat(N_KEYS, 0)):
+        want = jax.vmap(jax.random.categorical)(keys, jnp.asarray(lg))
+        got = R.categorical(tk, torch.from_numpy(lg))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[::7] == 3).all()

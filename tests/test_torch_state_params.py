@@ -136,15 +136,15 @@ def test_build_population_matches_graft_build(n, density, pad):
 
 
 def test_package_never_imports_jax():
-    """The port runs where JAX is absent: no module of the package may
-    import it."""
+    """The port runs where JAX is absent: no module of the package, and
+    not chip_smoke.py, may import it."""
     import ast
     import pathlib
 
     import cyclistsocialforce_tpu_torch
 
     root = pathlib.Path(cyclistsocialforce_tpu_torch.__file__).parent
-    for path in root.rglob("*.py"):
+    for path in [*root.rglob("*.py"), root.parent / "chip_smoke.py"]:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             names = []
@@ -159,3 +159,32 @@ def test_package_never_imports_jax():
                     and name != "cyclistsocialforce_tpu", \
                     f"{path} imports the JAX package ({name})"
 
+
+
+def test_package_imports_without_optional_modules():
+    """Every module of the port imports with matplotlib, yaml, cv2 and
+    sklearn absent (as on the card's machine): a subprocess blocks them
+    (`sys.modules[name] = None`) and imports each module."""
+    import pathlib
+    import subprocess
+    import sys
+
+    import cyclistsocialforce_tpu_torch
+
+    root = pathlib.Path(cyclistsocialforce_tpu_torch.__file__).parent
+    mods = sorted(
+        ".".join(("cyclistsocialforce_tpu_torch",)
+                 + path.relative_to(root).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for path in root.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            "for name in ('matplotlib', 'yaml', 'cv2', 'sklearn', 'jax'):\n"
+            "    sys.modules[name] = None\n"
+            f"for mod in {mods!r}:\n"
+            "    importlib.import_module(mod)\n"
+            "print(len(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root.parent, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "cyclistsocialforce_tpu_torch.viz" in mods
+    assert "cyclistsocialforce_tpu_torch.sumo.bridge" in mods
