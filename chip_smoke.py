@@ -20,7 +20,10 @@ riders scripted through K1's per-rider column form; and the Kaths
 external model on the generic culled path, which has no pair kernel;
 and the SUMO co-simulation of the packaged grid2x2 net through K1's
 mixed form at receiver block 64, a calibration, a pole-model fit and the
-field plots' evaluations. Phases, each
+field plots' evaluations; the main path's crowd split into four shards
+held by one process (`parallel.sharding`), through the culled allgather,
+ring and halo schedules and a mixed crowd's allgather, all through K1,
+and once over a one-rank NCCL group; and the demos. Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
 
@@ -141,6 +144,37 @@ non-zero):
                65,536 riders) equal to the per-candidate objective;
   9k. gmm_fit  `fit_pole_model` at the packaged BR1 fit's size (GMM_*:
                161 fits of 100 EM restarts), its seconds;
+  9l. sharded  the main path's crowd padded to 100,352 rows (whole blocks
+               on each of SHARDS shards), its rows ordered by x so that
+               each shard is a strip of the domain (`strips`), split over
+               SHARDS shards on cuda:0 (`parallel.make_mesh`), the main
+               path's NeighborConfig with kb from the shards' own tables'
+               audit: K1 against its plain version on the inputs each
+               schedule hands it (`kernel_forms`' k1_sharded_allgather,
+               k1_sharded_ring_hop: the hop table with the most holes,
+               compacted, and k1_sharded_halo: a compacted halo-window
+               table, `sharded_forms`), then the culled allgather, ring
+               and halo schedules (the
+               halo required_halo + 1 source block, audited at t = 0 and
+               t = end), each N_STEPS steps with every count set to 0
+               just before: K1 exactly SHARDS launches a step (the ring
+               SHARDS x SHARDS), no K2 or K3, no table or halo overflow,
+               ms per step and the collectives' share; each first held
+               after PARITY_STEPS steps to the single-device graphed run
+               under `parity`'s two tiers, its max |difference| and
+               whether it is bit-equal reported. Then the mixed
+               two-family crowd at the parity_mixed size, float64, every
+               pair in range (SHARDED_MIXED_CUTOFF), through allgather
+               under the same gates;
+  9m. sharded_group  the allgather run over a one-rank NCCL process group
+               made in this process (a HashStore) and holding all the
+               shards: bit-equal to the run without a group; the group
+               destroyed after;
+  9n. demos    the demos that need no plotting library (DEMOS), side by
+               side, each `python -m cyclistsocialforce_tpu_torch.demos.
+               <name> ... --device cuda` at tests/test_demos.py's sizes:
+               each exits 0 and prints its line; those left out, with
+               the reason, in DEMOS_LEFT_OUT;
  10. parity    a 6,144-rider crowd run 45 steps (two table-rebuild
                chunks and the per-step tail) on the card in float32 and on
                the CPU in float64 through the plain version, same initial
@@ -242,7 +276,7 @@ non-zero):
                twod's, the balancing-rider step to the main path's and the
                stochastic steps to the balancing rider's.
 
-They run in this order: 1-9k (the timed phases), 16, then 13-15, 13b,
+They run in this order: 1-9n (the timed phases), 16, then 13-15, 13b,
 13c, 13d, 10-12f and 13e. The CPU reference runs of 10-12f and 13e
 start after 16 in CPU_WORKERS worker processes of one thread each
 (`CpuReferences`, the longest first) and are collected by their phases
@@ -253,7 +287,8 @@ the kernels' launch counts (each from its own path, with every count set
 to 0 just before it: the replayed launches, and the warm-up's beside
 them; K1's on each of its paths under `paths`, its column form's on
 slice_scripted under `columns`, K1's launches on `sumo` under `paths`
-and its sumo form under `mixed_block64`), the block-64 and block-256
+and its sumo form under `mixed_block64`; K1's launches on each
+sharded schedule under `paths` too), the block-64 and block-256
 forms under `blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
@@ -506,6 +541,60 @@ GMM_SAMPLES, GMM_FOLDS, GMM_INIT, GMM_SEED = 154, 10, 100, 0
 # side) against numpy.histogram2d; eval_force_field of a FIELD_N-rider
 # twod crowd over a FIELD_GRID x FIELD_GRID grid against the CPU
 DENSITY_BINS, FIELD_N, FIELD_GRID, FIELD_RTOL = 512, 4096, 256, 1e-9
+# the sharded phases (`parallel.sharding`, one process holding every
+# shard on cuda:0): the main path's crowd padded with inactive riders to
+# whole BLOCK-row blocks on each of SHARDS shards (100,352 rows) in
+# strips of the domain (`strips`), the main path's NeighborConfig with kb
+# from the shards' tables (`sharded_engine`), float32, N_STEPS steps of
+# each culled schedule through K1: allgather and halo launch it once per
+# shard and step, the ring once per shard, hop and step. The halo is
+# required_halo + 1 source block (audited at t = 0 and t = end). The
+# mixed two-family crowd runs the allgather schedule at the parity_mixed
+# size in float64 (the pairs in float32: the spline force is
+# ill-conditioned in float32, see TWOD_FLOAT32), and every schedule is
+# held after PARITY_STEPS steps to the single-device `Engine.simulate` of
+# the same crowd under `parity`'s two tiers
+SHARDS = 4
+SHARDED_COMMS = ("allgather", "ring", "halo")
+# the allgather and ring schedules keep each rider on its shard, so the
+# strips' edges blur as the riders cross them and the edge blocks' boxes
+# grow: on the card, 5 receiver blocks had more than kb = 20 (the t = 0
+# maximum of 18 plus KB_MARGIN) in range after N_STEPS steps
+SHARDED_KB_MARGIN = 8
+# the mixed crowd's sharded run: a cutoff beyond its 452 m square, as the
+# JAX package's sharded mixed tests take (tests/test_sharding.py: 1e4).
+# At the legacy field's 100 m the shards' other block partition admits
+# other fringe pairs, whose force is not small (the CPU rehearsal at
+# 1,024 riders: 2 riders past the 99.9% tier in psi after 21 steps)
+SHARDED_MIXED_CUTOFF = 1e4
+# the demos run on the card at tests/test_demos.py's sizes, side by side
+# (demo_scale on K1: tests/test_demos.py's "xla" names the plain version,
+# which the port runs on CPU tensors only); the two that draw need
+# matplotlib, which the card's machine lacks
+DEMOS = {
+    "demo_standalone twod": (["--model", "twod", "--t-end", "1.0"],
+                             "model=twod:"),
+    "demo_standalone balancingrider": (
+        ["--model", "balancingrider", "--t-end", "0.5"],
+        "model=balancingrider:"),
+    "demo_parcours": (["--t-end", "1.0"], "waypoints reached"),
+    "demo_curve": (["--t-end", "1.0"], "final pos"),
+    "demo_sumo": (["--bikes", "2", "--steps", "800"],
+                  "ran 800 steps; all vehicles finished: True"),
+    "demo_mixed_traffic": (["--riders", "256", "--cars", "3", "--steps",
+                            "60"], "lateral shift near the car lane"),
+    "demo_scale": (["--agents", "2048", "--steps", "20"],
+                   "agent-steps/sec"),
+    "demo_sharded": (["--agents", "2048", "--steps", "12", "--comm",
+                      "allgather", "--skip-check"], "demo_sharded: ok"),
+}
+DEMOS_LEFT_OUT = {
+    "demo_polemodel": "its figure is the demo: it needs matplotlib, "
+                      "absent on the card's machine",
+    "demo_calibration": "writes its test-track overlay with matplotlib, "
+                        "absent on the card's machine",
+}
+DEMO_TIMEOUT = 300
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 
@@ -2849,6 +2938,324 @@ def compare_field(card, cpu):
         raise AssertionError("viz_fields_parity failed")
 
 
+# ---- the sharded schedules and the demos ----
+
+
+def sharded_final(engine, state, mesh, comm, steps, halo=None,
+                  timing=False):
+    """`steps` steps of `state` over `mesh` (`parallel.sharding`) by
+    schedule `comm`: (the gathered final state, the halo overflow flag or
+    None, wall seconds, seconds in the collectives or None). The shards
+    are made before the clock starts."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch import parallel as P
+
+    kw = {"halo": halo} if comm == "halo" else {}
+    run = P.sharded_simulate_fn(engine, mesh, steps, comm=comm, **kw)
+    shards = P.shard_state(state, mesh)
+    torch.cuda.synchronize()
+    mesh.timing = [] if timing else None
+    t0 = time.perf_counter()
+    final, extra = run(shards)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    coll = mesh.collective_seconds() if timing else None
+    mesh.timing = None
+    return (P.gather_state(final, mesh),
+            bool(extra) if comm == "halo" else None, seconds, coll)
+
+
+def audit_sharded(engine, state, mesh, tag):
+    """No shard's table (local cell sort against the gathered source
+    blocks) overflows kb."""
+    from cyclistsocialforce_tpu_torch import parallel as P
+    from cyclistsocialforce_tpu_torch.parallel import sharding as S
+
+    caches = S._neighbor_cache_sharded(engine, mesh,
+                                       P.shard_state(state, mesh))
+    n_over = sum(int(c[3].sum()) for c in caches)
+    most = max(int(c[2].sum(dim=1).max()) for c in caches)
+    emit("audit", at=tag, max_in_range_blocks=most, kb=engine.neighbors.kb,
+         overflow_blocks=n_over)
+    if n_over:
+        raise AssertionError(f"sharded table overflow at {tag}: {n_over} "
+                             f"receiver blocks exceed kb")
+    return most
+
+
+def sharded_engine(make, state, mesh, tag):
+    """`make(kb=...)` with kb the sharded tables' in-range maximum at t = 0
+    (counted with a table of every source block) plus SHARDED_KB_MARGIN,
+    and no less than the main path's KB."""
+    most = audit_sharded(make(kb=state.n // BLOCK_SRC), state, mesh,
+                         f"{tag} probe t=0")
+    return make(kb=min(max(KB, most + SHARDED_KB_MARGIN),
+                       state.n // BLOCK_SRC))
+
+
+def strips(state):
+    """`state` with its rows ordered by x, so that shard d of SHARDS holds
+    the d-th vertical strip of the domain, as a domain decomposition
+    assigns regions to shards. The rows of a random crowd lie in random
+    places: a shard of them spreads over the whole domain, its blocks'
+    boxes reach four times the source blocks the single-device table's
+    do, and kb 19 overflows in every receiver block. (Strips cut from the
+    table's serpentine cell order start and end inside a cell column,
+    which the shard's own cell sort splits into blocks hundreds of metres
+    tall: 86 in-range source blocks at the main path's size.)"""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import permute_state
+
+    return permute_state(state, torch.argsort(state.s[:, 0], stable=True))
+
+
+def fields_equal(a, b):
+    import dataclasses
+
+    import torch
+
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def sharded_schedule(phase, engine, state, mesh, comm, halo=None,
+                     shards=SHARDS):
+    """One schedule: the parity run (PARITY_STEPS steps against the
+    single-device run under both tiers), then N_STEPS steps with every
+    launch count set to 0 just before, K1 the only kernel, launched
+    exactly once per shard and step (the ring: per shard, hop and step),
+    no overflow at either end, ms per step and the collectives' share.
+    Returns (K1 launches, the final state)."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    names = [fn.__name__ for fn in PF.KERNELS]
+    ref = card_final(engine, state)
+    got, ovf, _, _ = sharded_final(engine, state, mesh, comm, PARITY_STEPS,
+                                   halo)
+    diff = float((got.s.double() - ref.s.double()).abs().max())
+    compare_runs(f"{phase}_parity", got, ref, comm=comm, shards=shards,
+                 max_abs_state_diff=diff, bit_equal=fields_equal(got, ref),
+                 halo=halo, halo_overflow=ovf)
+    if comm != "halo":
+        audit_sharded(engine, state, mesh, f"{phase} t=0")
+    PF.reset_launches()
+    final, ovf, seconds, coll = sharded_final(engine, state, mesh, comm,
+                                              N_STEPS, halo, timing=True)
+    counts = dict(zip(names, PF.launch_counts()))
+    per_step = shards * (shards if comm == "ring" else 1)
+    want = {n: N_STEPS * per_step * (n == names[0]) for n in names}
+    finite = bool(torch.isfinite(final.s).all())
+    emit(phase, comm=comm, shards=shards, rows=state.n, steps=N_STEPS,
+         halo=halo, kernel_launches=counts, expected_launches=want,
+         finite=finite, halo_overflow=ovf, seconds=seconds,
+         ms_per_step=1e3 * seconds / N_STEPS,
+         collective_ms_per_step=1e3 * coll / N_STEPS,
+         collective_share=coll / seconds)
+    if counts != want:
+        raise AssertionError(f"{phase}: expected {want} launches, counted "
+                             f"{counts}")
+    if not finite:
+        raise AssertionError(f"{phase}: non-finite state after the run")
+    if ovf:
+        raise AssertionError(f"{phase}: the halo window overflowed")
+    if comm != "halo":
+        audit_sharded(engine, final, mesh, f"{phase} t=end")
+    return counts[names[0]], final
+
+
+def sharded_forms(engine, state, mesh, halo):
+    """K1 against its plain version on the inputs the sharded schedules
+    hand it at t = 0 (`kernel_forms`' k1_sharded_*): shard 0's table
+    against the gathered source pack (allgather); the ring hop whose raw
+    mask has the most holes (invalid slots before a valid one), its table
+    compacted (`sharding.hop_table`), with its resident shard's pack; an
+    interior shard's compacted halo-window table with its window's source
+    pack (halo). The raw hop mask's plain forces are held to the
+    compacted table's under the form tolerance, and whether they are
+    bit-equal is reported."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch import engine as eng
+    from cyclistsocialforce_tpu_torch import parallel as P
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+    from cyclistsocialforce_tpu_torch.parallel import sharding as S
+
+    k1 = PF.KERNELS[0]
+    cfg = engine.neighbors
+    kw = dict(block=cfg.block, block_src=cfg.block_src,
+              uniform=engine.uniform_pair, fov=not engine.full_fov,
+              screen=cfg.screen, sub=cfg.sub, cutoff=cfg.cutoff)
+    shards = P.shard_state(state, mesh)
+    nl, size = shards[0].n, mesh.n_shards
+    bl_src = nl // cfg.block_src
+    caches = S._neighbor_cache_sharded(engine, mesh, shards)
+    packs = [eng.sorted_packs(engine.pack_pair_fields(st, nl)[0], c[0])
+             for st, c in zip(shards, caches)]
+    src_glob = mesh.all_gather([p[0] for p in packs])
+    forms = {"k1_sharded_allgather": check_form(
+        "kernel_forms", "k1_sharded_allgather", k1,
+        (caches[0][1], caches[0][2], src_glob, packs[0][1]), kw, kw)}
+
+    def holes(valid):
+        after = torch.flip(torch.cummax(torch.flip(valid.int(), [1]),
+                                        1).values, [1]).bool()
+        return int((after & ~valid).sum())
+
+    hops = []
+    for j in range(size):
+        for hop in range(size):
+            lo = ((j - hop) % size) * bl_src
+            nbr, valid = caches[j][1], caches[j][2]
+            raw = valid & (nbr >= lo) & (nbr < lo + bl_src)
+            hops.append((holes(raw), int(raw.sum()), j, hop, lo))
+    n_holes, n_valid, j, hop, lo = max(hops)
+    nbr, valid = caches[j][1], caches[j][2]
+    raw = valid & (nbr >= lo) & (nbr < lo + bl_src)
+    resident = packs[(j - hop) % size][0]
+    hop_t = (*S.hop_table(caches[j], lo, bl_src)[:2], resident, packs[j][1])
+    plain_raw = PF.pair_forces_neighbors_ref(
+        torch.where(raw, nbr - lo, 0), raw, resident, packs[j][1], **kw)
+    plain_compact = PF.pair_forces_neighbors_ref(*hop_t, **kw)
+    raw_err = float((plain_raw - plain_compact).abs().max())
+    emit("kernel_forms", form="k1_sharded_ring_hop", shard=j, hop=hop,
+         holes=n_holes, valid_entries=n_valid,
+         plain_raw_mask_max_abs_diff=raw_err,
+         plain_raw_mask_bit_equal=bool(torch.equal(plain_raw,
+                                                   plain_compact)))
+    if (plain_raw - plain_compact).abs().gt(
+            KERNEL_ATOL + KERNEL_RTOL * plain_compact.abs()).any():
+        raise AssertionError(f"k1_sharded_ring_hop: the plain version on "
+                             f"the raw mask differs from the compacted "
+                             f"table's by {raw_err:.3e}")
+    forms["k1_sharded_ring_hop"] = check_form(
+        "kernel_forms", "k1_sharded_ring_hop", k1, hop_t, kw, kw)
+    idents = [d * nl + torch.arange(nl, device=st.device)
+              for d, st in zip(mesh.shards, shards)]
+    sts, _ = S._global_reshard(engine, mesh, shards, idents,
+                               from_original=True)
+    inner = 1 if size > 2 else 0
+    c = S._neighbor_cache_halo(engine, mesh, sts, halo)[inner]
+    src_ext, recv = S.halo_packs(engine, mesh, sts, halo)[inner]
+    forms["k1_sharded_halo"] = check_form(
+        "kernel_forms", "k1_sharded_halo", k1, (c[0], c[1], src_ext, recv),
+        kw, kw)
+    return forms
+
+
+def phase_sharded(state):
+    """The culled allgather, ring and halo schedules of the main path over
+    SHARDS shards on the card, then the mixed two-family crowd's
+    allgather (see SHARDS). Returns ({path: (K1 launches, None)}, the
+    allgather run's final state, the sharded engine's kb, K1's forms on
+    the sharded schedules' inputs (`sharded_forms`))."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch import parallel as P
+
+    mesh = P.make_mesh(SHARDS, device="cuda")
+    engine = sharded_engine(make_engine, state, mesh, "sharded")
+    need = P.required_halo(engine, state, SHARDS)
+    halo = need + 1
+    emit("sharded_halo", at="t=0", required_halo=need, halo=halo,
+         strip_src_blocks=state.n // SHARDS // BLOCK_SRC)
+    forms = sharded_forms(engine, state, mesh, halo)
+    launches, finals = {}, {}
+    for comm in SHARDED_COMMS:
+        launches[f"sharded_{comm}"], finals[comm] = sharded_schedule(
+            f"sharded_{comm}", engine, state, mesh, comm,
+            halo if comm == "halo" else None)
+    need_end = P.required_halo(engine, finals["halo"], SHARDS)
+    emit("sharded_halo", at="t=end", required_halo=need_end, halo=halo)
+    if need_end >= halo:
+        raise AssertionError(f"sharded_halo: the crowd needs a halo of "
+                             f"{need_end} at t=end, the run had {halo}")
+    n_mixed = 2 * PARITY_MIXED_HALF
+    mixed_state = twod_crowd(n_mixed, torch.float64, "cuda", None)
+    # group membership is a row range of the single-device MixedEngine,
+    # so its rows stay in their random order, and every pair is in range
+    # (SHARDED_MIXED_CUTOFF): the shards' block partition then changes
+    # only the order of the sums
+    mixed = make_mixed_engine(n_mixed, cutoff=SHARDED_MIXED_CUTOFF,
+                              kb=n_mixed // BLOCK_SRC)
+    launches["sharded_mixed"], _ = sharded_schedule(
+        "sharded_mixed", mixed, mixed_state, mesh, "allgather")
+    return ({k: (v, None) for k, v in launches.items()},
+            finals["allgather"], engine.neighbors.kb, forms)
+
+
+def phase_sharded_group(state, want, kb):
+    """The allgather run of `phase_sharded` over a one-rank NCCL process
+    group made in this process and holding all SHARDS shards: the
+    collectives go through NCCL; bit-equal to the run without a group."""
+    import torch.distributed as dist
+
+    from cyclistsocialforce_tpu_torch import parallel as P
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    engine = make_engine(kb=kb)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = P.make_mesh(SHARDS, group=dist.group.WORLD, device="cuda")
+        PF.reset_launches()
+        final, _, seconds, coll = sharded_final(engine, state, mesh,
+                                                "allgather", N_STEPS,
+                                                timing=True)
+        k1 = PF.launch_counts()[0]
+    finally:
+        dist.destroy_process_group()
+    equal = fields_equal(final, want)
+    emit("sharded_group", backend="nccl", world_size=1, shards=SHARDS,
+         steps=N_STEPS, k1_launches=k1, bit_equal_to_in_process=equal,
+         ms_per_step=1e3 * seconds / N_STEPS,
+         collective_share=coll / seconds)
+    if not equal:
+        raise AssertionError("sharded_group: the NCCL group's run differs "
+                             "from the in-process mesh's")
+    return k1, None
+
+
+def phase_demos():
+    """Every demo that needs no plotting library, side by side, each a
+    process `python -m cyclistsocialforce_tpu_torch.demos.<name> ...
+    --device cuda` from the checkout; each must exit 0 and print its
+    line. Every process still running at the end is killed."""
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(root), os.environ.get("PYTHONPATH", "")]))
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for key, (args, _) in DEMOS.items():
+            procs[key] = subprocess.Popen(
+                [sys.executable, "-m",
+                 f"cyclistsocialforce_tpu_torch.demos.{key.split()[0]}",
+                 *args, "--device", "cuda"], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True, cwd=str(root), env=env)
+        outs = {key: p.communicate(timeout=DEMO_TIMEOUT)[0]
+                for key, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [key for key, p in procs.items()
+              if p.returncode != 0 or DEMOS[key][1] not in outs[key]]
+    emit("demos", ran=list(DEMOS), left_out=DEMOS_LEFT_OUT,
+         seconds=time.perf_counter() - t0,
+         returncodes={k: p.returncode for k, p in procs.items()},
+         last_lines={k: outs[k].strip().splitlines()[-1:]
+                     for k in DEMOS}, failed=failed)
+    if failed:
+        raise AssertionError("demos failed: " + "; ".join(
+            f"{k}: {outs[k][-1500:]}" for k in failed))
+
+
 def parity_errors(a, b):
     """Per-quantity error summary of final states `a` and `b`, and the
     list of checks that failed (see PARITY_TOL)."""
@@ -3007,6 +3414,18 @@ def main():
         "sumo", phase_sumo)
     cal_tracks, cal_card = timed("calibration", phase_calibration)
     gmm_card = timed("gmm_fit", phase_gmm_fit)
+    # the sharded schedules (eager, timed) and the demos, before the CPU
+    # pool starts
+    sharded_state = strips(build_population(
+        N_AGENTS, DENSITY, HIST_LEN, SHARDS * BLOCK, torch.float32, "cuda"))
+    sharded, allgather_final, sharded_kb, sharded_k1_forms = timed(
+        "sharded", phase_sharded, sharded_state)
+    launches.update(sharded)
+    forms.update(sharded_k1_forms)
+    launches["sharded_group"] = timed("sharded_group", phase_sharded_group,
+                                      sharded_state, allgather_final,
+                                      sharded_kb)
+    timed("demos", phase_demos)
     profiled = ("slice", "slice_twod", "slice_mixed", "slice_invpendulum",
                 "slice_balancingrider", "slice_stochastic",
                 "slice_stochastic_exact", "slice_scripted", "slice_kaths")
@@ -3151,11 +3570,17 @@ def kernels_line(launches, kernel, forms, vs_k1, kernel_of):
          "vs_k2_uniform": vs_k1["k2_uniform"],
          "paths": {**{name: counted(name)
                       for name, fn in kernel_of.items() if fn is k1},
-                   "sumo": counted("sumo")},
+                   **{name: counted(name)
+                      for name in ("sumo", *(f"sharded_{c}" for c in (
+                          *SHARDED_COMMS, "mixed")), "sharded_group")}},
          "mixed": {**mixed("k1_mixed_screen", "slice_legacy"),
                    "vs_k3_mixed": vs_k1["k3_mixed"]},
          "two_family": mixed("k1_two_family_screen", "slice_mixed"),
          "columns": mixed("k1_columns_scripted", "slice_scripted"),
+         "sharded": {comm: mixed(f"k1_sharded_{form}", f"sharded_{comm}")
+                     for comm, form in (("allgather", "allgather"),
+                                        ("ring", "ring_hop"),
+                                        ("halo", "halo"))},
          "mixed_block64": {**mixed("k1_mixed_screen_sumo", "sumo"),
                            "crowd": forms["k1_mixed_screen_block64"]},
          "blocks": blocks("k1")},

@@ -1037,24 +1037,41 @@ class Engine(nn.Module):
 
     # ---- the dense pair stage ----
 
-    def repulsive_sum(self, state: AgentState):
-        """Summed repulsive force (fx, fy) [N] on every agent from every
-        other agent: the [N, N] (or, with `rep_chunk`, [N, rep_chunk]
-        receiver-chunk) tiles of the field, masked by
-        `ops.forces.untracked_foes_tile` and reduced over the sources
-        (`reduce_sources`)."""
+    def _src_bundle(self, state: AgentState):
+        """The source side of the pair stage: (x, y, psi, v) [N] each."""
+        s = state.s
+        return (s[:, X], s[:, Y], s[:, PSI], s[:, V])
+
+    def repulsive_sum(self, state: AgentState, src=None, idx_src=None,
+                      active_src=None, hfov_src=None, recv_offset=0):
+        """Summed repulsive force (fx, fy) [N] on every agent of `state`
+        (the receivers) from every source: the [S, N] (or, with
+        `rep_chunk`, [S, rep_chunk] receiver-chunk) tiles of the field,
+        masked by `ops.forces.untracked_foes_tile` and reduced over the
+        sources (`reduce_sources`).
+
+        By default the sources are the receivers. A sharded step
+        (`parallel`) passes the gathered population instead: `src` the
+        (x, y, psi, v) bundle of every source, `idx_src` their global
+        indices, `active_src` and `hfov_src` their activity and half
+        field of view, while `state` is a shard whose rows hold the global
+        indices recv_offset, recv_offset + 1, ... (a receiver never sees
+        itself)."""
         n = state.n
         s = state.s
-        src = (s[:, X], s[:, Y], s[:, PSI], s[:, V])
+        if src is None:
+            src = self._src_bundle(state)
+            idx_src = torch.arange(n, device=s.device)
+            active_src = state.active
+            hfov_src = _per_agent(self.params.hfov, n, s)
         idx = torch.arange(n, device=s.device)
-        hfov = _per_agent(self.params.hfov, n, s)
 
         def recv_tile(ri):
             recv = (s[ri, X], s[ri, Y], s[ri, PSI], s[ri, V])
             fpx, fpy = self.rep_force(self.params, src, recv)
             untracked = F.untracked_foes_tile(
-                src[0], src[1], idx, state.active, hfov, recv[0], recv[1],
-                recv[2], ri, state.active[ri],
+                src[0], src[1], idx_src, active_src, hfov_src, recv[0],
+                recv[1], recv[2], ri + recv_offset, state.active[ri],
                 priority_p2r=self.priority_p2r)
             return self.reduce_sources(fpx, fpy, ~untracked)
 
@@ -1318,10 +1335,12 @@ class Engine(nn.Module):
 
     # ---- one simulation step ----
 
-    def destination_forces(self, state: AgentState):
+    def destination_forces(self, state: AgentState, params=None):
         """(fx, fy, state) of the destination force, the state carrying
-        its queue and navigation-FSM updates."""
-        return self.dest_force(self.params, state, **self.dest_kw)
+        its queue and navigation-FSM updates; `params` the per-row
+        parameters where they are not the engine's (a shard's rows)."""
+        return self.dest_force(self.params if params is None else params,
+                               state, **self.dest_kw)
 
     def reduce_sources(self, fx_pair, fy_pair, tracked):
         """The pair channels reduced over the source axis: the engine's
@@ -1332,21 +1351,34 @@ class Engine(nn.Module):
                     presorted: bool = False):
         """Total social force per agent: (fx, fy, state), the state
         carrying the navigation-FSM updates of the destination force
-        (reference intersection.py:747-864). Scripted agents take no
-        destination force (reference vehicle.py:985-986), so the clamp
-        zeroes the repulsion they receive too."""
+        (reference intersection.py:747-864)."""
         fx, fy, state = self.destination_forces(state)
-        if self.scripted is not None:
-            smask = self.scripted_tensors(state).mask[state.uid.long()]
-            fx = torch.where(smask, 0.0, fx)
-            fy = torch.where(smask, 0.0, fy)
+        fx, fy = self.mask_scripted(state, fx, fy)
+        rep = None
         if self.pair_family is not None and state.n > 1:
             if self.neighbors is not None:
-                frx, fry = self.repulsive_sum_neighbors(
-                    state, nbr_cache, presorted=presorted)
+                rep = self.repulsive_sum_neighbors(state, nbr_cache,
+                                                   presorted=presorted)
             else:
-                frx, fry = self.repulsive_sum(state)
-            fx, fy = (self.combine_forces or F.clamp_add_dest)(frx, fry,
+                rep = self.repulsive_sum(state)
+        fx, fy = self.add_pair_and_road(state, fx, fy, rep)
+        return fx, fy, state
+
+    def mask_scripted(self, state: AgentState, fx, fy):
+        """Scripted agents take no destination force (reference
+        vehicle.py:985-986), so the clamp zeroes the repulsion they
+        receive too."""
+        if self.scripted is None:
+            return fx, fy
+        smask = self.scripted_tensors(state).mask[state.uid.long()]
+        return torch.where(smask, 0.0, fx), torch.where(smask, 0.0, fy)
+
+    def add_pair_and_road(self, state: AgentState, fx, fy, rep=None):
+        """The destination forces (fx, fy) combined with the pair stage's
+        (frx, fry) `rep` (None: no pair stage) through the
+        `combine_forces` hook, plus the road's edge force."""
+        if rep is not None:
+            fx, fy = (self.combine_forces or F.clamp_add_dest)(rep[0], rep[1],
                                                                fx, fy)
         if self.road is not None:
             road = self.road_tensors(state)
@@ -1354,7 +1386,7 @@ class Engine(nn.Module):
                                        road.vertices, road.weights,
                                        road.F_0, road.sigma)
             fx, fy = fx + rx, fy + ry
-        return fx, fy, state
+        return fx, fy
 
     def road_tensors(self, state: AgentState) -> RoadElements:
         """The road in the state's dtype on its device, built once and kept
@@ -1479,11 +1511,13 @@ class Engine(nn.Module):
             return {}
         return {"t_host": t_host}
 
-    def dynamics(self, state: AgentState, fx, fy,
-                 t_host=None) -> AgentState:
+    def dynamics(self, state: AgentState, fx, fy, t_host=None,
+                 params=None) -> AgentState:
         """One dynamics step of every agent under the forces (fx, fy);
-        `t_host` is the global step where the caller knows it."""
-        return self.model_step(self.params, state, fx, fy,
+        `t_host` is the global step where the caller knows it, `params`
+        as for `destination_forces`."""
+        return self.model_step(self.params if params is None else params,
+                               state, fx, fy,
                                **self.kept_constants(self.step_constants,
                                                      self.params, state),
                                **self._clock_kw(self.clock_hook, self.params,

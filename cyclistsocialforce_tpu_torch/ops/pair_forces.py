@@ -208,21 +208,29 @@ def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
     if chunk is None:
         chunk = 8 if src_pack.device.type == "cpu" else 64
     src_blocks = src_pack.reshape(n_src // block_src, block_src, SRC_COLS)
-    recv = recv_pack.reshape(RECV_ROWS, bcount, 1, block)
+    recv = recv_pack.reshape(RECV_ROWS, bcount, 1, 1, block)
     out = src_pack.new_empty((2, bcount, block))
     for lo in range(0, bcount, chunk):
         hi = min(lo + chunk, bcount)
         src = src_blocks[nbr[lo:hi].long()]                # [C, KB, S, 16]
         # invalid slots: zero amplitude, so they contribute exactly 0
         src[..., _F0] *= valid[lo:hi, :, None].to(src.dtype)
-        src = src.reshape(hi - lo, kb * block_src, SRC_COLS)
         r = recv[:, lo:hi]
         fx, fy = tile_forces(src, r[0], r[1], r[2], r[3], r[4],
                              uniform=uniform, fov=fov,
                              priority_p2r=priority_p2r, strip=strip,
-                             cutoff2=cutoff2, mixed=mixed)
-        out[0, lo:hi] = fx
-        out[1, lo:hi] = fy
+                             cutoff2=cutoff2, mixed=mixed)  # [C, KB, R]
+        # the tiles' sums added slot after slot, as the Pallas kernel
+        # accumulates its grid's table axis: an invalid slot adds an
+        # exact 0, so moving the valid slots to the front of a row in
+        # their order (`parallel.sharding.compact_table`) leaves the sum
+        # bit for bit as it was
+        sx, sy = fx[:, 0], fy[:, 0]
+        for j in range(1, kb):
+            sx = sx + fx[:, j]
+            sy = sy + fy[:, j]
+        out[0, lo:hi] = sx
+        out[1, lo:hi] = sy
     return out.reshape(2, bcount * block)
 
 

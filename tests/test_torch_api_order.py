@@ -25,6 +25,7 @@ from cyclistsocialforce_tpu_torch import calibration as TC  # noqa: E402
 from cyclistsocialforce_tpu_torch import engine as TE  # noqa: E402
 from cyclistsocialforce_tpu_torch import gmm_fit as TG  # noqa: E402
 from cyclistsocialforce_tpu_torch import mixed as TM  # noqa: E402
+from cyclistsocialforce_tpu_torch import parallel as TPAR  # noqa: E402
 from cyclistsocialforce_tpu_torch import params as TP  # noqa: E402
 from cyclistsocialforce_tpu_torch import state as TS  # noqa: E402
 from cyclistsocialforce_tpu_torch import sumo as TSU  # noqa: E402
@@ -41,18 +42,18 @@ def jx():
     """The JAX package's modules used as the reference."""
     pytest.importorskip("jax")
     from cyclistsocialforce_tpu import (behavior, calibration, engine,
-                                        gmm_fit, mixed, params, state, sumo,
-                                        viz)
+                                        gmm_fit, mixed, parallel, params,
+                                        state, sumo, viz)
     from cyclistsocialforce_tpu.models import MODELS as JMODELS
     from cyclistsocialforce_tpu.models import hessbikerider
 
     return types.SimpleNamespace(JE=engine, JM=mixed, JP=params, JS=state,
                                  MODELS=JMODELS, hess=hessbikerider,
                                  JB=behavior, JC=calibration, JG=gmm_fit,
-                                 JSU=sumo, JV=viz)
+                                 JSU=sumo, JV=viz, JPAR=parallel)
 
 
-PORT = {"SU": TSU, "G": TG, "B": TB, "C": TC, "V": TV}
+PORT = {"SU": TSU, "G": TG, "B": TB, "C": TC, "V": TV, "PAR": TPAR}
 
 
 def _attr(module, dotted):
@@ -80,6 +81,8 @@ SHARED = {
     "Engine.create": lambda j: (j.JE.Engine.create, TE.Engine.create),
     "Engine.simulate": lambda j: (j.JE.Engine.simulate, TE.Engine.simulate),
     "Engine.step": lambda j: (j.JE.Engine.step, TE.Engine.step),
+    "Engine.repulsive_sum": lambda j: (j.JE.Engine.repulsive_sum,
+                                       TE.Engine.repulsive_sum),
     "Engine.step_with_forces": lambda j: (j.JE.Engine.step_with_forces,
                                           TE.Engine.step_with_forces),
     "Engine.calc_forces": lambda j: (j.JE.Engine.calc_forces,
@@ -136,7 +139,10 @@ SHARED = {
                  "write_video", "plot_states", "plot_forces",
                  "eval_force_field", "plot_force_field",
                  "eval_potential_field", "density_map", "plot_density",
-                 "plot_fft", "plot_gridsearch", "plot_marginals")}.items()
+                 "plot_fft", "plot_gridsearch", "plot_marginals"),
+           "PAR": ("make_mesh", "state_pspecs", "shard_state",
+                   "sharded_step_fn", "sharded_simulate_fn",
+                   "required_halo")}.items()
        for name in names},
 }
 
