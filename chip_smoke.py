@@ -23,7 +23,9 @@ mixed form at receiver block 64, a calibration, a pole-model fit and the
 field plots' evaluations; the main path's crowd split into four shards
 held by one process (`parallel.sharding`), through the culled allgather,
 ring and halo schedules and a mixed crowd's allgather, all through K1,
-and once over a one-rank NCCL group; and the demos. Phases, each
+and once over a one-rank NCCL group; and the demos. The first four
+paths run every step through the per-agent kernels agent_pre and
+agent_post (`csrc/agent_step.cu`) around their pair kernel. Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
 
@@ -48,15 +50,30 @@ non-zero):
                legacy crowd, and K1's mixed form unscreened against K2's
                mixed form on the same table; then K1 main, K2 `uniform`
                and K3 at receiver blocks of 64 and 256 (BLOCK_FORMS);
+  4b. agent_step  the two per-agent kernels (`csrc/agent_step.cu`:
+               agent_pre, the destination force, navigation FSM and pair
+               packs before the pair kernel, and agent_post, the clamp,
+               bicycle2d's step and the bookkeeping after it) against their
+               plain versions on one step of the 100,000-rider crowd after
+               a table rebuild, in cell-sorted order: twod and legacy
+               packs, per-rider columns (the slice_db engine) and the
+               crowd with its navigation spread over the FSM (`fsm_crowd`),
+               every output field bit for bit (the differing elements and
+               their ulps named per field), with each kernel's and plain
+               version's time (each call replayed as a CUDA graph) and
+               bound;
   5. audit     no receiver block overflows the neighbor table at t = 0;
   6. slice     240 steps of Engine.simulate on the card, as a user calls it:
                each 20-step chunk one replay of a CUDA graph. 240 K1
                launches counted (12 replays x the 20 launches the capture
                recorded) beside the 20 of the capture's warm-up chunk that
                K1's wrapper counted, a finite state, no overflow at t =
-               end, the time of the first run and of the capture in it; a
-               device trace of 40 more graphed steps, which must show 40
-               runs of K1's kernel and none of K2's or K3's (a trace for
+               end, the time of the first run and of the capture in it; on
+               the four paths of FUSED_PATHS as many launches of agent_pre
+               and of agent_post as of the pair kernel, on every other path
+               none; a device trace of 40 more graphed steps, which must
+               show 40 runs of K1's kernel (and of agent_pre and
+               agent_post) and none of K2's or K3's (a trace for
                which Kineto's log reports lost records, or which shows
                fewer runs of the path's kernel than the replays launched
                and nothing else (TRACE_UNDERCOUNT), is void and taken
@@ -276,7 +293,8 @@ non-zero):
                twod's, the balancing-rider step to the main path's and the
                stochastic steps to the balancing rider's.
 
-They run in this order: 1-9n (the timed phases), 16, then 13-15, 13b,
+They run in this order: 1-4, 4b, 5-9n (the timed phases), 16, then
+13-15, 13b,
 13c, 13d, 10-12f and 13e. The CPU reference runs of 10-12f and 13e
 start after 16 in CPU_WORKERS worker processes of one thread each
 (`CpuReferences`, the longest first) and are collected by their phases
@@ -292,7 +310,9 @@ sharded schedule under `paths` too), the block-64 and block-256
 forms under `blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
-kernel's, same work, same call), the nvidia-smi line, and last
+kernel's, same work, same call), agent_pre and agent_post with their
+launches on the fused paths, errors, times and bounds, the nvidia-smi
+line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
 """
@@ -597,6 +617,25 @@ DEMOS_LEFT_OUT = {
 DEMO_TIMEOUT = 300
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
+# the paths whose every step goes through agent_pre, the pair kernel and
+# agent_post (`agent_step.fused_form`); every other path launches neither
+FUSED_PATHS = ("slice", "slice_unrolled", "slice_db", "slice_legacy")
+# what the two per-agent kernels replace: the XLA program of a step, which
+# fuses this chain (no Pallas kernel computes it)
+JAX_STEP = "cyclistsocialforce_tpu/"
+AGENT_REPLACES = {
+    "agent_pre": JAX_STEP + "engine.py:49-102 (nav_params_view, "
+                 "dest_force_straight) and :901-980 (pack_pair_fields), "
+                 "fused by XLA",
+    "agent_post": JAX_STEP + "ops/forces.py:238 (clamp_add_dest), "
+                  "models/bicycle2d.py:34-87 (step) and engine.py:1153-1198 "
+                  "(finish_step), fused by XLA"}
+# agent_step: the FSM-spread crowd's queue length and draws (fsm_crowd)
+FSM_QUEUE, FSM_SEED, FSM_INACTIVE = 4, 11, 0.02
+# FP32 operations a row of each per-agent kernel does, counted from
+# csrc/agent_step.cu (a math-library call as 20); the bytes bound them
+# ~25x over
+OPS_AGENT = {"agent_pre": 160, "agent_post": 300}
 
 
 def emit(phase, **kw):
@@ -1037,6 +1076,24 @@ def cuda_ms(fn, reps):
     return times[len(times) // 2]
 
 
+def graphed_ms(fn, reps):
+    """`cuda_ms` of one replay of a CUDA graph that holds one call of
+    `fn`: the device's time for the call without the host's (a wrapper's
+    Python and a kernel's launch, which for a kernel of some
+    microseconds take longer than the kernel itself)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
 def sorted_inputs(engine, state):
     """(nbr, valid, src, recv): the engine's table and its cell-sorted
     packs, as the sorted-resident step hands them to the pair kernel."""
@@ -1162,6 +1219,210 @@ def alternate(name_a, fn_a, name_b, fn_b):
     emit("kernel_forms", yardstick=f"{name_a} / {name_b}", ms=times,
          ratio=ratio)
     return ratio
+
+
+def fsm_crowd(state):
+    """`state`'s crowd with its navigation spread over the FSM, drawn from
+    FSM_SEED as tests/test_torch_step.py's fsm_state draws it: speeds on
+    both sides of the FSM's thresholds, a queue of FSM_QUEUE destinations
+    0.5-30 m from each rider (half of them stops), queue pointers, FSM
+    states and latched braking profiles at random, and FSM_INACTIVE of
+    the riders inactive besides the pad rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(FSM_SEED)
+    n, q = state.n, FSM_QUEUE
+    dev = state.device
+    s = state.s.clone()
+    pos = s[:, :2].double().cpu().numpy()
+    s[:, 3] = torch.as_tensor(rng.choice([0.0, 0.3, 0.6, 1.5, 2.5, 5.0], n),
+                              dtype=s.dtype, device=dev)
+    r = rng.choice([0.5, 1.9, 2.1, 4.0, 8.0, 30.0], (n, q))
+    ang = rng.uniform(-np.pi, np.pi, (n, q))
+    entries = np.stack([pos[:, :1] + r * np.cos(ang),
+                        pos[:, 1:2] + r * np.sin(ang),
+                        (rng.uniform(size=(n, q)) < 0.5).astype(float)],
+                       axis=2)
+    dq = torch.zeros_like(state.destqueue)
+    dq[:, :q] = torch.as_tensor(entries, dtype=s.dtype, device=dev)
+    nq = rng.integers(1, q + 1, n)
+    ptr = rng.integers(0, q, n) % nq
+    znav = np.eye(3, dtype=bool)[rng.integers(0, 3, n)]
+    latched = np.stack([rng.uniform(0, 6, n), rng.uniform(0.5, 5, n),
+                        rng.uniform(0.1, 3, n), rng.integers(0, 50, n)],
+                       axis=1)
+    active = state.active.cpu().numpy() & (rng.uniform(size=n)
+                                           >= FSM_INACTIVE)
+
+    def t(a, dtype=s.dtype):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    return state.replace(
+        s=s, destqueue=dq, dest=dq[torch.arange(n, device=dev), t(
+            ptr, torch.long)], nq=t(nq, torch.int32),
+        destpointer=t(ptr, torch.int32), znav=t(znav, torch.bool),
+        znavparams=t(np.where(znav[:, :1], 0.0, latched)),
+        i=t(rng.integers(0, 100, n), torch.int32),
+        i_stopsignal=t(rng.integers(0, 100, n), torch.int32),
+        d_stopsignal=t(rng.uniform(0, 10, n)), active=t(active, torch.bool))
+
+
+def bits_differ(got, want):
+    """(elements that differ bit for bit, their largest distance in units
+    in the last place) of two tensors of one dtype; for an integer or
+    boolean tensor the distance is 0."""
+    import torch
+
+    differ = int((got != want).sum()) if not got.dtype.is_floating_point \
+        else int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if not got.dtype.is_floating_point or not differ:
+        return differ, 0
+
+    def line(t):
+        # the float32 bit patterns on one monotone integer line
+        b = t.view(torch.int32).long()
+        return torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+
+    return differ, int((line(got) - line(want)).abs().max())
+
+
+def agent_step_bytes(name, pre, state, engine):
+    """Bytes of one call of the kernel `name` that its function needs on
+    this state, each input read once and each output written once.
+    agent_pre reads the state fields of the destination update and the
+    FSM (the queue entry at each row's pointer and, where the queue has
+    one, the next), the uid and each per-rider pair column, and writes
+    the FSM fields (an inactive row's held), the force and the packs.
+    agent_post reads, for every row, the pre-step state, its pid
+    memories and step counter, the activity flag, both forces and the
+    position ring but the slot it writes; for an active row also
+    agent_pre's destination (x, y), pointer and the queue length; and
+    writes the new state, the ring, the counter and the applied force."""
+    import torch
+
+    n, hist = state.n, state.hist_len
+    if name == "agent_pre":
+        nbytes = n * (16 + 12 + 4 + 4 + 3 + 16 + 4 + 4 + 4 + 1   # read
+                      + 8 + 12 + 4 + 3 + 16 + 4 + 4)             # written
+        nxt = (state.destpointer + 1 < state.nq).sum()
+        nbytes += 12 * (n + int(nxt))
+        nbytes += pre.src_pack.numel() * 4 + pre.recv_pack.numel() * 4
+        tables = [v for v in (getattr(engine.params, f) for f in (
+            "hfov", "p_0", "p_decay", "f_0", "e_0", "e_1", "sigma_0",
+            "sigma_1", "sigma_2", "sigma_3")) if isinstance(v, torch.Tensor)]
+        if tables:
+            nbytes += 4 * n + sum(min(n, t.numel()) * t.element_size()
+                                  for t in tables)
+    else:
+        n_act = int(state.active.sum())
+        nbytes = (n * (32 + 8 + 8 + 4 + 1 + 16 + 8 * (hist - 1))   # read
+                  + n_act * (8 + 4 + 4)
+                  + n * (32 + 8 + 8 + 4 + 8 * hist + 8)          # written
+                  + 8)                              # t_glob, both ways
+    return nbytes
+
+
+def phase_agent_step(cases):
+    """agent_pre and agent_post against their plain versions on one step
+    of each of `cases` (form -> (engine, state)): the state after a table
+    rebuild, in the table's cell-sorted order as the main path holds it.
+    agent_pre on the state, and again with a block of pad rows past the
+    crowd (`agent_pre_pad`: the packs as `Engine.fused_step` pads a crowd
+    that is not a whole number of blocks); the pair kernel on the plain
+    version's packs; agent_post on the plain version's outputs and those
+    forces. Every output field compared bit for bit (floats by their
+    bits, integer and boolean fields exactly): the count of differing
+    elements and their largest distance in ulps per field. On the first two cases the times
+    of both kernels and their plain versions, each call replayed as a
+    CUDA graph (`graphed_ms`: 50 and 5 replays; "eager_ms" and
+    "plain_eager_ms" the calls as such, with the host's time), and their
+    bounds. Raises where a kernel disagrees."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.engine import permute_state
+    from cyclistsocialforce_tpu_torch.ops import agent_step as AS
+
+    changed = ("dest", "destpointer", "znav", "znavparams", "i_stopsignal",
+               "d_stopsignal")
+    post_fields = ("s", "pid_e", "pid_i", "i", "t_glob", "pos_hist")
+    out, bad = {}, []
+    for k, (form, (engine, state)) in enumerate(cases.items()):
+        cache = engine.neighbor_cache(state)
+        st = permute_state(state, cache[0])
+        n = npad = st.n
+        if not AS.fused_form(engine, st):
+            raise AssertionError(f"agent_step {form}: not the fused form")
+        pre_k = AS.agent_pre(engine, st, npad)
+        pre_r = AS.agent_pre_ref(engine, st, npad)
+        ragged = engine.pair_rows(n + 1)
+        pad_k = AS.agent_pre(engine, st, ragged)
+        pad_r = AS.agent_pre_ref(engine, st, ragged)
+        pair = engine.pair_kernel_dispatch(cache[1], cache[2],
+                                           pre_r.src_pack, pre_r.recv_pack,
+                                           cache[4])
+        frx, fry = pair[0, :n], pair[1, :n]
+        post_k, fx_k, fy_k = AS.agent_post(engine, st, pre_r, frx, fry)
+        post_r, fx_r, fy_r = AS.agent_post_ref(engine, st, pre_r, frx, fry)
+        torch.cuda.synchronize()
+        fields = {
+            "agent_pre": {"fdx": (pre_k.fdx, pre_r.fdx),
+                          "fdy": (pre_k.fdy, pre_r.fdy),
+                          "src_pack": (pre_k.src_pack, pre_r.src_pack),
+                          "recv_pack": (pre_k.recv_pack, pre_r.recv_pack),
+                          **{f: (getattr(pre_k.state, f),
+                                 getattr(pre_r.state, f)) for f in changed}},
+            "agent_pre_pad": {f: (getattr(pad_k, f), getattr(pad_r, f))
+                              for f in ("src_pack", "recv_pack")},
+            "agent_post": {"fx": (fx_k, fx_r), "fy": (fy_k, fy_r),
+                           **{f: (getattr(post_k, f), getattr(post_r, f))
+                              for f in post_fields}}}
+        line = {"form": form, "n": n, "pad_rows": ragged - n,
+                "pair_family": engine.pair_family,
+                "per_rider_columns": [
+                    f for f in ("f_0", "sigma_0", "p_0", "p_decay")
+                    if isinstance(getattr(engine.params, f, None),
+                                  torch.Tensor)],
+                "fsm_states": st.znav.sum(dim=0).tolist(),
+                "inactive": int((~st.active).sum())}
+        for name, pairs in fields.items():
+            diffs = {f: bits_differ(*pair) for f, pair in pairs.items()}
+            line[name] = {"fields_differing": {
+                f: {"elements": d, "max_ulps": u}
+                for f, (d, u) in diffs.items() if d}, "max_abs_err": max(
+                    float((a.double() - b.double()).abs().max())
+                    for a, b in pairs.values() if a.dtype.is_floating_point)}
+            bad += [f"{form} {name}.{f}" for f, (d, _) in diffs.items() if d]
+            finite = all(bool(torch.isfinite(t).all()) for t, _ in
+                         pairs.values() if t.dtype.is_floating_point)
+            line[name]["finite"] = finite
+            if not finite:
+                bad.append(f"{form} {name}: non-finite")
+        if k < 2:
+            calls = {
+                "agent_pre": (lambda: AS.agent_pre(engine, st, npad),
+                              lambda: AS.agent_pre_ref(engine, st, npad)),
+                "agent_post": (
+                    lambda: AS.agent_post(engine, st, pre_r, frx, fry),
+                    lambda: AS.agent_post_ref(engine, st, pre_r, frx, fry))}
+            for name, (kern, plain) in calls.items():
+                nbytes = agent_step_bytes(name, pre_r, st, engine)
+                floors = {"fp32": 1e3 * OPS_AGENT[name] * n / PEAK_FLOPS,
+                          "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
+                floor = max(floors, key=floors.get)
+                line[name].update(
+                    ms=graphed_ms(kern, reps=50),
+                    plain_ms=graphed_ms(plain, reps=5),
+                    eager_ms=cuda_ms(kern, reps=50),
+                    plain_eager_ms=cuda_ms(plain, reps=5),
+                    bytes=nbytes, floors_ms=floors, bound_ms=floors[floor],
+                    bound_by="bytes" if floor == "bytes" else "operations")
+            out[form] = line
+        emit("agent_step", **line)
+    if bad:
+        raise AssertionError(f"agent_step: the kernels differ from their "
+                             f"plain versions in {bad}")
+    return out
 
 
 def phase_kernel(engine, state):
@@ -1374,7 +1635,9 @@ def phase_db_config(state):
 KERNEL_SYMBOLS = {"pair_forces_neighbors": "pair_forces_twod_kernel",
                   "pair_forces_neighbors_unrolled":
                       "pair_forces_unrolled_kernel",
-                  "pair_forces_neighbors_db": "pair_forces_db_kernel"}
+                  "pair_forces_neighbors_db": "pair_forces_db_kernel",
+                  "agent_pre": "agent_pre_kernel",
+                  "agent_post": "agent_post_kernel"}
 
 
 # Kineto's own record of lost device activity: the profiler's log line when
@@ -1421,7 +1684,8 @@ def captured_stderr(out):
 
 
 def traced_pair_kernels(engine, state, steps):
-    """How often each pair kernel ran on the card in one graphed
+    """How often each counted kernel (the pair kernels and the per-agent
+    ones) ran on the card in one graphed
     `simulate` of `steps` steps, read from a torch.profiler device trace,
     and the lines of Kineto's log that report lost records: ({wrapper
     name: kernel events}, [log lines])."""
@@ -1459,28 +1723,35 @@ def phase_slice(phase, engine, state, kernel, report=None):
     the graphed one timed in turns, TIMED_ROUNDS runs of each. `report`:
     a function of the run's final state whose dict goes into the run's
     line. `kernel` None: a path that launches no pair kernel (the generic
-    culled path), held to none launched and none in the trace."""
+    culled path), held to none launched and none in the trace. A path of
+    FUSED_PATHS launches agent_pre and agent_post as often as its pair
+    kernel, in the counts and in the trace; every other path neither."""
     import torch
 
+    from cyclistsocialforce_tpu_torch.ops import agent_step as AS
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 
+    counted = PF.KERNELS + AS.KERNELS
+    fused = AS.KERNELS if phase in FUSED_PATHS else ()
+
     def named(counts):
-        return dict(zip((fn.__name__ for fn in PF.KERNELS), counts))
+        return dict(zip((fn.__name__ for fn in counted), counts))
 
     def only(n):
-        return {fn.__name__: n * (fn is kernel) for fn in PF.KERNELS}
+        return {fn.__name__: n * (fn is kernel or fn in fused)
+                for fn in counted}
 
     audit_overflow(engine, state, f"{phase} t=0")
     torch.cuda.synchronize()
     if engine._runners:
         raise AssertionError(f"{phase}: the engine has captured already")
-    PF.reset_launches()
+    PF.reset_launches(counted)
     t0 = time.perf_counter()
     final, _ = engine.simulate(state, N_STEPS, record=False)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    warm_up = named(PF.launch_counts())
-    launches = named(engine.graph_launches())
+    warm_up = named(PF.launch_counts(counted))
+    launches = named(engine.graph_launches(counted))
     finite = bool(torch.isfinite(final.s).all())
     runner, = engine._runners.values()
     if runner.graph is None or runner.presorted != engine.sorted_resident:
@@ -1492,7 +1763,8 @@ def phase_slice(phase, engine, state, kernel, report=None):
          replays=runner.replays, presorted=runner.presorted,
          finite=finite, first_run_s=first_s,
          capture_s=runner.capture_seconds,
-         captured_launches_per_replay=named(runner.captured),
+         captured_launches_per_replay=named(
+             runner.captured_by[fn] for fn in counted),
          **(report(final) if report else {}))
     if launches != only(N_STEPS) or warm_up != only(REBUILD):
         raise AssertionError(
@@ -1504,12 +1776,12 @@ def phase_slice(phase, engine, state, kernel, report=None):
     audit_overflow(engine, final, f"{phase} t=end")
 
     for attempt in range(1, TRACE_ATTEMPTS + 1):
-        before = named(engine.graph_launches())
-        PF.reset_launches()
+        before = named(engine.graph_launches(counted))
+        PF.reset_launches(counted)
         traced, lost = traced_pair_kernels(engine, state, PROFILE_STEPS)
-        replayed = {k: n - before[k]
-                    for k, n in named(engine.graph_launches()).items()}
-        by_wrapper = named(PF.launch_counts())
+        replayed = {k: n - before[k] for k, n in
+                    named(engine.graph_launches(counted)).items()}
+        by_wrapper = named(PF.launch_counts(counted))
         agree = (traced == replayed == only(PROFILE_STEPS)
                  and by_wrapper == only(0))
         undercount = (not agree and replayed == only(PROFILE_STEPS)
@@ -1558,9 +1830,10 @@ def phase_slice(phase, engine, state, kernel, report=None):
          spread_ms_per_step={how: ms(max(r) - min(r))
                              for how, r in runs.items()},
          eager_over_graphed=med["eager"] / med["graphed"], runs_s=runs)
-    if kernel is None:
-        return 0, 0
-    return launches[kernel.__name__], warm_up[kernel.__name__]
+    pair = ((0, 0) if kernel is None
+            else (launches[kernel.__name__], warm_up[kernel.__name__]))
+    return pair + tuple((launches[fn.__name__], warm_up[fn.__name__])
+                        for fn in AS.KERNELS)
 
 
 def states_differ(a, b):
@@ -1733,6 +2006,7 @@ def phase_profile(path, engine, state):
                 "cudaMemsetAsync"):
             host[e.name] = host.get(e.name, 0) + 1
     pair_us = sum(t for n, t in by_name.items() if "pair_forces" in n)
+    agent_us = sum(t for n, t in by_name.items() if "agent_p" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # what the host launched one by one ran outside the graphs (rebuilds,
     # permutations, the copies into the static buffers)
@@ -1752,7 +2026,9 @@ def phase_profile(path, engine, state):
          idle_share=1.0 - busy_us / window_us,
          device_busy_over_unprofiled_wall=1e-6 * busy_us / plain_wall_s,
          pair_kernel_ms_per_step=1e-3 * pair_us / PROFILE_STEPS,
-         other_ms_per_step=1e-3 * (busy_us - pair_us) / PROFILE_STEPS,
+         agent_kernels_ms_per_step=1e-3 * agent_us / PROFILE_STEPS,
+         other_ms_per_step=1e-3 * (busy_us - pair_us - agent_us)
+         / PROFILE_STEPS,
          top_kernels_ms_per_step={n[:80]: 1e-3 * t / PROFILE_STEPS
                                   for n, t in top})
     return len(device) / PROFILE_STEPS
@@ -3367,6 +3643,12 @@ def main():
         dict(block=BLOCK, block_src=BLOCK_SRC), dict(block=BLOCK,
                                                      block_src=BLOCK_SRC))
     vs_k1.update(mixed_vs_k1)
+    fsm_state = fsm_crowd(state)
+    agent = timed("agent_step", phase_agent_step, {
+        "twod": (engine, state), "legacy": (leg_engine, state),
+        "columns": (db_engine, state), "twod_fsm": (engine, fsm_state),
+        "legacy_fsm": (leg_engine, fsm_state)})
+    del fsm_state
     paths = {"slice": (engine, state),
              "slice_unrolled": (make_engine(backend="pallas_unrolled"),
                                 state),
@@ -3489,7 +3771,7 @@ def main():
         cpu.close()
     emit("phase_seconds", **seconds)
     emit("total", seconds=time.perf_counter() - t_start)
-    kernels_line(launches, kernel, forms, vs_k1, kernel_of)
+    kernels_line(launches, kernel, forms, vs_k1, kernel_of, agent)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3542,9 +3824,11 @@ def card_phases(timed, paths, engine, twod_engine, ip_engine, br_engine,
     timed("aliasing", phase_aliasing, engine, state)
 
 
-def kernels_line(launches, kernel, forms, vs_k1, kernel_of):
+def kernels_line(launches, kernel, forms, vs_k1, kernel_of, agent):
     """Print the kernels' JSON line: each with its launches on its paths,
-    errors, times and bounds (see the module docstring)."""
+    errors, times and bounds (see the module docstring); the per-agent
+    kernels with their figures on the twod crowd and, under "legacy",
+    on the legacy one (`phase_agent_step`)."""
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 
     k1 = PF.KERNELS[0]
@@ -3596,6 +3880,19 @@ def kernels_line(launches, kernel, forms, vs_k1, kernel_of):
          "vs_k1": vs_k1["k3"],
          "mixed": {**mixed("k3_mixed"), "vs_k1": vs_k1["k3_mixed"]},
          "blocks": blocks("k3")},
+        *({"name": name, "route": "cuda", "source": SRC + "agent_step.cu",
+           "replaces": AGENT_REPLACES[name],
+           "launches": launches["slice"][2 + i][0],
+           "warm_up_launches": launches["slice"][2 + i][1],
+           **{key: agent["twod"][name][key] for key in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None,
+           "paths": {path: {"launches": launches[path][2 + i][0],
+                            "warm_up_launches": launches[path][2 + i][1]}
+                     for path in FUSED_PATHS},
+           "legacy": {key: agent["legacy"][name][key] for key in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+          for i, name in enumerate(("agent_pre", "agent_post"))),
     ]}), flush=True)
 
 

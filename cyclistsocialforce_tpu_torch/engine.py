@@ -25,7 +25,10 @@ shared space, advanced step by step --
 
 Every stage is a batched function over the [N] agent axis. The culled
 pair stage runs its CUDA kernel on CUDA tensors and its plain version on
-CPU tensors: the state's device selects the backend.
+CPU tensors: the state's device selects the backend. For a bicycle2d
+engine of the fused form on a CUDA state (`agent_step.fused_form`),
+stages 1 and 3-5 run as two kernels around the pair kernel
+(`ops.agent_step`).
 
 `Engine.simulate` is the step loop. The JAX package compiles a chunk of
 `rebuild_every` steps (its inner `lax.scan`) into one program; the port's
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cyclistsocialforce_tpu_torch.ops import agent_step as AS
 from cyclistsocialforce_tpu_torch.ops import forces as F
 from cyclistsocialforce_tpu_torch.ops import navigation as nav
 from cyclistsocialforce_tpu_torch.ops import neighbors as NB
@@ -744,6 +748,10 @@ def _check_params_on(params, device):
                 f"simulate(graph=False)")
 
 
+# the kernels whose launches a `ChunkRunner` counts in its captures
+COUNTED_KERNELS = PF.KERNELS + AS.KERNELS
+
+
 def record_buffers(mode, steps: int, state: AgentState) -> tuple:
     """The preallocated record tensors of `steps` steps in record mode
     `mode`: () for None, ([T, N, 8],) for "states", ([T, N, 8], [T, N],
@@ -811,10 +819,13 @@ class ChunkRunner:
         self.replays = 0
         self._load(state, cache)
         t0 = time.perf_counter()
-        recorded = PF.captured_counts()
+        recorded = PF.captured_counts(COUNTED_KERNELS)
         self._capture()
-        self.captured = tuple(a - b for a, b in
-                              zip(PF.captured_counts(), recorded))
+        # the launches the capture recorded, per counted kernel
+        self.captured_by = dict(zip(COUNTED_KERNELS, (
+            a - b for a, b in zip(PF.captured_counts(COUNTED_KERNELS),
+                                  recorded))))
+        self.captured = tuple(self.captured_by[fn] for fn in PF.KERNELS)
         self.capture_seconds = time.perf_counter() - t0   # with the warm-up
 
     def _load(self, state, cache):
@@ -863,10 +874,11 @@ class ChunkRunner:
         self.replays += 1
         return self.state_out, self.rows
 
-    def launches(self) -> tuple:
-        """Kernel launches made by this runner's replays, in
-        `ops.pair_forces.KERNELS` order."""
-        return tuple(self.replays * c for c in self.captured)
+    def launches(self, kernels=PF.KERNELS) -> tuple:
+        """Launches of each of `kernels` (the pair kernels, or
+        `ops.agent_step.KERNELS`) made by this runner's replays, in their
+        order."""
+        return tuple(self.replays * self.captured_by[fn] for fn in kernels)
 
 
 class Engine(nn.Module):
@@ -935,7 +947,10 @@ class Engine(nn.Module):
         # the model's `clock_period` hook, or None (the step never reads
         # the global step clock on the host)
         self.clock_hook = clock_hook
-        self._columns = {}    # (name, values, n, dtype, device) -> [n]
+        # what the engine builds once and keeps (`kept`): the constant
+        # pack columns, the road, the scripts, the model's constants, the
+        # fused-form answer
+        self._columns = {}
         self._runners = {}    # captured program -> ChunkRunner
 
     def __setattr__(self, name, value):
@@ -1086,6 +1101,13 @@ class Engine(nn.Module):
 
     # ---- the culled pair stage ----
 
+    def kept(self, key, build):
+        """`build()`, made once per `key` and kept by the engine until a
+        field that a capture reads changes (`_FROZEN_BY_A_CAPTURE`)."""
+        if key not in self._columns:
+            self._columns[key] = build()
+        return self._columns[key]
+
     def neighbor_cache(self, state: AgentState):
         return build_neighbor_cache(self.neighbors, state)
 
@@ -1120,10 +1142,7 @@ class Engine(nn.Module):
             return isinstance(v, torch.Tensor) and v.ndim >= 1
 
         def kept(name, build, *shared):
-            key = (name, shared, n, dtype, dev)
-            if key not in self._columns:
-                self._columns[key] = build()
-            return self._columns[key]
+            return self.kept((name, shared, n, dtype, dev), build)
 
         def b(name):
             v = values[name]
@@ -1316,10 +1335,24 @@ class Engine(nn.Module):
         never runs presorted."""
         if self.pair_family == "custom":
             return self.repulsive_sum_neighbors_generic(state, cache)
-        cfg = self.neighbors
+        src_pack, recv_pack = self.pack_pair_fields(
+            state, self.pair_rows(state.n))
+        return self.pair_stage(state, src_pack, recv_pack, cache, presorted)
+
+    def pair_rows(self, n: int) -> int:
+        """Rows of the pair packs of `n` agents: n padded to a whole
+        receiver block."""
+        block = self.neighbors.block
+        return -(-n // block) * block
+
+    def pair_stage(self, state: AgentState, src_pack, recv_pack,
+                   cache=None, presorted: bool = False):
+        """The culled pair sums (fx, fy) [N] of the row-order packs of
+        `state` (`pair_rows` rows, `pack_pair_fields`' layout): gathered
+        into the table's cell-sorted order, through the pair kernel, and
+        scattered back; with presorted=True the rows already are in that
+        order and neither is done. `cache` as `repulsive_sum_neighbors`."""
         n = state.n
-        npad = -(-n // cfg.block) * cfg.block
-        src_pack, recv_pack = self.pack_pair_fields(state, npad)
         if cache is None:
             cache = self.neighbor_cache(state)
         perm, nbr, valid = cache[0], cache[1], cache[2]
@@ -1391,25 +1424,23 @@ class Engine(nn.Module):
     def road_tensors(self, state: AgentState) -> RoadElements:
         """The road in the state's dtype on its device, built once and kept
         with the pack columns (a captured chunk reads it by address)."""
-        key = ("road", state.s.dtype, state.device)
-        if key not in self._columns:
-            self._columns[key] = self.road.to(state.s.dtype, state.device)
-        return self._columns[key]
+        return self.kept(("road", state.s.dtype, state.device),
+                         lambda: self.road.to(state.s.dtype, state.device))
 
     def scripted_tensors(self, state: AgentState) -> ScriptedTraj:
         """The script tables in the state's dtype on its device, built
         once and kept with the pack columns (a captured chunk reads them
         by address)."""
-        key = ("scripted", state.s.dtype, state.device)
-        if key not in self._columns:
+        def build():
             sc = self.scripted
             if sc.mask.shape[0] < state.n:
                 raise ValueError(
                     f"the scripts cover {sc.mask.shape[0]} agents and the "
                     f"state has {state.n}: ScriptedTraj.create(n=...) "
                     f"takes every row, padding rows included")
-            self._columns[key] = sc.to(state.s.dtype, state.device)
-        return self._columns[key]
+            return sc.to(state.s.dtype, state.device)
+
+        return self.kept(("scripted", state.s.dtype, state.device), build)
 
     def finish_step(self, before: AgentState, new: AgentState):
         """Freeze inactive agents, replay the scripted agents, advance the
@@ -1493,10 +1524,9 @@ class Engine(nn.Module):
         address, so they live as long as the engine's runners."""
         if hook is None:
             return {}
-        key = ("step_constants", group, state.s.dtype, state.device)
-        if key not in self._columns:
-            self._columns[key] = hook(params, state.s.dtype, state.device)
-        return self._columns[key]
+        return self.kept(("step_constants", group, state.s.dtype,
+                          state.device),
+                         lambda: hook(params, state.s.dtype, state.device))
 
     def clock_period(self) -> int:
         """How often the step's dependence on the global step clock
@@ -1523,13 +1553,29 @@ class Engine(nn.Module):
                                **self._clock_kw(self.clock_hook, self.params,
                                                 t_host))
 
+    def fused_step(self, state: AgentState, nbr_cache=None,
+                   presorted: bool = False):
+        """One step of an engine of the fused form (`agent_step.fused_form`)
+        through `agent_pre`, the pair stage (`pair_stage`) and
+        `agent_post`: (state, fx, fy) as `step_with_forces`. On CPU
+        tensors the two wrappers run their plain versions (the torch
+        functions), so the result is the torch chain's bit for bit; the
+        fields the step does not change are the argument's own tensors."""
+        pre = AS.agent_pre(self, state, self.pair_rows(state.n))
+        frx, fry = self.pair_stage(state, pre.src_pack, pre.recv_pack,
+                                   nbr_cache, presorted)
+        return AS.agent_post(self, state, pre, frx, fry)
+
     def step_with_forces(self, state: AgentState, nbr_cache=None,
                          presorted: bool = False, t_host=None):
         """One full step; returns (state, fx, fy) with the applied
         forces. `t_host`: the global step (state.t_glob) as the caller
         knows it on the host, or None (a clock-dependent model then
-        decides on the device)."""
+        decides on the device). An engine of the fused form takes the
+        per-agent kernels on a CUDA state (`fused_step`)."""
         self.check_state(state)
+        if AS.fused_form(self, state):
+            return self.fused_step(state, nbr_cache, presorted)
         before = state
         fx, fy, state = self.calc_forces(state, nbr_cache,
                                          presorted=presorted)
@@ -1599,12 +1645,13 @@ class Engine(nn.Module):
                                             presorted, mode, phase)
         return self._runners[key]
 
-    def graph_launches(self) -> tuple:
-        """Kernel launches made by the replays of this engine's captured
-        chunks so far, in `ops.pair_forces.KERNELS` order. The wrappers'
-        own counters do not see them: a replay runs no wrapper."""
-        per_runner = [r.launches() for r in self._runners.values()]
-        return tuple(map(sum, zip(*per_runner))) or (0,) * len(PF.KERNELS)
+    def graph_launches(self, kernels=PF.KERNELS) -> tuple:
+        """Launches of each of `kernels` (the pair kernels, or
+        `ops.agent_step.KERNELS`) made by the replays of this engine's
+        captured chunks so far, in their order. The wrappers' own counters
+        do not see them: a replay runs no wrapper."""
+        per_runner = [r.launches(kernels) for r in self._runners.values()]
+        return tuple(map(sum, zip(*per_runner))) or (0,) * len(kernels)
 
     def simulate(self, state: AgentState, n_steps: int,
                  record: bool = True, record_forces: bool = False,

@@ -9,8 +9,8 @@ library is named by a hash of the sources, the headers they include
 edited header always does. It runs at the first CUDA launch, never at
 import. A missing nvcc or a failed compile raises.
 
-The three kernels (K1 `pair_forces.cu`, K2 `pair_forces_unrolled.cu`, K3
-`pair_forces_db.cu`) share one per-pair math (`pair_math.cuh`) and one
+The three pair kernels (K1 `pair_forces.cu`, K2 `pair_forces_unrolled.cu`,
+K3 `pair_forces_db.cu`) share one per-pair math (`pair_math.cuh`) and one
 CTA shape (`pair_groups.cuh`), compiled for receiver blocks of 64, 128
 and 256: a block of 128 is 8 groups of 64 threads (64: 8 groups of 32,
 256: 4 groups of 128), 2 receivers per thread, whose partial sums are
@@ -18,7 +18,8 @@ added in a fixed order. K1 hands whole table slots to the groups; K2
 stages a row's tiles in shared memory in rounds of 96 KB (any kb) and
 splits a round's rows evenly over the groups; K3 streams block-row tiles
 through a 4-slot ring, every group on its strip of each tile, the tile
-screen voted across the groups.
+screen voted across the groups. `agent_step.cu` holds the two per-agent
+kernels around them (`ops/agent_step.py`).
 """
 
 from __future__ import annotations
@@ -66,8 +67,12 @@ def _declare(lib):
     lib.csf_pair_forces_unrolled.argtypes = [*head, i, i, i, i, i, *field,
                                              i, p]
     lib.csf_pair_forces_db.argtypes = [*head, i, i, i, f, i, p]
+    # agent_pre, agent_post: a pointer to their argument struct
+    # (ops/agent_step.py), device, stream
+    lib.csf_agent_pre.argtypes = [p, i, p]
+    lib.csf_agent_post.argtypes = [p, i, p]
     for fn in (lib.csf_pair_forces_twod, lib.csf_pair_forces_unrolled,
-               lib.csf_pair_forces_db):
+               lib.csf_pair_forces_db, lib.csf_agent_pre, lib.csf_agent_post):
         fn.restype = i
     lib.csf_error_string.argtypes = [i]
     lib.csf_error_string.restype = ctypes.c_char_p

@@ -1,0 +1,427 @@
+"""One step of a bicycle2d engine's per-agent chain as two CUDA kernels
+around the pair kernel (`csrc/agent_step.cu`), their wrappers, their plain
+PyTorch versions and their launch counters.
+
+  agent_pre   the destination force with the destination-queue update and
+              the navigation FSM (`engine.dest_force_straight`; an
+              inactive row's FSM fields held, as `Engine.finish_step`
+              holds them), then the pair packs (`Engine.pack_pair_fields`)
+  agent_post  the repulsion clamped and added to the destination force
+              (`ops.forces.clamp_add_dest`), bicycle2d's step
+              (`models.bicycle2d.step`) and the step's bookkeeping
+              (`Engine.finish_step`)
+
+The JAX package compiles this chain with the rest of a chunk into one XLA
+program, which fuses it (its `engine.py` :49-102, :901-980, :1118-1198
+and `models/bicycle2d.py`); the port's `Engine.step_with_forces` takes
+the kernels for a step of the fused form (`fused_form`, the one rule of
+which steps take them).
+
+Each wrapper launches its kernel on CUDA tensors and runs its plain
+version on CPU tensors. The plain versions are the engine's own torch
+functions, composed as `Engine.calc_forces`, `dynamics` and
+`finish_step` compose them, and the kernels are held to them on the card
+bit for bit: every operation rounds as PyTorch's CUDA kernel does
+(`csrc/agent_step.cu`). The host computes the constants that PyTorch
+computes on the host: a Python float cast to float32, the float32
+reciprocal by which PyTorch's CUDA kernel multiplies where a tensor is
+divided by a Python float, and expressions of Python floats alone in
+double (`_nav_constants`, `_model_constants`).
+
+The navigation and bicycle2d parameters are shared (Python floats and
+(min, max) pairs of them: `takes_params`); the pair-field columns may be
+per rider, [R] float32 or float64 tables on the state's device read by
+uid and clamped to the table's last row, as `Engine.pack_pair_fields`
+gathers them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cyclistsocialforce_tpu_torch.ops import forces as F
+from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+from cyclistsocialforce_tpu_torch.ops.navigation import BRAKE_SAFETY_K
+from cyclistsocialforce_tpu_torch.params import pair_hi, pair_lo
+
+# the shared parameters the kernels take as arguments
+NAV_FIELDS = ("d_arrived_inter", "d_arrived_stop", "v_max_stop",
+              "v_max_harddecel", "v_desired_default", "a_max",
+              "a_desired_default")
+MODEL_FIELDS = ("t_s", "k_p_delta", "k_p_v", "a_max", "delta_max",
+                "v_max_riding", "l")
+LIMIT_PAIRS = ("a_max", "a_desired_default", "v_max_riding")
+# the pack's field columns, in csrc/agent_step.cu's `Col` order ("v_max"
+# is v_max_riding's upper limit, the legacy field's excentricity scale)
+PACK_COLUMNS = ("hfov", "p_0", "p_decay", "f_0", "e_0", "e_1", "sigma_0",
+                "sigma_1", "sigma_2", "sigma_3", "v_max")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class _PairCol(ctypes.Structure):
+    _fields_ = [("p", _P), ("rows", ctypes.c_longlong), ("f64", _I),
+                ("v", _F)]
+
+
+def _struct(name, pointers, ints, floats, tail=()):
+    return type(name, (ctypes.Structure,), {"_fields_": [
+        *((f, _P) for f in pointers), *((f, _I) for f in ints),
+        *((f, _F) for f in floats), *tail]})
+
+
+_PRE_IN = ("s", "dest", "destqueue", "destpointer", "nq", "znav",
+           "znavparams", "i", "i_stopsignal", "d_stopsignal", "active", "uid")
+_PRE_OUT = ("fdx", "fdy", "dest_out", "ptr_out", "znav_out", "znavp_out",
+            "istop_out", "dstop_out", "src_pack", "recv_pack")
+_NAV_CONSTANTS = ("d_arrived_inter", "d_arrived_stop", "v_max_stop",
+                  "v_max_harddecel", "v_desired_default", "vh2", "inv_a_des",
+                  "d1_new", "inv_k")
+_AgentPreArgs = _struct(
+    "_AgentPreArgs", _PRE_IN + _PRE_OUT, ("n", "npad", "q", "legacy"),
+    _NAV_CONSTANTS, [("cols", _PairCol * len(PACK_COLUMNS))])
+
+# the destination and FSM fields agent_pre sets
+_CHANGED = ("dest", "destpointer", "znav", "znavparams", "i_stopsignal",
+            "d_stopsignal")
+# the fields no step of the fused form changes: the step's result holds
+# the argument's own tensors
+UNCHANGED = ("dyn_x", "dyn_v", "dyn_gains", "destqueue", "nq", "zrid",
+             "walk_ok_steps", "active", "uid", "key")
+# the pre-step state fields agent_post reads, then agent_pre's
+# destination and pointer (suffix _a), the forces, then its outputs
+_POST_IN = ("s", "pid_e", "pid_i", "i", "t_glob", "pos_hist", "active",
+            "nq", "dest_a", "destpointer_a", "fdx", "fdy", "frx", "fry")
+_POST_OUT = ("s_out", "pid_e_out", "pid_i_out", "i_out", "t_out",
+             "pos_hist_out", "fx", "fy")
+_MODEL_CONSTANTS = ("t_s", "inv_t_s", "k_p_delta", "k_p_v", "a_max_lo",
+                    "a_max_hi", "delta_max", "neg_delta_max", "v_max_lo",
+                    "v_max_hi", "inv_l")
+_AgentPostArgs = _struct("_AgentPostArgs", _POST_IN + _POST_OUT,
+                         ("n", "hist"), _MODEL_CONSTANTS)
+
+# each state field's dtype and width per row (0: [n]) as the kernels take it
+_FIELD_FORMS = {"s": (torch.float32, 8), "dest": (torch.float32, 3),
+                "destpointer": (torch.int32, 0), "nq": (torch.int32, 0),
+                "znav": (torch.bool, 3), "znavparams": (torch.float32, 4),
+                "i": (torch.int32, 0), "i_stopsignal": (torch.int32, 0),
+                "d_stopsignal": (torch.float32, 0),
+                "active": (torch.bool, 0), "uid": (torch.int32, 0),
+                "pid_e": (torch.float32, 2), "pid_i": (torch.float32, 2)}
+
+
+class PreStep(NamedTuple):
+    """What agent_pre hands on: the destination force (fdx, fdy) [n], the
+    state with the destination and FSM fields the step sets (`dest`,
+    `destpointer`, `znav`, `znavparams`, `i_stopsignal`,
+    `d_stopsignal`: an active row's updated, an inactive row's held; the
+    rest are the argument's), and the pair packs src [npad, 16] and recv
+    [8, npad] in row order."""
+
+    fdx: torch.Tensor
+    fdy: torch.Tensor
+    state: object
+    src_pack: torch.Tensor
+    recv_pack: torch.Tensor
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, (int, float)) and not isinstance(v, bool)
+
+
+def _is_shared(params, field) -> bool:
+    v = getattr(params, field)
+    if field in LIMIT_PAIRS:
+        return (isinstance(v, tuple) and len(v) == 2
+                and all(map(_is_number, v)))
+    return _is_number(v)
+
+
+def _pack_values(params) -> dict:
+    values = {f: getattr(params, f) for f in PACK_COLUMNS[:-1]}
+    values["v_max"] = pair_hi(params.v_max_riding)
+    return values
+
+
+def takes_params(params, device) -> bool:
+    """Do the kernels take `params`: every navigation and bicycle2d
+    parameter shared, every pair-field column shared or a 1-D float32 or
+    float64 per-rider table on `device`?"""
+    if not all(hasattr(params, f) for f in NAV_FIELDS + MODEL_FIELDS
+               + PACK_COLUMNS[:-1]):
+        return False
+    if not all(_is_shared(params, f) for f in NAV_FIELDS + MODEL_FIELDS):
+        return False
+    for v in _pack_values(params).values():
+        if isinstance(v, torch.Tensor):
+            if (v.ndim != 1 or v.numel() == 0 or v.device != device
+                    or v.dtype not in (torch.float32, torch.float64)
+                    or not v.is_contiguous()):
+                return False
+        elif not _is_number(v):
+            return False
+    return True
+
+
+def takes_engine(engine, device) -> bool:
+    """Is `engine` of the fused form on `device`: bicycle2d with the
+    straight destination force, the twod or legacy field culled through a
+    pair kernel, parameters the kernels take (`takes_params`), and no
+    road, scripts or force hooks?"""
+    from cyclistsocialforce_tpu_torch.engine import dest_force_straight
+    from cyclistsocialforce_tpu_torch.models import bicycle2d
+
+    return (getattr(engine, "pair_family", None) in ("twod", "legacy")
+            and getattr(engine, "model_step", None) is bicycle2d.step
+            and getattr(engine, "dest_force", None) is dest_force_straight
+            and engine.neighbors is not None and engine.road is None
+            and engine.scripted is None and engine.rep_reduce is None
+            and engine.combine_forces is None
+            and not getattr(engine.params, "dest_force", None)
+            and not getattr(engine.params, "rep_force", None)
+            and takes_params(engine.params, torch.device(device)))
+
+
+def fused_form(engine, state) -> bool:
+    """Does a step of `state` go through the kernels: a float32 state of
+    more than one row on a CUDA device and an engine of the fused form
+    there (`takes_engine`)? Every other step, and every step of a CPU
+    state, goes through the engine's torch functions. The engine decides
+    once per device: it keeps the answer with its pack columns, which it
+    drops when a field the answer reads changes."""
+    if not (state.s.is_cuda and state.s.dtype == torch.float32
+            and state.n > 1):
+        return False
+    return engine.kept(("fused_form", state.device),
+                       lambda: takes_engine(engine, state.device))
+
+
+def _require_fused(name, engine, state):
+    if not fused_form(engine, state):
+        raise ValueError(
+            f"{name}: the kernel takes a float32 state of more than one row "
+            f"and an engine of the fused form (`agent_step.fused_form`): "
+            f"bicycle2d, the straight destination force, the twod or "
+            f"legacy field culled, shared navigation and bicycle2d "
+            f"parameters, per-rider pair columns as 1-D float tables on "
+            f"the state's device, no road, scripts or hooks")
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _inv(x) -> float:
+    """The float32 reciprocal of a Python float, as PyTorch's CUDA kernel
+    takes it where a tensor is divided by that float."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def _nav_constants(params) -> dict:
+    """ops/navigation.py's shared values, each as PyTorch's CUDA kernels
+    apply it: `vh * vh` and `d1_new` are products of Python floats (in
+    double), the divisions by a_desired_default[0] and by the braking
+    safety factor are multiplications by float32 reciprocals."""
+    vh = float(params.v_max_harddecel)
+    a_max_lo = float(pair_lo(params.a_max))
+    return {"d_arrived_inter": _f32(params.d_arrived_inter),
+            "d_arrived_stop": _f32(params.d_arrived_stop),
+            "v_max_stop": _f32(params.v_max_stop),
+            "v_max_harddecel": _f32(vh),
+            "v_desired_default": _f32(params.v_desired_default),
+            "vh2": _f32(vh * vh),
+            "inv_a_des": _inv(pair_lo(params.a_desired_default)),
+            "d1_new": _f32(0.5 * (-(vh * vh)) / a_max_lo),
+            "inv_k": _inv(BRAKE_SAFETY_K)}
+
+
+def _model_constants(params) -> dict:
+    """models/bicycle2d.py's shared values, as PyTorch's CUDA kernels apply
+    them (the divisions by t_s and by l multiply by float32
+    reciprocals)."""
+    return {"t_s": _f32(params.t_s), "inv_t_s": _inv(params.t_s),
+            "k_p_delta": _f32(params.k_p_delta), "k_p_v": _f32(params.k_p_v),
+            "a_max_lo": _f32(pair_lo(params.a_max)),
+            "a_max_hi": _f32(pair_hi(params.a_max)),
+            "delta_max": _f32(params.delta_max),
+            "neg_delta_max": _f32(-params.delta_max),
+            "v_max_lo": _f32(pair_lo(params.v_max_riding)),
+            "v_max_hi": _f32(pair_hi(params.v_max_riding)),
+            "inv_l": _inv(params.l)}
+
+
+def _pair_col(v) -> _PairCol:
+    if isinstance(v, torch.Tensor):
+        return _PairCol(v.data_ptr(), v.shape[0],
+                        int(v.dtype == torch.float64), 0.0)
+    return _PairCol(None, 0, 0, _f32(v))
+
+
+def _check_state(name, state, fields):
+    """The kernels take contiguous state fields of the forms they read."""
+    n = state.n
+    for f in fields:
+        t = getattr(state, f)
+        dtype, width = _FIELD_FORMS[f]
+        shape = (n, width) if width else (n,)
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise TypeError(f"{name}: state.{f} must be {dtype} of shape "
+                            f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: state.{f} must be contiguous")
+
+
+def _launch(name, symbol, args, device):
+    from cyclistsocialforce_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, symbol)(ctypes.byref(args), device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed "
+                           f"({_build.error_string(lib, rc)})")
+
+
+def agent_pre_ref(engine, state, npad: int) -> PreStep:
+    """Plain version of agent_pre: the engine's destination force (the
+    destination-queue update, the navigation FSM, the straight-line
+    force), an inactive row's FSM fields held as `Engine.finish_step`
+    holds them, and the pair packs, padded to `npad` rows."""
+    fdx, fdy, st = engine.destination_forces(state)
+    act = state.active
+    st = st.replace(**{f: torch.where(
+        act.reshape((-1,) + (1,) * (getattr(st, f).ndim - 1)),
+        getattr(st, f), getattr(state, f)) for f in _CHANGED})
+    src_pack, recv_pack = engine.pack_pair_fields(st, npad)
+    return PreStep(fdx, fdy, st, src_pack, recv_pack)
+
+
+def agent_post_ref(engine, before, pre: PreStep, frx, fry):
+    """Plain version of agent_post: the pair stage's sums (frx, fry) [n]
+    clamped to the destination force's magnitude and added to it, the
+    model's step on the state agent_pre set, and the engine's bookkeeping
+    against the pre-step state `before`. Returns (state, fx, fy) with the
+    applied forces, as `Engine.step_with_forces`; as the kernel returns
+    them, the fields that no step changes (`UNCHANGED`) are `before`'s
+    own tensors and the destination and FSM fields `pre.state`'s (equal
+    in value: agent_pre held the inactive rows')."""
+    fx, fy = F.clamp_add_dest(frx, fry, pre.fdx, pre.fdy)
+    new = engine.dynamics(pre.state, fx, fy)
+    out = engine.finish_step(before, new)
+    return out.replace(**{f: getattr(before, f) for f in UNCHANGED},
+                       **{f: getattr(pre.state, f) for f in _CHANGED}), fx, fy
+
+
+def agent_pre(engine, state, npad: int) -> PreStep:
+    """agent_pre: the CUDA kernel on a CUDA state, the plain version on a
+    CPU state. The kernel takes a step of the fused form (`fused_form`),
+    the state's fields contiguous as `make_state` builds them, and npad
+    >= n rows."""
+    fields = ("s", "dest", "destqueue", "destpointer", "nq", "znav",
+              "znavparams", "i", "i_stopsignal", "d_stopsignal", "active",
+              "uid")
+    if not PF._on_cuda("agent_pre", *(getattr(state, f) for f in fields)):
+        return agent_pre_ref(engine, state, npad)
+    n, device = state.n, state.device
+    params = engine.params
+    _require_fused("agent_pre", engine, state)
+    _check_state("agent_pre", state, [f for f in fields if f != "destqueue"])
+    dq = state.destqueue
+    if (dq.dtype != torch.float32 or dq.ndim != 3 or dq.shape[0] != n
+            or dq.shape[2] != 3 or not dq.is_contiguous()):
+        raise TypeError("agent_pre: state.destqueue must be a contiguous "
+                        "float32 [n, Q, 3] tensor")
+    if npad < n:
+        raise ValueError(f"agent_pre: npad ({npad}) must be >= n ({n})")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    out = {"fdx": empty(n), "fdy": empty(n), "dest_out": empty(n, 3),
+           "ptr_out": empty(n, dtype=torch.int32),
+           "znav_out": empty(n, 3, dtype=torch.bool),
+           "znavp_out": empty(n, 4),
+           "istop_out": empty(n, dtype=torch.int32),
+           "dstop_out": empty(n), "src_pack": empty(npad, PF.SRC_COLS),
+           "recv_pack": empty(PF.RECV_ROWS, npad)}
+    values = _pack_values(params)
+    args = _AgentPreArgs(
+        *(getattr(state, f).data_ptr() for f in _PRE_IN),
+        *(out[f].data_ptr() for f in _PRE_OUT),
+        n, npad, dq.shape[1], int(engine.pair_family == "legacy"),
+        *(_nav_constants(params)[f] for f in _NAV_CONSTANTS),
+        (_PairCol * len(PACK_COLUMNS))(
+            *(_pair_col(values[f]) for f in PACK_COLUMNS)))
+    _launch("agent_pre", "csf_agent_pre", args, device)
+    PF._count(agent_pre)
+    st = state.replace(
+        dest=out["dest_out"], destpointer=out["ptr_out"],
+        znav=out["znav_out"], znavparams=out["znavp_out"],
+        i_stopsignal=out["istop_out"], d_stopsignal=out["dstop_out"])
+    return PreStep(out["fdx"], out["fdy"], st, out["src_pack"],
+                   out["recv_pack"])
+
+
+def agent_post(engine, before, pre: PreStep, frx, fry):
+    """agent_post: the CUDA kernel on a CUDA state, the plain version on a
+    CPU state; arguments and result as `agent_post_ref`. The kernel takes
+    what agent_pre takes and returns fresh tensors for the fields it
+    changes (`s`, `pid_e`, `pid_i`, `i`, `t_glob`, `pos_hist`: the ring
+    copied and one slot written); the destination and FSM fields are
+    `pre.state`'s, the others (`UNCHANGED`) `before`'s own."""
+    tensors = [before.s, before.pos_hist, pre.fdx, pre.state.dest, frx, fry]
+    if not PF._on_cuda("agent_post", *tensors):
+        return agent_post_ref(engine, before, pre, frx, fry)
+    n = before.n
+    _require_fused("agent_post", engine, before)
+    _check_state("agent_post", before,
+                 ("s", "pid_e", "pid_i", "i", "active", "nq"))
+    _check_state("agent_post", pre.state, ("dest", "destpointer"))
+    for name, t in (("fdx", pre.fdx), ("fdy", pre.fdy), ("frx", frx),
+                    ("fry", fry)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n,)
+                or not t.is_contiguous()):
+            raise TypeError(f"agent_post: {name} must be a contiguous "
+                            f"float32 [{n}] tensor")
+    ph = before.pos_hist
+    if (ph.dtype != torch.float32 or ph.ndim != 3 or ph.shape[0] != n
+            or ph.shape[2] != 2 or not ph.is_contiguous()):
+        raise TypeError("agent_post: state.pos_hist must be a contiguous "
+                        "float32 [n, H, 2] tensor")
+    if before.t_glob.dtype != torch.int32 or before.t_glob.numel() != 1:
+        raise TypeError("agent_post: state.t_glob must be a 0-d int32 "
+                        "tensor")
+
+    new = {f: torch.empty_like(getattr(before, f))
+           for f in ("s", "pid_e", "pid_i", "i", "t_glob", "pos_hist")}
+    fx, fy = torch.empty_like(frx), torch.empty_like(fry)
+    inputs = {**{f: getattr(before, f) for f in
+                 ("s", "pid_e", "pid_i", "i", "t_glob", "pos_hist",
+                  "active", "nq")},
+              "dest_a": pre.state.dest,
+              "destpointer_a": pre.state.destpointer,
+              "fdx": pre.fdx, "fdy": pre.fdy, "frx": frx, "fry": fry}
+    outputs = {f + "_out": new[f] for f in new}
+    outputs["t_out"] = outputs.pop("t_glob_out")
+    outputs.update(fx=fx, fy=fy)
+    consts = _model_constants(engine.params)
+    args = _AgentPostArgs(
+        *(inputs[f].data_ptr() for f in _POST_IN),
+        *(outputs[f].data_ptr() for f in _POST_OUT),
+        n, ph.shape[1], *(consts[f] for f in _MODEL_CONSTANTS))
+    _launch("agent_post", "csf_agent_post", args, before.device)
+    PF._count(agent_post)
+    return before.replace(**new, **{f: getattr(pre.state, f)
+                                    for f in _CHANGED}), fx, fy
+
+
+# launches since the last reset and launches recorded into CUDA-graph
+# captures, as `ops.pair_forces` counts its kernels'
+KERNELS = (agent_pre, agent_post)
+for _fn in KERNELS:
+    _fn.launches = 0
+    _fn.captured = 0

@@ -262,10 +262,9 @@ def _check_sub(block_src: int, sub: int):
                          f"and be a multiple of 8")
 
 
-def _on_cuda(name, nbr, valid, src_pack, recv_pack) -> bool:
+def _on_cuda(name, *tensors) -> bool:
     """False for CPU inputs, True for inputs on one CUDA device; raises
     for anything else."""
-    tensors = (nbr, valid, src_pack, recv_pack)
     devices = {t.device for t in tensors}
     if {d.type for d in devices} == {"cpu"}:
         return False
@@ -491,18 +490,19 @@ for _fn in KERNELS:
     _fn.captured = 0
 
 
-def reset_launches():
-    """Set every kernel's launch counter to 0."""
-    for fn in KERNELS:
+def reset_launches(kernels=KERNELS):
+    """Set the launch counter of each of `kernels` (the pair kernels, or
+    another module's counted wrappers, `ops.agent_step.KERNELS`) to 0."""
+    for fn in kernels:
         fn.launches = 0
 
 
-def launch_counts() -> tuple:
-    """Every kernel's launch counter, in `KERNELS` order."""
-    return tuple(fn.launches for fn in KERNELS)
+def launch_counts(kernels=KERNELS) -> tuple:
+    """The launch counter of each of `kernels`, in their order."""
+    return tuple(fn.launches for fn in kernels)
 
 
-def captured_counts() -> tuple:
-    """Every kernel's count of launches recorded into CUDA-graph captures
-    since the module was loaded, in `KERNELS` order."""
-    return tuple(fn.captured for fn in KERNELS)
+def captured_counts(kernels=KERNELS) -> tuple:
+    """The count of launches recorded into CUDA-graph captures since the
+    module was loaded, of each of `kernels`, in their order."""
+    return tuple(fn.captured for fn in kernels)
