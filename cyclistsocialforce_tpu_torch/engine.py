@@ -49,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from cyclistsocialforce_tpu_torch import tracing
 from cyclistsocialforce_tpu_torch.ops import agent_step as AS
 from cyclistsocialforce_tpu_torch.ops import forces as F
 from cyclistsocialforce_tpu_torch.ops import navigation as nav
@@ -865,12 +866,15 @@ class ChunkRunner:
     def _replay(self):
         self.graph.replay()
 
-    def run(self, state: AgentState, cache):
+    def run(self, state: AgentState, cache, probe=None):
         """One chunk from `state` on the table `cache`: (final state,
         record rows), both static tensors that the next `run`
-        overwrites."""
-        self._load(state, cache)
-        self._replay()
+        overwrites. `probe` (`tracing.probe`) times the copies in and
+        the replay."""
+        with tracing.span(probe, "load"):
+            self._load(state, cache)
+        with tracing.span(probe, "replay"):
+            self._replay()
         self.replays += 1
         return self.state_out, self.rows
 
@@ -1618,14 +1622,14 @@ class Engine(nn.Module):
         return state
 
     def _run_steps(self, state, steps: int, mode, rows, t0: int,
-                   t_host=None):
+                   t_host=None, probe=None):
         """`steps` steps that each build their own table (or the dense
         stage), recorded from row `t0` on; `t_host` the global step at
         the first (or None)."""
         for j in range(steps):
             cache, overflow = None, 0.0
             if self.neighbors is not None:
-                cache = self.neighbor_cache(state)
+                cache = self._rebuild(state, 1, probe)
                 overflow = cache[3].sum()
             state, fx, fy = self.step_with_forces(
                 state, cache, t_host=None if t_host is None else t_host + j)
@@ -1633,7 +1637,7 @@ class Engine(nn.Module):
         return state
 
     def _chunk_runner(self, runner_cls, state, cache, k, presorted, mode,
-                      phase=None):
+                      phase=None, probe=None):
         """This engine's `runner_cls` for the program that these
         arguments fix, built (and captured) at first use."""
         key = (presorted, mode, k, phase, state.device,
@@ -1641,9 +1645,24 @@ class Engine(nn.Module):
                      (getattr(state, f) for f in _STATE_FIELDS)),
                tuple(tuple(c.shape) for c in cache))
         if key not in self._runners:
-            self._runners[key] = runner_cls(self, state, cache, k,
-                                            presorted, mode, phase)
+            with tracing.span(probe, "capture", stream=False):
+                self._runners[key] = runner_cls(self, state, cache, k,
+                                                presorted, mode, phase)
+            tracing.count(probe, "captures", 1)
         return self._runners[key]
+
+    def _rebuild(self, state, steps: int, probe):
+        """The neighbor table for the next `steps` steps, counted where
+        `probe` records: the rebuild, the pairs its valid slots hand the
+        pair kernel over those steps, its overflowed rows."""
+        with tracing.span(probe, "rebuild"):
+            cache = self.neighbor_cache(state)
+        cfg = self.neighbors
+        tracing.count(probe, "rebuilds", 1)
+        tracing.count(probe, "table_pairs", cache[4],
+                      cfg.block * cfg.block_src * steps)
+        tracing.count(probe, "table_overflow_rows", cache[3])
+        return cache
 
     def graph_launches(self, kernels=PF.KERNELS) -> tuple:
         """Launches of each of `kernels` (the pair kernels, or
@@ -1708,15 +1727,20 @@ class Engine(nn.Module):
                 f"none (rebuild_every {k}, {n_steps} steps)")
         if graph is None:
             graph = on_card and chunked
-        return self._simulate(state, n_steps, mode,
-                              not record and not record_forces,
-                              ChunkRunner if graph else None)
+        probe = tracing.probe(state.device)
+        tracing.count(probe, "steps", n_steps)
+        with tracing.span(probe, "simulate", stream=False):
+            return self._simulate(state, n_steps, mode,
+                                  not record and not record_forces,
+                                  ChunkRunner if graph else None, probe)
 
-    def _simulate(self, state, n_steps, mode, sorted_resident, runner_cls):
+    def _simulate(self, state, n_steps, mode, sorted_resident, runner_cls,
+                  probe=None):
         """`simulate` in record mode `mode` (`record_buffers`), on the
         sorted-resident path where `sorted_resident` and the engine's
         class allow it and N is a multiple of the block; the chunks through this engine's
-        `runner_cls` (`ChunkRunner`), or with None as eager loops."""
+        `runner_cls` (`ChunkRunner`), or with None as eager loops. `probe`
+        (`tracing.probe`) records its phases."""
         k = self.neighbors.rebuild_every if self.neighbors is not None else 1
         rows = record_buffers(mode, n_steps, state)
         # a step that reads the global step clock on the host (a
@@ -1724,7 +1748,8 @@ class Engine(nn.Module):
         period = self.clock_period()
         t_host = int(state.t_glob) if period > 1 else None
         if k <= 1 or n_steps < k:
-            state = self._run_steps(state, n_steps, mode, rows, 0, t_host)
+            state = self._run_steps(state, n_steps, mode, rows, 0, t_host,
+                                    probe)
             return state, self._records(mode, rows)
 
         n_chunks, rem = divmod(n_steps, k)
@@ -1733,32 +1758,38 @@ class Engine(nn.Module):
                      and state.n % self.neighbors.block == 0)
         ident = torch.arange(state.n, device=state.device)
         for c in range(n_chunks):
-            cache = self.neighbor_cache(state)
+            cache = self._rebuild(state, k, probe)
             if presorted:
-                state = permute_state(state, cache[0])
-                ident = ident[cache[0]]
+                with tracing.span(probe, "permute"):
+                    state = permute_state(state, cache[0])
+                    ident = ident[cache[0]]
             chunk_rows = tuple(r[c * k:(c + 1) * k] for r in rows)
             t_chunk = None if t_host is None else t_host + c * k
             if runner_cls is not None:
                 runner = self._chunk_runner(
                     runner_cls, state, cache, k, presorted, mode,
-                    None if t_chunk is None else t_chunk % period)
-                state, static_rows = runner.run(state, cache)
-                for dst, src in zip(chunk_rows, static_rows):
-                    dst.copy_(src)
+                    None if t_chunk is None else t_chunk % period, probe)
+                state, static_rows = runner.run(state, cache, probe)
+                if chunk_rows:
+                    with tracing.span(probe, "copy_out"):
+                        for dst, src in zip(chunk_rows, static_rows):
+                            dst.copy_(src)
             else:
-                state = self.run_chunk(state, cache, k, presorted, mode,
-                                       chunk_rows, cache[3].sum()
-                                       if mode == "metrics" else 0.0,
-                                       t0=t_chunk)
+                with tracing.span(probe, "replay"):
+                    state = self.run_chunk(
+                        state, cache, k, presorted, mode, chunk_rows,
+                        cache[3].sum() if mode == "metrics" else 0.0,
+                        t0=t_chunk)
         if runner_cls is not None:
             # the runner's output state is overwritten by its next run
-            state = _map_state(torch.clone, state)
+            with tracing.span(probe, "copy_out"):
+                state = _map_state(torch.clone, state)
         if presorted:
-            state = permute_state(state, torch.argsort(ident))
+            with tracing.span(probe, "unpermute"):
+                state = permute_state(state, torch.argsort(ident))
         state = self._run_steps(
             state, rem, mode, rows, n_chunks * k,
-            None if t_host is None else t_host + n_chunks * k)
+            None if t_host is None else t_host + n_chunks * k, probe)
         return state, self._records(mode, rows)
 
     @staticmethod

@@ -49,12 +49,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 
 import torch
 import torch.distributed as dist
 
 from cyclistsocialforce_tpu_torch import engine as eng
+from cyclistsocialforce_tpu_torch import tracing
 from cyclistsocialforce_tpu_torch.engine import Engine, permute_state
 from cyclistsocialforce_tpu_torch.ops import forces as F
 from cyclistsocialforce_tpu_torch.ops import neighbors as NB
@@ -81,9 +81,8 @@ class Mesh:
     ppermute sends only between processes, so a group of one process
     takes no part in it.
 
-    Set `timing` to a list to time the collectives: each appends (start,
-    end) CUDA events on a card, host seconds on the CPU;
-    `collective_seconds()` sums them."""
+    Set `timing` to a list to time the collectives: each appends its
+    `tracing.Span`; `collective_seconds()` sums them."""
 
     def __init__(self, n_shards: int, shards, device, group=None,
                  axis: str = AGENT_AXIS):
@@ -104,30 +103,25 @@ class Mesh:
 
     @contextlib.contextmanager
     def _timed(self):
-        if self.timing is None:
+        """Time one collective as the span `csf::collective`: into
+        `timing` where it is a list, and into the recorder where
+        `tracing` records."""
+        probe = tracing.probe(self.device)
+        if probe is None and self.timing is None:
             yield
             return
-        if self.device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        span = (probe.span("collective") if probe is not None else
+                tracing.Span(tracing.PREFIX + "collective",
+                             tracing.current_stream(self.device)))
+        with span:
             yield
-            end.record()
-            self.timing.append((start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self.timing.append(time.perf_counter() - t0)
+        if self.timing is not None:
+            self.timing.append(span)
 
     def collective_seconds(self) -> float:
-        """The seconds the timed collectives took (CUDA events: the
-        device's timeline from each one's start to its end)."""
-        if not self.timing:
-            return 0.0
-        if isinstance(self.timing[0], float):
-            return sum(self.timing)
-        torch.cuda.synchronize(self.device)
-        return sum(a.elapsed_time(b) for a, b in self.timing) / 1e3
+        """The seconds the timed collectives took (on a card the stream
+        time from each one's start to its end, else the host's)."""
+        return sum(span.seconds() for span in self.timing or ())
 
     def _check(self, parts):
         if len(parts) != len(self.shards):

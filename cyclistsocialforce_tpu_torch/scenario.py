@@ -31,6 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from cyclistsocialforce_tpu_torch import tracing
 from cyclistsocialforce_tpu_torch.state import AgentState
 
 # --------------------------------------------------------------------------
@@ -222,11 +223,14 @@ class Scenario:
         recorded [chunk, N, 8] states, or None. The chunk's wall time,
         read after the device has finished it, goes to `metrics`."""
         n_steps = n_steps or self.chunk
+        probe = tracing.probe(self.state.device)
         t0 = time.perf_counter()
-        self.state, traj = self.engine.simulate(self.state, n_steps,
-                                                record=record)
-        if self.state.device.type == "cuda":
-            torch.cuda.synchronize(self.state.device)
+        with tracing.span(probe, "chunk", stream=False):
+            self.state, traj = self.engine.simulate(self.state, n_steps,
+                                                    record=record)
+            if self.state.device.type == "cuda":
+                with tracing.span(probe, "sync", stream=False):
+                    torch.cuda.synchronize(self.state.device)
         self.metrics.record(n_steps, time.perf_counter() - t0, self.state.n)
         self.i += n_steps
         return traj
