@@ -25,7 +25,8 @@ held by one process (`parallel.sharding`), through the culled allgather,
 ring and halo schedules and a mixed crowd's allgather, all through K1,
 and once over a one-rank NCCL group; and the demos. The first four
 paths run every step through the per-agent kernels agent_pre and
-agent_post (`csrc/agent_step.cu`) around their pair kernel. Phases, each
+agent_post (`csrc/agent_step.cu`) around their pair kernel, and
+slice_balancingrider through agent_pre and agent_post_whipple. Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
 
@@ -50,14 +51,17 @@ non-zero):
                legacy crowd, and K1's mixed form unscreened against K2's
                mixed form on the same table; then K1 main, K2 `uniform`
                and K3 at receiver blocks of 64 and 256 (BLOCK_FORMS);
-  4b. agent_step  the two per-agent kernels (`csrc/agent_step.cu`:
+  4b. agent_step  the per-agent kernels (`csrc/agent_step.cu`:
                agent_pre, the destination force, navigation FSM and pair
                packs before the pair kernel, and agent_post, the clamp,
-               bicycle2d's step and the bookkeeping after it) against their
+               bicycle2d's step and the bookkeeping after it, or on the
+               balancing rider agent_post_whipple, the clamp, the Whipple
+               step and the bookkeeping) against their
                plain versions on one step of the 100,000-rider crowd after
                a table rebuild, in cell-sorted order: twod and legacy
-               packs, per-rider columns (the slice_db engine) and the
-               crowd with its navigation spread over the FSM (`fsm_crowd`),
+               packs, per-rider columns (the slice_db engine), the
+               crowd with its navigation spread over the FSM (`fsm_crowd`)
+               and slice_balancingrider's crowd and engine (`whipple`),
                every output field bit for bit (the differing elements and
                their ulps named per field), with each kernel's and plain
                version's time (each call replayed as a CUDA graph) and
@@ -69,11 +73,11 @@ non-zero):
                recorded) beside the 20 of the capture's warm-up chunk that
                K1's wrapper counted, a finite state, no overflow at t =
                end, the time of the first run and of the capture in it; on
-               the four paths of FUSED_PATHS as many launches of agent_pre
-               and of agent_post as of the pair kernel, on every other path
-               none; a device trace of 40 more graphed steps, which must
-               show 40 runs of K1's kernel (and of agent_pre and
-               agent_post) and none of K2's or K3's (a trace for
+               the paths of FUSED_PATHS as many launches of agent_pre
+               and of their post kernel as of the pair kernel, on every
+               other path none; a device trace of 40 more graphed steps,
+               which must show 40 runs of K1's kernel (and of agent_pre and
+               the post kernel) and none of K2's or K3's (a trace for
                which Kineto's log reports lost records, or which shows
                fewer runs of the path's kernel than the replays launched
                and nothing else (TRACE_UNDERCOUNT), is void and taken
@@ -110,7 +114,8 @@ non-zero):
                riders (`bench.py:main_heavy`:
                BalancingRiderParams.create(gains_poly=16), `prepare`,
                position ring of 8, the main path's NeighborConfig): 240 K1
-               launches, sorted-resident, the share of fallen riders
+               launches and as many of agent_pre and agent_post_whipple,
+               sorted-resident, the share of fallen riders
                (|roll| > FALLEN_ROLL) reported;
   9f. slice_stochastic, slice_stochastic_exact  240 steps of the 100,000
                riders as stochastic balancing riders
@@ -310,8 +315,9 @@ sharded schedule under `paths` too), the block-64 and block-256
 forms under `blocks`,
 errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
-kernel's, same work, same call), agent_pre and agent_post with their
-launches on the fused paths, errors, times and bounds, the nvidia-smi
+kernel's, same work, same call), agent_pre, agent_post and
+agent_post_whipple with their launches on the fused paths, errors, times,
+bounds and shares of them, the nvidia-smi
 line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
@@ -617,10 +623,13 @@ DEMOS_LEFT_OUT = {
 DEMO_TIMEOUT = 300
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
-# the paths whose every step goes through agent_pre, the pair kernel and
-# agent_post (`agent_step.fused_form`); every other path launches neither
-FUSED_PATHS = ("slice", "slice_unrolled", "slice_db", "slice_legacy")
-# what the two per-agent kernels replace: the XLA program of a step, which
+# the paths whose every step goes through agent_pre, the pair kernel and a
+# post kernel (`agent_step.fused_form`), by the post kernel's name; every
+# other path launches none of them
+FUSED_PATHS = {"slice": "agent_post", "slice_unrolled": "agent_post",
+               "slice_db": "agent_post", "slice_legacy": "agent_post",
+               "slice_balancingrider": "agent_post_whipple"}
+# what the per-agent kernels replace: the XLA program of a step, which
 # fuses this chain (no Pallas kernel computes it)
 JAX_STEP = "cyclistsocialforce_tpu/"
 AGENT_REPLACES = {
@@ -629,13 +638,18 @@ AGENT_REPLACES = {
                  "fused by XLA",
     "agent_post": JAX_STEP + "ops/forces.py:238 (clamp_add_dest), "
                   "models/bicycle2d.py:34-87 (step) and engine.py:1153-1198 "
-                  "(finish_step), fused by XLA"}
+                  "(finish_step), fused by XLA",
+    "agent_post_whipple": JAX_STEP + "ops/forces.py:238 (clamp_add_dest), "
+                          "models/balancingrider.py (step, gains_poly), "
+                          "ops/smallmat.py (solve_small) and "
+                          "engine.py:1153-1198 (finish_step), fused by XLA"}
 # agent_step: the FSM-spread crowd's queue length and draws (fsm_crowd)
 FSM_QUEUE, FSM_SEED, FSM_INACTIVE = 4, 11, 0.02
 # FP32 operations a row of each per-agent kernel does, counted from
-# csrc/agent_step.cu (a math-library call as 20); the bytes bound them
-# ~25x over
-OPS_AGENT = {"agent_pre": 160, "agent_post": 300}
+# csrc/agent_step.cu (a math-library call as 20; agent_post_whipple:
+# benchmark/roofline/step.py's 560 a balancing rider less the ~100 of the
+# destination force and FSM); the bytes bound them 10-25x over
+OPS_AGENT = {"agent_pre": 160, "agent_post": 300, "agent_post_whipple": 460}
 
 
 def emit(phase, **kw):
@@ -1298,7 +1312,14 @@ def agent_step_bytes(name, pre, state, engine):
     memories and step counter, the activity flag, both forces and the
     position ring but the slot it writes; for an active row also
     agent_pre's destination (x, y), pointer and the queue length; and
-    writes the new state, the ring, the counter and the applied force."""
+    writes the new state, the ring, the counter and the applied force.
+    agent_post_whipple reads, for every row, the pre-step state, the bike
+    frame's seven latents, the gains row (dyn_gains, all of it: the
+    columns past the gains are copied), the step counter, the activity
+    flag, both forces and the position ring but the slot it writes; for
+    an inactive row its speed dyn_v; and writes the state, the latents,
+    dyn_v, the gains row, the ring, the counter and the applied force
+    (the constants, 2 KB, read once a block from L2, are not counted)."""
     import torch
 
     n, hist = state.n, state.hist_len
@@ -1314,30 +1335,53 @@ def agent_step_bytes(name, pre, state, engine):
         if tables:
             nbytes += 4 * n + sum(min(n, t.numel()) * t.element_size()
                                   for t in tables)
-    else:
+    elif name == "agent_post":
         n_act = int(state.active.sum())
         nbytes = (n * (32 + 8 + 8 + 4 + 1 + 16 + 8 * (hist - 1))   # read
                   + n_act * (8 + 4 + 4)
                   + n * (32 + 8 + 8 + 4 + 8 * hist + 8)          # written
                   + 8)                              # t_glob, both ways
+    else:
+        gains = 4 * state.dyn_gains.shape[1]
+        n_idle = int((~state.active).sum())
+        nbytes = (n * (32 + 28 + gains + 4 + 1 + 16 + 8 * (hist - 1))  # read
+                  + n_idle * 4
+                  + n * (32 + 28 + 4 + gains + 4 + 8 * hist + 8)  # written
+                  + 8)                              # t_glob, both ways
     return nbytes
 
 
+# the state fields each post kernel writes
+POST_FIELDS = {"agent_post": ("s", "pid_e", "pid_i", "i", "t_glob",
+                              "pos_hist"),
+               "agent_post_whipple": ("s", "dyn_x", "dyn_v", "dyn_gains",
+                                      "i", "t_glob", "pos_hist")}
+# the agent_step cases whose kernels are timed, and what the kernels'
+# lines keep of them
+AGENT_TIMED = ("twod", "legacy", "whipple")
+AGENT_KEYS = ("max_abs_err", "ms", "plain_ms", "eager_ms", "plain_eager_ms",
+              "bound_ms", "bound_by", "share")
+
+
 def phase_agent_step(cases):
-    """agent_pre and agent_post against their plain versions on one step
+    """agent_pre and the engine's post kernel (`agent_step.post_step`:
+    agent_post, or agent_post_whipple on a balancing rider) against their
+    plain versions on one step
     of each of `cases` (form -> (engine, state)): the state after a table
     rebuild, in the table's cell-sorted order as the main path holds it.
     agent_pre on the state, and again with a block of pad rows past the
     crowd (`agent_pre_pad`: the packs as `Engine.fused_step` pads a crowd
     that is not a whole number of blocks); the pair kernel on the plain
-    version's packs; agent_post on the plain version's outputs and those
-    forces. Every output field compared bit for bit (floats by their
+    version's packs; the post kernel on the plain version's outputs and
+    those forces. Every output field compared bit for bit (floats by their
     bits, integer and boolean fields exactly): the count of differing
-    elements and their largest distance in ulps per field. On the first two cases the times
+    elements and their largest distance in ulps per field. On the cases
+    of AGENT_TIMED the times
     of both kernels and their plain versions, each call replayed as a
     CUDA graph (`graphed_ms`: 50 and 5 replays; "eager_ms" and
-    "plain_eager_ms" the calls as such, with the host's time), and their
-    bounds. Raises where a kernel disagrees."""
+    "plain_eager_ms" the calls as such, with the host's time), their
+    bounds and the bound's share of the graphed time. Raises where a
+    kernel disagrees."""
     import torch
 
     from cyclistsocialforce_tpu_torch.engine import permute_state
@@ -1345,14 +1389,16 @@ def phase_agent_step(cases):
 
     changed = ("dest", "destpointer", "znav", "znavparams", "i_stopsignal",
                "d_stopsignal")
-    post_fields = ("s", "pid_e", "pid_i", "i", "t_glob", "pos_hist")
     out, bad = {}, []
-    for k, (form, (engine, state)) in enumerate(cases.items()):
+    for form, (engine, state) in cases.items():
         cache = engine.neighbor_cache(state)
         st = permute_state(state, cache[0])
         n = npad = st.n
         if not AS.fused_form(engine, st):
             raise AssertionError(f"agent_step {form}: not the fused form")
+        post = AS.post_step(engine)
+        post_name = post.__name__
+        post_ref = getattr(AS, post_name + "_ref")
         pre_k = AS.agent_pre(engine, st, npad)
         pre_r = AS.agent_pre_ref(engine, st, npad)
         ragged = engine.pair_rows(n + 1)
@@ -1362,8 +1408,8 @@ def phase_agent_step(cases):
                                            pre_r.src_pack, pre_r.recv_pack,
                                            cache[4])
         frx, fry = pair[0, :n], pair[1, :n]
-        post_k, fx_k, fy_k = AS.agent_post(engine, st, pre_r, frx, fry)
-        post_r, fx_r, fy_r = AS.agent_post_ref(engine, st, pre_r, frx, fry)
+        post_k, fx_k, fy_k = post(engine, st, pre_r, frx, fry)
+        post_r, fx_r, fy_r = post_ref(engine, st, pre_r, frx, fry)
         torch.cuda.synchronize()
         fields = {
             "agent_pre": {"fdx": (pre_k.fdx, pre_r.fdx),
@@ -1374,9 +1420,9 @@ def phase_agent_step(cases):
                                  getattr(pre_r.state, f)) for f in changed}},
             "agent_pre_pad": {f: (getattr(pad_k, f), getattr(pad_r, f))
                               for f in ("src_pack", "recv_pack")},
-            "agent_post": {"fx": (fx_k, fx_r), "fy": (fy_k, fy_r),
-                           **{f: (getattr(post_k, f), getattr(post_r, f))
-                              for f in post_fields}}}
+            post_name: {"fx": (fx_k, fx_r), "fy": (fy_k, fy_r),
+                        **{f: (getattr(post_k, f), getattr(post_r, f))
+                           for f in POST_FIELDS[post_name]}}}
         line = {"form": form, "n": n, "pad_rows": ragged - n,
                 "pair_family": engine.pair_family,
                 "per_rider_columns": [
@@ -1398,20 +1444,21 @@ def phase_agent_step(cases):
             line[name]["finite"] = finite
             if not finite:
                 bad.append(f"{form} {name}: non-finite")
-        if k < 2:
+        if form in AGENT_TIMED:
             calls = {
                 "agent_pre": (lambda: AS.agent_pre(engine, st, npad),
                               lambda: AS.agent_pre_ref(engine, st, npad)),
-                "agent_post": (
-                    lambda: AS.agent_post(engine, st, pre_r, frx, fry),
-                    lambda: AS.agent_post_ref(engine, st, pre_r, frx, fry))}
+                post_name: (
+                    lambda: post(engine, st, pre_r, frx, fry),
+                    lambda: post_ref(engine, st, pre_r, frx, fry))}
             for name, (kern, plain) in calls.items():
                 nbytes = agent_step_bytes(name, pre_r, st, engine)
                 floors = {"fp32": 1e3 * OPS_AGENT[name] * n / PEAK_FLOPS,
                           "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
                 floor = max(floors, key=floors.get)
+                kern_ms = graphed_ms(kern, reps=50)
                 line[name].update(
-                    ms=graphed_ms(kern, reps=50),
+                    ms=kern_ms, share=floors[floor] / kern_ms,
                     plain_ms=graphed_ms(plain, reps=5),
                     eager_ms=cuda_ms(kern, reps=50),
                     plain_eager_ms=cuda_ms(plain, reps=5),
@@ -1636,8 +1683,9 @@ KERNEL_SYMBOLS = {"pair_forces_neighbors": "pair_forces_twod_kernel",
                   "pair_forces_neighbors_unrolled":
                       "pair_forces_unrolled_kernel",
                   "pair_forces_neighbors_db": "pair_forces_db_kernel",
-                  "agent_pre": "agent_pre_kernel",
-                  "agent_post": "agent_post_kernel"}
+                  "agent_pre": "agent_pre_kernel(",
+                  "agent_post": "agent_post_kernel(",
+                  "agent_post_whipple": "agent_post_kernel_whipple("}
 
 
 # Kineto's own record of lost device activity: the profiler's log line when
@@ -1724,15 +1772,17 @@ def phase_slice(phase, engine, state, kernel, report=None):
     a function of the run's final state whose dict goes into the run's
     line. `kernel` None: a path that launches no pair kernel (the generic
     culled path), held to none launched and none in the trace. A path of
-    FUSED_PATHS launches agent_pre and agent_post as often as its pair
-    kernel, in the counts and in the trace; every other path neither."""
+    FUSED_PATHS launches agent_pre and its post kernel as often as its pair
+    kernel, in the counts and in the trace; every other path none of
+    them."""
     import torch
 
     from cyclistsocialforce_tpu_torch.ops import agent_step as AS
     from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 
     counted = PF.KERNELS + AS.KERNELS
-    fused = AS.KERNELS if phase in FUSED_PATHS else ()
+    fused = ((AS.agent_pre, getattr(AS, FUSED_PATHS[phase]))
+             if phase in FUSED_PATHS else ())
 
     def named(counts):
         return dict(zip((fn.__name__ for fn in counted), counts))
@@ -3647,7 +3697,8 @@ def main():
     agent = timed("agent_step", phase_agent_step, {
         "twod": (engine, state), "legacy": (leg_engine, state),
         "columns": (db_engine, state), "twod_fsm": (engine, fsm_state),
-        "legacy_fsm": (leg_engine, fsm_state)})
+        "legacy_fsm": (leg_engine, fsm_state),
+        "whipple": (br_engine, br_state)})
     del fsm_state
     paths = {"slice": (engine, state),
              "slice_unrolled": (make_engine(backend="pallas_unrolled"),
@@ -3882,17 +3933,20 @@ def kernels_line(launches, kernel, forms, vs_k1, kernel_of, agent):
          "blocks": blocks("k3")},
         *({"name": name, "route": "cuda", "source": SRC + "agent_step.cu",
            "replaces": AGENT_REPLACES[name],
-           "launches": launches["slice"][2 + i][0],
-           "warm_up_launches": launches["slice"][2 + i][1],
-           **{key: agent["twod"][name][key] for key in (
-               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+           "launches": launches[main][2 + i][0],
+           "warm_up_launches": launches[main][2 + i][1],
+           **{key: agent[form][name][key] for key in AGENT_KEYS},
            "library_ms": None,
            "paths": {path: {"launches": launches[path][2 + i][0],
                             "warm_up_launches": launches[path][2 + i][1]}
-                     for path in FUSED_PATHS},
-           "legacy": {key: agent["legacy"][name][key] for key in (
-               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
-          for i, name in enumerate(("agent_pre", "agent_post"))),
+                     for path, post in FUSED_PATHS.items()
+                     if name in ("agent_pre", post)},
+           **({"legacy": {key: agent["legacy"][name][key]
+                          for key in AGENT_KEYS}} if form == "twod" else {})}
+          for i, (name, main, form) in enumerate((
+              ("agent_pre", "slice", "twod"),
+              ("agent_post", "slice", "twod"),
+              ("agent_post_whipple", "slice_balancingrider", "whipple")))),
     ]}), flush=True)
 
 

@@ -1,5 +1,5 @@
-// One step of a bicycle2d engine's per-agent chain, in two kernels around
-// the pair kernel (K1, K2 or K3):
+// One step of a bicycle2d or a balancing-rider engine's per-agent chain,
+// in two kernels around the pair kernel (K1, K2 or K3):
 //
 //   agent_pre   the destination queue update, the navigation FSM and the
 //               straight-line destination force, then the pair packs
@@ -9,7 +9,16 @@
 //   agent_post  the repulsion clamped to the destination force's magnitude
 //               and added to it, bicycle2d's P control and kinematics, and
 //               the bookkeeping of the step (inactive rows held, step
-//               counters, the position ring).
+//               counters, the position ring);
+//   agent_post_kernel_whipple
+//               the balancing rider's counterpart of agent_post: the same
+//               clamp, then the linearised Whipple-Carvallo step with its
+//               gains from a piecewise polynomial over speed, then the same
+//               bookkeeping. It shares no logic with agent_post (the two
+//               models differ in the state they keep and in the work: a
+//               5x5 solve against a kinematic update), only the
+//               __forceinline__ helpers below. Its design and its bound
+//               are in the note above the kernel.
 //
 // Replaces the per-agent part of the program that XLA compiles for one
 // step of the JAX package's chunk (cyclistsocialforce_tpu/engine.py
@@ -117,6 +126,42 @@ struct AgentPostArgs {
   float neg_delta_max, v_max_lo, v_max_hi, inv_l;
 };
 
+struct AgentPostWhippleArgs {
+  const float* s;               // [n, 8], the pre-step state ...
+  const float* dyn_x;           // [n, 7] the bike frame's latents
+  const float* dyn_v;           // [n]
+  const float* dyn_gains;       // [n, gains], K in columns 0-4
+  const int* i_step;            // [n]
+  const int* t_glob;            // [1]
+  const float* pos_hist;        // [n, hist, 2]
+  const unsigned char* active;  // [n]
+  const float* fdx;             // agent_pre's destination force ...
+  const float* fdy;
+  const float* frx;             // ... and the pair stage's sums, [n] each
+  const float* fry;
+  const float* a0;              // [5, 5]: A(v) = a0 + v a1 + v^2 a2
+  const float* a1;
+  const float* a2;
+  const float* b;               // [5], the steer-torque input
+  const float* coeffs;          // [5 * deg1, segs], the gains' fit, with
+                                // strides coeff_row and coeff_seg
+  float* s_out;
+  float* dyn_x_out;
+  float* dyn_v_out;
+  float* dyn_gains_out;
+  int* i_out;
+  int* t_out;
+  float* pos_hist_out;
+  float* fx;                    // the applied force, every row
+  float* fy;
+  int n, hist, gains, deg1, segs, coeff_row, coeff_seg;
+  // Python floats cast to float32: t_s and float(t_s / 2.0) (in double),
+  // k_p_v and the limits; the fit's lower edge, the float32 reciprocal of
+  // its segment width and float(segs - 1e-6), its clamp
+  float t_s, half_t_s, k_p_v, a_max_lo, a_max_hi, v_max_lo, v_max_hi;
+  float poly_lo, inv_seg_dv, x_max;
+};
+
 }  // namespace csf
 
 namespace {
@@ -186,6 +231,20 @@ __device__ __forceinline__ float pid_p(float e, float e_prev, float i_prev,
   const float d = __fmul_rn(__fmul_rn(0.0f, __fsub_rn(e_prev, e)), inv_t_s);
   *i_new = __fadd_rn(i_prev, __fmul_rn(__fmul_rn(0.0f, e), t_s));
   return __fadd_rn(__fadd_rn(__fmul_rn(kp, e), *i_new), d);
+}
+
+// ops/forces.py clamp_add_dest (utils/angles.py limit_magnitude): the
+// repulsion (frx, fry) clamped to the destination force's magnitude and
+// added to it (agent_post writes the same operations out inline)
+__device__ __forceinline__ void clamp_add_dest(float fdx, float fdy,
+                                               float frx, float fry,
+                                               float* fx, float* fy) {
+  const float r = norm_rn(fdx, fdy);
+  const float rin = norm_rn(frx, fry);
+  const float scale =
+      rin > r ? __fdiv_rn(r, rin > 0.0f ? rin : 1.0f) : 1.0f;
+  *fx = __fadd_rn(__fmul_rn(frx, scale), fdx);
+  *fy = __fadd_rn(__fmul_rn(fry, scale), fdy);
 }
 
 // A row's pack columns 4-10 (the field's parameters, amplitude first) and
@@ -439,6 +498,337 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The balancing rider's step after the pair kernel.
+//
+// Replaces no TPU kernel: the JAX package's XLA program fuses this chain
+// (cyclistsocialforce_tpu/models/balancingrider.py step, ops/smallmat.py
+// solve_small, ops/piecewise.py, engine.py finish_step), which the port ran
+// as ~500 PyTorch kernels a step, every [N, 5, 5] intermediate a round trip
+// through memory.
+//
+// What bounds it. One thread per row reads ~190 bytes (the state, the
+// bike frame's latents, the cached gains, the four forces, the counter and
+// the position ring) and writes ~190 (the same fields out of place: the
+// ring copied with one slot new) against ~560 FP32 operations: ~0.011 ms
+// of HBM traffic at 100,000 riders on an H100's 3.35 TB/s and ~0.001 ms of
+// FP32 work, so bytes bound it. The design keeps the work from touching
+// memory at all: A(v) - B K, the 5x6 augmented matrix and its elimination
+// live in registers, unrolled over the static size (no local memory: the
+// pivot's row swap is a select per row, not an indexed store), and the
+// constants a thread reads at a speed of its own (the fit's coefficients
+// at its segment, A0, A1, A2, B) are staged once per block in shared
+// memory, so each row's memory traffic is its own fields, read and
+// written once. The row-major fields (the state, the latents, the gains
+// rows, the position ring) move between memory and a warp's 32 rows
+// through shared memory or lane by lane over the rows' contiguous span,
+// so each access of the warp is whole 128-byte lines: a thread storing
+// its own 32-byte row column by column would write a partial sector per
+// store, eight times the traffic between L1 and L2.
+//
+// Exactness, as agent_post's: each operation is the plain PyTorch
+// version's, rounded as its CUDA kernel rounds, in its order (the file's
+// header); the build does not contract (-fmad=false). torch.sum over the
+// five products of a matvec row adds in the order of PyTorch's CUDA
+// reduction (`sum5`); the pivot is torch.argmax's, the first of equal
+// magnitudes; a row picked by a one-hot sum is normalised as that sum
+// normalises it (-0 + 0 = +0).
+
+// torch.sum over a contiguous axis of 5 (ATen's Reduce.cuh): four lanes
+// an output, lane l adding elements l and l + 4 into an accumulator that
+// starts at +0, then the lanes combined by a warp shuffle of offsets 2,
+// then 1
+__device__ __forceinline__ float sum5(const float* p) {
+  const float l0 = __fadd_rn(__fadd_rn(0.0f, p[0]), __fadd_rn(0.0f, p[4]));
+  const float l1 = __fadd_rn(0.0f, p[1]);
+  const float l2 = __fadd_rn(0.0f, p[2]);
+  const float l3 = __fadd_rn(0.0f, p[3]);
+  return __fadd_rn(__fadd_rn(l0, l2), __fadd_rn(l1, l3));
+}
+
+// ops/piecewise.py eval_piecewise_poly: the five gains at speed v from
+// the fit's coefficient matrix c ([5 * deg1, segs], staged), the segment
+// clamped as an integer and each output a Horner chain
+__device__ __forceinline__ void gains_poly(const AgentPostWhippleArgs& a,
+                                           const float* c, float v,
+                                           float* k) {
+  float x = __fmul_rn(__fsub_rn(v, a.poly_lo), a.inv_seg_dv);
+  // torch.clamp(x, 0, segs - 1e-6): min(max(x, lo), hi), NaN passes
+  x = isnan(x) ? x : fminf(fmaxf(x, 0.0f), a.x_max);
+  int seg = isnan(x) ? 0 : static_cast<int>(floorf(x));
+  seg = seg < 0 ? 0 : (seg > a.segs - 1 ? a.segs - 1 : seg);
+  const float u = __fsub_rn(x, static_cast<float>(seg));
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    const float* cm = c + static_cast<size_t>(a.deg1) * m * a.segs + seg;
+    float acc = cm[static_cast<size_t>(a.deg1 - 1) * a.segs];
+    for (int d = a.deg1 - 2; d >= 0; --d) {
+      acc = __fadd_rn(__fmul_rn(acc, u), cm[static_cast<size_t>(d) * a.segs]);
+    }
+    k[m] = acc;
+  }
+}
+
+// Per-warp staging in shared memory, after the block's constants: a
+// [32, kLd] buffer for a row-major field of up to 8 columns (the odd
+// stride lets each lane read or write its own row without bank
+// conflicts), then the 32 rows' gains and their new positions.
+constexpr int kWarps = kThreads / 32;
+constexpr int kLd = 9;
+constexpr int kWarpFloats = 32 * kLd + 32 * 5 + 32 * 2;
+
+// The warp's rows [r0, r0 + rows) of a row-major [n, W] field, between
+// global memory (`g`, row r0's first element) and the staging buffer:
+// lane l moves elements l, l + 32, ... of the rows' contiguous span, so
+// each access of the warp is 128 contiguous bytes.
+template <int W>
+__device__ __forceinline__ void warp_load(float* buf, const float* g,
+                                          int rows, int lane) {
+  for (int e = lane; e < rows * W; e += 32) buf[e / W * kLd + e % W] = g[e];
+}
+
+template <int W>
+__device__ __forceinline__ void warp_store(float* g, const float* buf,
+                                           int rows, int lane) {
+  for (int e = lane; e < rows * W; e += 32) g[e] = buf[e / W * kLd + e % W];
+}
+
+// The row of element e of a span of rows of w columns (inv_w = 1 / w,
+// rounded): (e + 0.5) / w lies at least 0.5 / w from an integer, far
+// beyond float's error for spans of a warp's rows.
+__device__ __forceinline__ int row_of(int e, float inv_w) {
+  return static_cast<int>((static_cast<float>(e) + 0.5f) * inv_w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    agent_post_kernel_whipple(const AgentPostWhippleArgs a) {
+  extern __shared__ float sh[];
+  const int ncoef = 5 * a.deg1 * a.segs;
+  const int lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * kThreads + threadIdx.x - lane;  // warp's row 0
+  const int rows = min(32, a.n - r0);   // the warp's rows (<= 0: none)
+  const int j = r0 + lane;
+  const bool row = lane < rows;
+  // a lane past the last row computes on the warp's row 0 and stores
+  // nothing
+  const int jr = row ? j : r0;
+  const int me = row ? lane : 0;
+  float* buf = sh + 80 + ncoef + (threadIdx.x / 32) * kWarpFloats;
+  float* kbuf = buf + 32 * kLd;
+  float* pbuf = kbuf + 32 * 5;
+
+  // The row's inputs, loaded before anything is stored (a load the
+  // compiler cannot move above a store would stand alone in the row's
+  // chain), in flight while the block stages the constants.
+  float s[8], x[7], kc[5], fdx, fdy, frx, fry, dyn_v;
+  int i_step;
+  bool act;
+  if (rows > 0) {
+    warp_load<8>(buf, a.s + static_cast<size_t>(r0) * 8, rows, lane);
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 8; ++c) s[c] = buf[me * kLd + c];
+    __syncwarp();
+    warp_load<7>(buf, a.dyn_x + static_cast<size_t>(r0) * 7, rows, lane);
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < 7; ++c) x[c] = buf[me * kLd + c];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      kc[c] = a.dyn_gains[static_cast<size_t>(jr) * a.gains + c];
+    }
+    fdx = a.fdx[jr];
+    fdy = a.fdy[jr];
+    frx = a.frx[jr];
+    fry = a.fry[jr];
+    dyn_v = a.dyn_v[jr];
+    i_step = a.i_step[jr];
+    act = a.active[jr];
+  }
+  const int t_glob = a.t_glob[0];
+
+  // the constants, once per block: A0, A1, A2 (25 each), B (5), the fit
+  // ([5 * deg1, segs], row-major)
+  for (int k = threadIdx.x; k < 80 + ncoef; k += kThreads) {
+    const int e = k - 80;
+    sh[k] = k < 25   ? a.a0[k]
+            : k < 50 ? a.a1[k - 25]
+            : k < 75 ? a.a2[k - 50]
+            : k < 80 ? a.b[k - 75]
+                     : a.coeffs[static_cast<size_t>(e / a.segs) * a.coeff_row +
+                                static_cast<size_t>(e % a.segs) * a.coeff_seg];
+  }
+  __syncthreads();
+  const float* A0 = sh;
+  const float* A1 = sh + 25;
+  const float* A2 = sh + 50;
+  const float* B = sh + 75;
+
+  if (j == 0) a.t_out[0] = t_glob + 1;
+  if (rows <= 0) return;
+  const float inv_two_pi = __fdiv_rn(1.0f, kTwoPi);
+
+  float fx, fy;
+  clamp_add_dest(fdx, fdy, frx, fry, &fx, &fy);
+
+  // models/balancingrider.py step: the speed's P control and Euler step
+  const float v_old = s[3];
+  const float acc = thresh(__fmul_rn(a.k_p_v, __fsub_rn(norm_rn(fx, fy),
+                                                        v_old)),
+                           a.a_max_lo, a.a_max_hi);
+  const float v_new = thresh(__fadd_rn(v_old, __fmul_rn(a.t_s, acc)),
+                             a.v_max_lo, a.v_max_hi);
+  const float v_mid = __fmul_rn(__fadd_rn(v_new, v_old), 0.5f);
+
+  // the commanded yaw in the bike frame
+  const float psi_f = limit_angle(atan2f(-fy, fx), inv_two_pi);
+  const float psi_c =
+      __fadd_rn(x[4], angle_difference(x[4], psi_f, inv_two_pi));
+
+  // the gains: the fit at the midpoint speed where the speed changed,
+  // else the cache
+  float k[5];
+  if (v_new != v_old) {
+    gains_poly(a, sh + 80, v_mid, k);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 5; ++c) k[c] = kc[c];
+  }
+
+  // Acl = A(v_mid) - B K; the augmented matrix [I - h/2 Acl | rhs] with
+  // rhs = x5 + h/2 Acl x5 + h B (K_4 psi_c)
+  const float vv = __fmul_rn(v_mid, v_mid);
+  const float u = __fmul_rn(k[4], psi_c);
+  float m[5][6];
+#pragma unroll
+  for (int r = 0; r < 5; ++r) {
+    float acl[5], prod[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+      const int e = 5 * r + c;
+      const float av = __fadd_rn(__fadd_rn(A0[e], __fmul_rn(v_mid, A1[e])),
+                                 __fmul_rn(vv, A2[e]));
+      acl[c] = __fsub_rn(av, __fmul_rn(B[r], k[c]));
+      prod[c] = __fmul_rn(acl[c], x[c]);
+      m[r][c] = __fsub_rn(r == c ? 1.0f : 0.0f, __fmul_rn(a.half_t_s, acl[c]));
+    }
+    m[r][5] = __fadd_rn(__fadd_rn(x[r], __fmul_rn(a.half_t_s, sum5(prod))),
+                        __fmul_rn(a.t_s, __fmul_rn(B[r], u)));
+  }
+
+  // ops/smallmat.py solve_small: partial pivoting, then elimination below
+  // the pivot (every row updated, as the plain version's whole-matrix
+  // update), then back substitution
+#pragma unroll
+  for (int kk = 0; kk < 5; ++kk) {
+    int p = kk;
+    float best = fabsf(m[kk][kk]);
+#pragma unroll
+    for (int r = kk + 1; r < 5; ++r) {
+      const float c = fabsf(m[r][kk]);
+      if (c > best || (isnan(c) && !isnan(best))) {
+        p = r;
+        best = c;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      float vp = m[kk][c];
+#pragma unroll
+      for (int r = kk + 1; r < 5; ++r) vp = p == r ? m[r][c] : vp;
+      const float vk = __fadd_rn(m[kk][c], 0.0f);
+      m[kk][c] = __fadd_rn(vp, 0.0f);
+#pragma unroll
+      for (int r = kk + 1; r < 5; ++r) m[r][c] = p == r ? vk : m[r][c];
+    }
+    float f[5], pivot_row[6];
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      f[r] = r > kk ? __fdiv_rn(m[r][kk], m[kk][kk]) : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) pivot_row[c] = m[kk][c];
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        m[r][c] = __fsub_rn(m[r][c], __fmul_rn(f[r], pivot_row[c]));
+      }
+    }
+  }
+  float xn[5];
+#pragma unroll
+  for (int r = 4; r >= 0; --r) {
+    float acc_r = m[r][5];
+#pragma unroll
+    for (int c = r + 1; c < 5; ++c) {
+      acc_r = __fsub_rn(acc_r, __fmul_rn(m[r][c], xn[c]));
+    }
+    xn[r] = __fdiv_rn(acc_r, m[r][r]);
+  }
+
+  // the positions at the midpoint yaw
+  const float psi_mid = __fmul_rn(__fadd_rn(x[4], xn[4]), 0.5f);
+  const float hv = __fmul_rn(a.t_s, v_mid);
+  const float px = __fadd_rn(x[5], __fmul_rn(hv, cosf(psi_mid)));
+  const float py = __fadd_rn(x[6], __fmul_rn(hv, sinf(psi_mid)));
+
+  // models/balancingrider.py _finish (the frame flip) and engine.py
+  // finish_step: an inactive row holds its pre-step state. The row-major
+  // fields go out through the warp's buffer, a row's new gains and
+  // positions through kbuf and pbuf.
+  const float moved[8] = {px,
+                          -py,
+                          -limit_angle(xn[4], inv_two_pi),
+                          v_new,
+                          -limit_angle(xn[1], inv_two_pi),
+                          limit_angle(xn[0], inv_two_pi),
+                          -xn[3],
+                          xn[2]};
+  const float latents[7] = {xn[0], xn[1], xn[2], xn[3], xn[4], px, py};
+  if (row) {
+    a.fx[j] = fx;
+    a.fy[j] = fy;
+    a.dyn_v_out[j] = act ? v_new : dyn_v;
+    a.i_out[j] = i_step + (act ? 1 : 0);
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) buf[lane * kLd + c] = act ? moved[c] : s[c];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) kbuf[lane * 5 + c] = act ? k[c] : kc[c];
+  pbuf[2 * lane] = act ? px : s[0];
+  pbuf[2 * lane + 1] = act ? -py : s[1];
+  __syncwarp();
+  warp_store<8>(a.s_out + static_cast<size_t>(r0) * 8, buf, rows, lane);
+  __syncwarp();
+#pragma unroll
+  for (int c = 0; c < 7; ++c) buf[lane * kLd + c] = act ? latents[c] : x[c];
+  __syncwarp();
+  warp_store<7>(a.dyn_x_out + static_cast<size_t>(r0) * 7, buf, rows, lane);
+
+  // the gains rows: columns 0-4 the new gains, the others copied
+  const int g = a.gains;
+  const float inv_g = __frcp_rn(static_cast<float>(g));
+  const float* dg = a.dyn_gains + static_cast<size_t>(r0) * g;
+  float* go = a.dyn_gains_out + static_cast<size_t>(r0) * g;
+  for (int e = lane; e < rows * g; e += 32) {
+    const int r = row_of(e, inv_g);
+    const int c = e - r * g;
+    go[e] = c < 5 ? kbuf[r * 5 + c] : dg[e];
+  }
+  // the position ring, copied with its slot (t_glob + 1) % H written
+  int slot = (t_glob + 1) % a.hist;
+  slot = slot < 0 ? slot + a.hist : slot;
+  const int w = 2 * a.hist;
+  const float inv_w = __frcp_rn(static_cast<float>(w));
+  const float* ph = a.pos_hist + static_cast<size_t>(r0) * w;
+  float* po = a.pos_hist_out + static_cast<size_t>(r0) * w;
+  for (int e = lane; e < rows * w; e += 32) {
+    const int r = row_of(e, inv_w);
+    const int c = e - r * w;
+    po[e] = c / 2 == slot ? pbuf[2 * r + c % 2] : ph[e];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -470,6 +860,27 @@ int csf_agent_post(const csf::AgentPostArgs* args, int device, void* stream) {
   const int blocks = args->n > 0 ? (args->n + kThreads - 1) / kThreads : 1;
   agent_post_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(*args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// agent_post_kernel_whipple over args->n rows (at least one block: it
+// advances t_glob). Shared memory: the constants, 80 + 5 * deg1 * segs
+// floats, and each warp's staging, within the 48 KB a launch takes
+// without opting in.
+int csf_agent_post_whipple(const csf::AgentPostWhippleArgs* args, int device,
+                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem =
+      sizeof(float) * (80 + 5 * static_cast<size_t>(args->deg1) * args->segs +
+                       kWarps * kWarpFloats);
+  if (args->n < 0 || args->hist <= 0 || args->gains < 5 ||
+      args->deg1 < 1 || args->segs < 1 || smem > 48 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = args->n > 0 ? (args->n + kThreads - 1) / kThreads : 1;
+  agent_post_kernel_whipple<<<blocks, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,10 +25,10 @@ shared space, advanced step by step --
 
 Every stage is a batched function over the [N] agent axis. The culled
 pair stage runs its CUDA kernel on CUDA tensors and its plain version on
-CPU tensors: the state's device selects the backend. For a bicycle2d
-engine of the fused form on a CUDA state (`agent_step.fused_form`),
-stages 1 and 3-5 run as two kernels around the pair kernel
-(`ops.agent_step`).
+CPU tensors: the state's device selects the backend. For a bicycle2d or
+balancing-rider engine of the fused form on a CUDA state
+(`agent_step.fused_form`), stages 1 and 3-5 run as two kernels around the
+pair kernel (`ops.agent_step`).
 
 `Engine.simulate` is the step loop. The JAX package compiles a chunk of
 `rebuild_every` steps (its inner `lax.scan`) into one program; the port's
@@ -1560,15 +1560,17 @@ class Engine(nn.Module):
     def fused_step(self, state: AgentState, nbr_cache=None,
                    presorted: bool = False):
         """One step of an engine of the fused form (`agent_step.fused_form`)
-        through `agent_pre`, the pair stage (`pair_stage`) and
-        `agent_post`: (state, fx, fy) as `step_with_forces`. On CPU
-        tensors the two wrappers run their plain versions (the torch
-        functions), so the result is the torch chain's bit for bit; the
-        fields the step does not change are the argument's own tensors."""
+        through `agent_pre`, the pair stage (`pair_stage`) and the model's
+        post kernel (`agent_step.post_step`: `agent_post` for bicycle2d,
+        `agent_post_whipple` for the balancing rider): (state, fx, fy) as
+        `step_with_forces`. On CPU tensors the wrappers run their plain
+        versions (the torch functions), so the result is the torch chain's
+        bit for bit; the fields the step does not change are the
+        argument's own tensors."""
         pre = AS.agent_pre(self, state, self.pair_rows(state.n))
         frx, fry = self.pair_stage(state, pre.src_pack, pre.recv_pack,
                                    nbr_cache, presorted)
-        return AS.agent_post(self, state, pre, frx, fry)
+        return AS.post_step(self)(self, state, pre, frx, fry)
 
     def step_with_forces(self, state: AgentState, nbr_cache=None,
                          presorted: bool = False, t_host=None):

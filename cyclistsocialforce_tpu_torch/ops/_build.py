@@ -18,8 +18,9 @@ added in a fixed order. K1 hands whole table slots to the groups; K2
 stages a row's tiles in shared memory in rounds of 96 KB (any kb) and
 splits a round's rows evenly over the groups; K3 streams block-row tiles
 through a 4-slot ring, every group on its strip of each tile, the tile
-screen voted across the groups. `agent_step.cu` holds the two per-agent
-kernels around them (`ops/agent_step.py`).
+screen voted across the groups. `agent_step.cu` holds the per-agent
+kernels around them (`ops/agent_step.py`), built without contraction
+(`FILE_FLAGS`).
 """
 
 from __future__ import annotations
@@ -42,6 +43,10 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # explicitly (fmaf) where the field is smooth (csrc/pair_math.cuh)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+# flags of one source on top of NVCC_FLAGS: the per-agent kernels round
+# every operation as PyTorch's CUDA kernels do, one at a time
+# (csrc/agent_step.cu), so nothing there may be contracted into an FMA
+FILE_FLAGS = {"agent_step.cu": ["-fmad=false"]}
 
 _lib = None
 build_seconds = None   # wall time of this process's compile (None: cached)
@@ -71,8 +76,10 @@ def _declare(lib):
     # (ops/agent_step.py), device, stream
     lib.csf_agent_pre.argtypes = [p, i, p]
     lib.csf_agent_post.argtypes = [p, i, p]
+    lib.csf_agent_post_whipple.argtypes = [p, i, p]
     for fn in (lib.csf_pair_forces_twod, lib.csf_pair_forces_unrolled,
-               lib.csf_pair_forces_db, lib.csf_agent_pre, lib.csf_agent_post):
+               lib.csf_pair_forces_db, lib.csf_agent_pre, lib.csf_agent_post,
+               lib.csf_agent_post_whipple):
         fn.restype = i
     lib.csf_error_string.argtypes = [i]
     lib.csf_error_string.restype = ctypes.c_char_p
@@ -101,6 +108,7 @@ def library():
         return _lib
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(FILE_FLAGS.items())).encode())
     for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -113,7 +121,8 @@ def library():
         nvcc = _nvcc()
         t0 = time.perf_counter()
         try:
-            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            _run_all([[nvcc, *NVCC_FLAGS, *FILE_FLAGS.get(src.name, ()),
+                       "-c", "-o", str(obj), str(src)]
                       for src, obj in zip(sources, objs)])
             _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                        *map(str, objs)]])

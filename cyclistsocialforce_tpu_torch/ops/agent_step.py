@@ -1,6 +1,6 @@
-"""One step of a bicycle2d engine's per-agent chain as two CUDA kernels
-around the pair kernel (`csrc/agent_step.cu`), their wrappers, their plain
-PyTorch versions and their launch counters.
+"""One step of a bicycle2d or a balancing-rider engine's per-agent chain
+as two CUDA kernels around the pair kernel (`csrc/agent_step.cu`), their
+wrappers, their plain PyTorch versions and their launch counters.
 
   agent_pre   the destination force with the destination-queue update and
               the navigation FSM (`engine.dest_force_straight`; an
@@ -10,12 +10,19 @@ PyTorch versions and their launch counters.
               (`ops.forces.clamp_add_dest`), bicycle2d's step
               (`models.bicycle2d.step`) and the step's bookkeeping
               (`Engine.finish_step`)
+  agent_post_whipple
+              the same clamp and bookkeeping around the balancing rider's
+              step (`models.balancingrider.step`) with its gains a
+              piecewise polynomial of speed (`whipple_mode` "poly"): the
+              speed control, the gains, A(v) - B K, the implicit-midpoint
+              5x5 solve and the positions
 
 The JAX package compiles this chain with the rest of a chunk into one XLA
-program, which fuses it (its `engine.py` :49-102, :901-980, :1118-1198
-and `models/bicycle2d.py`); the port's `Engine.step_with_forces` takes
-the kernels for a step of the fused form (`fused_form`, the one rule of
-which steps take them).
+program, which fuses it (its `engine.py` :49-102, :901-980, :1118-1198,
+`models/bicycle2d.py` and `models/balancingrider.py`); the port's
+`Engine.step_with_forces` takes the kernels for a step of the fused form
+(`fused_form`, the one rule of which steps take them), agent_pre and the
+post kernel of the engine's model (`post_step`).
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors. The plain versions are the engine's own torch
@@ -26,13 +33,15 @@ bit for bit: every operation rounds as PyTorch's CUDA kernel does
 computes on the host: a Python float cast to float32, the float32
 reciprocal by which PyTorch's CUDA kernel multiplies where a tensor is
 divided by a Python float, and expressions of Python floats alone in
-double (`_nav_constants`, `_model_constants`).
+double (`_nav_constants`, `_model_constants`, `_whipple_constants`).
 
-The navigation and bicycle2d parameters are shared (Python floats and
-(min, max) pairs of them: `takes_params`); the pair-field columns may be
-per rider, [R] float32 or float64 tables on the state's device read by
-uid and clamped to the table's last row, as `Engine.pack_pair_fields`
-gathers them.
+The navigation parameters and those the post kernel reads are shared
+(Python floats and (min, max) pairs of them: `takes_params`); the
+pair-field columns may be per rider, [R] float32 or float64 tables on the
+state's device read by uid and clamped to the table's last row, as
+`Engine.pack_pair_fields` gathers them. The balancing rider's matrices and
+its gains' fit are the engine's kept `step_constants` tensors, which the
+kernel reads by address.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ NAV_FIELDS = ("d_arrived_inter", "d_arrived_stop", "v_max_stop",
               "a_desired_default")
 MODEL_FIELDS = ("t_s", "k_p_delta", "k_p_v", "a_max", "delta_max",
                 "v_max_riding", "l")
+WHIPPLE_FIELDS = ("t_s", "k_p_v", "a_max", "v_max_riding")
 LIMIT_PAIRS = ("a_max", "a_desired_default", "v_max_riding")
 # the pack's field columns, in csrc/agent_step.cu's `Col` order ("v_max"
 # is v_max_riding's upper limit, the legacy field's excentricity scale)
@@ -103,6 +113,27 @@ _MODEL_CONSTANTS = ("t_s", "inv_t_s", "k_p_delta", "k_p_v", "a_max_lo",
                     "v_max_hi", "inv_l")
 _AgentPostArgs = _struct("_AgentPostArgs", _POST_IN + _POST_OUT,
                          ("n", "hist"), _MODEL_CONSTANTS)
+# agent_post_whipple: the pre-step state fields, the forces and the
+# balancing rider's kept constants, then its outputs
+_WPOST_IN = ("s", "dyn_x", "dyn_v", "dyn_gains", "i", "t_glob", "pos_hist",
+             "active", "fdx", "fdy", "frx", "fry", "A0", "A1", "A2", "B",
+             "gains_coeffs")
+_WPOST_OUT = ("s_out", "dyn_x_out", "dyn_v_out", "dyn_gains_out", "i_out",
+              "t_out", "pos_hist_out", "fx", "fy")
+_WHIPPLE_CONSTANTS = ("t_s", "half_t_s", "k_p_v", "a_max_lo", "a_max_hi",
+                      "v_max_lo", "v_max_hi", "poly_lo", "inv_seg_dv",
+                      "x_max")
+_AgentPostWhippleArgs = _struct(
+    "_AgentPostWhippleArgs", _WPOST_IN + _WPOST_OUT,
+    ("n", "hist", "gains", "deg1", "segs", "coeff_row", "coeff_seg"),
+    _WHIPPLE_CONSTANTS)
+# the fields agent_post_whipple leaves as they are
+UNCHANGED_WHIPPLE = ("pid_e", "pid_i", "destqueue", "nq", "zrid",
+                     "walk_ok_steps", "active", "uid", "key")
+# the coefficients of the gains' fit agent_post_whipple stages in shared
+# memory beside the 80 of A0, A1, A2 and B and each of its 8 warps' 512
+# floats of staging: 48 KB in all
+WHIPPLE_MAX_COEFFS = 12 * 1024 - 80 - 8 * 512
 
 # each state field's dtype and width per row (0: [n]) as the kernels take it
 _FIELD_FORMS = {"s": (torch.float32, 8), "dest": (torch.float32, 3),
@@ -111,7 +142,8 @@ _FIELD_FORMS = {"s": (torch.float32, 8), "dest": (torch.float32, 3),
                 "i": (torch.int32, 0), "i_stopsignal": (torch.int32, 0),
                 "d_stopsignal": (torch.float32, 0),
                 "active": (torch.bool, 0), "uid": (torch.int32, 0),
-                "pid_e": (torch.float32, 2), "pid_i": (torch.float32, 2)}
+                "pid_e": (torch.float32, 2), "pid_i": (torch.float32, 2),
+                "dyn_x": (torch.float32, 7), "dyn_v": (torch.float32, 0)}
 
 
 class PreStep(NamedTuple):
@@ -147,14 +179,16 @@ def _pack_values(params) -> dict:
     return values
 
 
-def takes_params(params, device) -> bool:
-    """Do the kernels take `params`: every navigation and bicycle2d
-    parameter shared, every pair-field column shared or a 1-D float32 or
-    float64 per-rider table on `device`?"""
-    if not all(hasattr(params, f) for f in NAV_FIELDS + MODEL_FIELDS
+def takes_params(params, device, model_fields=MODEL_FIELDS) -> bool:
+    """Do the kernels take `params`: every navigation parameter and each
+    of `model_fields` (those of the post kernel: `MODEL_FIELDS` for
+    agent_post, `WHIPPLE_FIELDS` for agent_post_whipple) shared, every
+    pair-field column shared or a 1-D float32 or float64 per-rider table
+    on `device`?"""
+    if not all(hasattr(params, f) for f in NAV_FIELDS + model_fields
                + PACK_COLUMNS[:-1]):
         return False
-    if not all(_is_shared(params, f) for f in NAV_FIELDS + MODEL_FIELDS):
+    if not all(_is_shared(params, f) for f in NAV_FIELDS + model_fields):
         return False
     for v in _pack_values(params).values():
         if isinstance(v, torch.Tensor):
@@ -167,23 +201,72 @@ def takes_params(params, device) -> bool:
     return True
 
 
-def takes_engine(engine, device) -> bool:
-    """Is `engine` of the fused form on `device`: bicycle2d with the
-    straight destination force, the twod or legacy field culled through a
-    pair kernel, parameters the kernels take (`takes_params`), and no
-    road, scripts or force hooks?"""
-    from cyclistsocialforce_tpu_torch.engine import dest_force_straight
-    from cyclistsocialforce_tpu_torch.models import bicycle2d
+def whipple_mode(params) -> str:
+    """The gain mode of a balancing rider's step: "poly" (the gains a
+    piecewise polynomial of speed, `BalancingRiderParams.create(
+    gains_poly=)`, which agent_post_whipple computes), or a mode that
+    keeps the torch chain: "stochastic", "disturbed" (torque
+    disturbances), "prop" (a propagator table or fit), "fixed", "lut"
+    or "exact" (the Ackermann placement every step)."""
+    if params.stochastic_control_behavior:
+        return "stochastic"
+    if params.br_disturb:
+        return "disturbed"
+    if params.br_prop_poly is not None or params.br_prop_lut is not None:
+        return "prop"
+    if params.br_gains_fixed is not None:
+        return "fixed"
+    if params.br_gains_lut is not None:
+        return "lut"
+    if params.br_gains_poly is not None:
+        return "poly"
+    return "exact"
 
-    return (getattr(engine, "pair_family", None) in ("twod", "legacy")
-            and getattr(engine, "model_step", None) is bicycle2d.step
+
+def _fit_fits(poly) -> bool:
+    """Does agent_post_whipple stage the gains' fit in shared memory (its
+    coefficients within `WHIPPLE_MAX_COEFFS`)?"""
+    return len(poly[0]) * len(poly[0][0]) <= WHIPPLE_MAX_COEFFS
+
+
+def post_step(engine):
+    """The post kernel's wrapper for `engine`'s model step, or None:
+    agent_post for bicycle2d, agent_post_whipple for a balancing rider of
+    the "poly" gain mode (`whipple_mode`) whose fit it stages; every other
+    model and mode keeps the torch chain."""
+    from cyclistsocialforce_tpu_torch.models import balancingrider, bicycle2d
+
+    step = getattr(engine, "model_step", None)
+    if step is bicycle2d.step:
+        return agent_post
+    if (step is balancingrider.step
+            and whipple_mode(engine.params) == "poly"
+            and _fit_fits(engine.params.br_gains_poly)):
+        return agent_post_whipple
+    return None
+
+
+def takes_engine(engine, device) -> bool:
+    """Is `engine` of the fused form on `device`: a model step a post
+    kernel takes (`post_step`), the straight destination force, a field
+    culled through a pair kernel (twod or legacy for bicycle2d, twod for
+    the balancing rider), parameters the kernels take (`takes_params`),
+    and no road, scripts or force hooks?"""
+    from cyclistsocialforce_tpu_torch.engine import dest_force_straight
+
+    post = post_step(engine)
+    if post is None:
+        return False
+    model_fields, families = _POST_NEEDS[post]
+    return (getattr(engine, "pair_family", None) in families
             and getattr(engine, "dest_force", None) is dest_force_straight
             and engine.neighbors is not None and engine.road is None
             and engine.scripted is None and engine.rep_reduce is None
             and engine.combine_forces is None
             and not getattr(engine.params, "dest_force", None)
             and not getattr(engine.params, "rep_force", None)
-            and takes_params(engine.params, torch.device(device)))
+            and takes_params(engine.params, torch.device(device),
+                             model_fields))
 
 
 def fused_form(engine, state) -> bool:
@@ -200,15 +283,20 @@ def fused_form(engine, state) -> bool:
                        lambda: takes_engine(engine, state.device))
 
 
-def _require_fused(name, engine, state):
-    if not fused_form(engine, state):
+def _require_fused(name, engine, state, post=None):
+    """Raise unless a step of `state` is of the fused form, and `post`
+    (None: any) is the engine's post kernel."""
+    if not fused_form(engine, state) or post not in (None,
+                                                      post_step(engine)):
         raise ValueError(
             f"{name}: the kernel takes a float32 state of more than one row "
             f"and an engine of the fused form (`agent_step.fused_form`): "
-            f"bicycle2d, the straight destination force, the twod or "
-            f"legacy field culled, shared navigation and bicycle2d "
-            f"parameters, per-rider pair columns as 1-D float tables on "
-            f"the state's device, no road, scripts or hooks")
+            f"bicycle2d (agent_post) or a balancing rider whose gains are "
+            f"a piecewise polynomial (agent_post_whipple), the straight "
+            f"destination force, the twod (or for bicycle2d the legacy) "
+            f"field culled, shared navigation and model parameters, "
+            f"per-rider pair columns as 1-D float tables on the state's "
+            f"device, no road, scripts or hooks")
 
 
 def _f32(x) -> float:
@@ -254,6 +342,23 @@ def _model_constants(params) -> dict:
             "inv_l": _inv(params.l)}
 
 
+def _whipple_constants(params) -> dict:
+    """models/balancingrider.py's and ops/piecewise.py's shared values, as
+    PyTorch's CUDA kernels apply them: `t_s / 2.0` is a quotient of Python
+    floats (in double), the division by the fit's segment width a
+    multiplication by its float32 reciprocal, and the fit's clamp
+    `float(segs) - 1e-6` a Python float."""
+    coeffs, lo, seg_dv = params.br_gains_poly
+    return {"t_s": _f32(params.t_s), "half_t_s": _f32(params.t_s / 2.0),
+            "k_p_v": _f32(params.k_p_v),
+            "a_max_lo": _f32(pair_lo(params.a_max)),
+            "a_max_hi": _f32(pair_hi(params.a_max)),
+            "v_max_lo": _f32(pair_lo(params.v_max_riding)),
+            "v_max_hi": _f32(pair_hi(params.v_max_riding)),
+            "poly_lo": _f32(lo), "inv_seg_dv": _inv(seg_dv),
+            "x_max": _f32(float(len(coeffs)) - 1e-6)}
+
+
 def _pair_col(v) -> _PairCol:
     if isinstance(v, torch.Tensor):
         return _PairCol(v.data_ptr(), v.shape[0],
@@ -273,6 +378,26 @@ def _check_state(name, state, fields):
                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: state.{f} must be contiguous")
+
+
+def _check_post_inputs(name, before, pre: PreStep, frx, fry):
+    """A post kernel takes contiguous float32 [n] forces, a contiguous
+    float32 [n, H, 2] position ring and a one-element int32 clock."""
+    n = before.n
+    for label, t in (("fdx", pre.fdx), ("fdy", pre.fdy), ("frx", frx),
+                     ("fry", fry)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n,)
+                or not t.is_contiguous()):
+            raise TypeError(f"{name}: {label} must be a contiguous "
+                            f"float32 [{n}] tensor")
+    ph = before.pos_hist
+    if (ph.dtype != torch.float32 or ph.ndim != 3 or ph.shape[0] != n
+            or ph.shape[2] != 2 or not ph.is_contiguous()):
+        raise TypeError(f"{name}: state.pos_hist must be a contiguous "
+                        f"float32 [n, H, 2] tensor")
+    if before.t_glob.dtype != torch.int32 or before.t_glob.numel() != 1:
+        raise TypeError(f"{name}: state.t_glob must be a 0-d int32 "
+                        f"tensor")
 
 
 def _launch(name, symbol, args, device):
@@ -300,20 +425,34 @@ def agent_pre_ref(engine, state, npad: int) -> PreStep:
     return PreStep(fdx, fdy, st, src_pack, recv_pack)
 
 
-def agent_post_ref(engine, before, pre: PreStep, frx, fry):
-    """Plain version of agent_post: the pair stage's sums (frx, fry) [n]
-    clamped to the destination force's magnitude and added to it, the
-    model's step on the state agent_pre set, and the engine's bookkeeping
-    against the pre-step state `before`. Returns (state, fx, fy) with the
-    applied forces, as `Engine.step_with_forces`; as the kernel returns
-    them, the fields that no step changes (`UNCHANGED`) are `before`'s
-    own tensors and the destination and FSM fields `pre.state`'s (equal
-    in value: agent_pre held the inactive rows')."""
+def _post_ref(engine, before, pre: PreStep, frx, fry, unchanged):
+    """The pair stage's sums (frx, fry) [n] clamped to the destination
+    force's magnitude and added to it, the model's step on the state
+    agent_pre set, and the engine's bookkeeping against the pre-step state
+    `before`: (state, fx, fy), the fields `unchanged` `before`'s own
+    tensors and the destination and FSM fields `pre.state`'s (equal in
+    value: agent_pre held the inactive rows')."""
     fx, fy = F.clamp_add_dest(frx, fry, pre.fdx, pre.fdy)
     new = engine.dynamics(pre.state, fx, fy)
     out = engine.finish_step(before, new)
-    return out.replace(**{f: getattr(before, f) for f in UNCHANGED},
+    return out.replace(**{f: getattr(before, f) for f in unchanged},
                        **{f: getattr(pre.state, f) for f in _CHANGED}), fx, fy
+
+
+def agent_post_ref(engine, before, pre: PreStep, frx, fry):
+    """Plain version of agent_post: the clamp, bicycle2d's step and the
+    bookkeeping (`_post_ref`). Returns (state, fx, fy) with the applied
+    forces, as `Engine.step_with_forces`; as the kernel returns them, the
+    fields that no step changes (`UNCHANGED`) are `before`'s own
+    tensors."""
+    return _post_ref(engine, before, pre, frx, fry, UNCHANGED)
+
+
+def agent_post_whipple_ref(engine, before, pre: PreStep, frx, fry):
+    """Plain version of agent_post_whipple: the clamp, the balancing
+    rider's step and the bookkeeping (`_post_ref`), the fields that it
+    does not change (`UNCHANGED_WHIPPLE`) `before`'s own tensors."""
+    return _post_ref(engine, before, pre, frx, fry, UNCHANGED_WHIPPLE)
 
 
 def agent_pre(engine, state, npad: int) -> PreStep:
@@ -377,24 +516,11 @@ def agent_post(engine, before, pre: PreStep, frx, fry):
     if not PF._on_cuda("agent_post", *tensors):
         return agent_post_ref(engine, before, pre, frx, fry)
     n = before.n
-    _require_fused("agent_post", engine, before)
+    _require_fused("agent_post", engine, before, agent_post)
     _check_state("agent_post", before,
                  ("s", "pid_e", "pid_i", "i", "active", "nq"))
     _check_state("agent_post", pre.state, ("dest", "destpointer"))
-    for name, t in (("fdx", pre.fdx), ("fdy", pre.fdy), ("frx", frx),
-                    ("fry", fry)):
-        if (t.dtype != torch.float32 or tuple(t.shape) != (n,)
-                or not t.is_contiguous()):
-            raise TypeError(f"agent_post: {name} must be a contiguous "
-                            f"float32 [{n}] tensor")
-    ph = before.pos_hist
-    if (ph.dtype != torch.float32 or ph.ndim != 3 or ph.shape[0] != n
-            or ph.shape[2] != 2 or not ph.is_contiguous()):
-        raise TypeError("agent_post: state.pos_hist must be a contiguous "
-                        "float32 [n, H, 2] tensor")
-    if before.t_glob.dtype != torch.int32 or before.t_glob.numel() != 1:
-        raise TypeError("agent_post: state.t_glob must be a 0-d int32 "
-                        "tensor")
+    _check_post_inputs("agent_post", before, pre, frx, fry)
 
     new = {f: torch.empty_like(getattr(before, f))
            for f in ("s", "pid_e", "pid_i", "i", "t_glob", "pos_hist")}
@@ -412,16 +538,75 @@ def agent_post(engine, before, pre: PreStep, frx, fry):
     args = _AgentPostArgs(
         *(inputs[f].data_ptr() for f in _POST_IN),
         *(outputs[f].data_ptr() for f in _POST_OUT),
-        n, ph.shape[1], *(consts[f] for f in _MODEL_CONSTANTS))
+        n, before.hist_len, *(consts[f] for f in _MODEL_CONSTANTS))
     _launch("agent_post", "csf_agent_post", args, before.device)
     PF._count(agent_post)
     return before.replace(**new, **{f: getattr(pre.state, f)
                                     for f in _CHANGED}), fx, fy
 
 
+def agent_post_whipple(engine, before, pre: PreStep, frx, fry):
+    """agent_post_whipple: the CUDA kernel on a CUDA state, the plain
+    version on a CPU state; arguments and result as
+    `agent_post_whipple_ref`. The kernel takes what agent_pre takes, on a
+    balancing-rider engine of the "poly" gain mode (`post_step`), and
+    returns fresh tensors for the fields it changes (`s`, `dyn_x`,
+    `dyn_v`, `dyn_gains`, `i`, `t_glob`, `pos_hist`: the ring copied and
+    one slot written); the destination and FSM fields are `pre.state`'s,
+    the others (`UNCHANGED_WHIPPLE`) `before`'s own."""
+    tensors = [before.s, before.pos_hist, pre.fdx, frx, fry]
+    if not PF._on_cuda("agent_post_whipple", *tensors):
+        return agent_post_whipple_ref(engine, before, pre, frx, fry)
+    name = "agent_post_whipple"
+    _require_fused(name, engine, before, agent_post_whipple)
+    _check_state(name, before, ("s", "dyn_x", "dyn_v", "i", "active"))
+    _check_post_inputs(name, before, pre, frx, fry)
+    dg = before.dyn_gains
+    if (dg.dtype != torch.float32 or dg.ndim != 2 or dg.shape[0] != before.n
+            or dg.shape[1] < 5 or not dg.is_contiguous()):
+        raise TypeError(f"{name}: state.dyn_gains must be a contiguous "
+                        f"float32 [n, >= 5] tensor")
+    # the kept constants are in the state's dtype on its device
+    # (`balancingrider.step_constants`); the fit's matrix is read through
+    # its strides
+    c = engine.kept_constants(engine.step_constants, engine.params,
+                              before)["constants"]
+    coeffs = c["gains_coeffs"]
+    if any(c[k].shape != shape or not c[k].is_contiguous() for k, shape in
+           (("A0", (5, 5)), ("A1", (5, 5)), ("A2", (5, 5)), ("B", (5,)))):
+        raise TypeError(f"{name}: A0, A1 and A2 must be contiguous [5, 5] "
+                        f"tensors and B a contiguous [5] one")
+
+    new = {f: torch.empty_like(getattr(before, f)) for f in
+           ("s", "dyn_x", "dyn_v", "dyn_gains", "i", "t_glob", "pos_hist")}
+    fx, fy = torch.empty_like(frx), torch.empty_like(fry)
+    inputs = {**{f: getattr(before, f) for f in _WPOST_IN[:8]},
+              "fdx": pre.fdx, "fdy": pre.fdy, "frx": frx, "fry": fry,
+              **{k: c[k] for k in _WPOST_IN[12:]}}
+    outputs = {f + "_out": new[f] for f in new}
+    outputs["t_out"] = outputs.pop("t_glob_out")
+    outputs.update(fx=fx, fy=fy)
+    consts = _whipple_constants(engine.params)
+    args = _AgentPostWhippleArgs(
+        *(inputs[f].data_ptr() for f in _WPOST_IN),
+        *(outputs[f].data_ptr() for f in _WPOST_OUT),
+        before.n, before.hist_len, dg.shape[1], coeffs.shape[0] // 5,
+        coeffs.shape[1], *coeffs.stride(),
+        *(consts[f] for f in _WHIPPLE_CONSTANTS))
+    _launch(name, "csf_agent_post_whipple", args, before.device)
+    PF._count(agent_post_whipple)
+    return before.replace(**new, **{f: getattr(pre.state, f)
+                                    for f in _CHANGED}), fx, fy
+
+
+# each post kernel's shared parameters (`takes_params`) and the fields it
+# is admitted for (`takes_engine`)
+_POST_NEEDS = {agent_post: (MODEL_FIELDS, ("twod", "legacy")),
+               agent_post_whipple: (WHIPPLE_FIELDS, ("twod",))}
+
 # launches since the last reset and launches recorded into CUDA-graph
 # captures, as `ops.pair_forces` counts its kernels'
-KERNELS = (agent_pre, agent_post)
+KERNELS = (agent_pre, agent_post, agent_post_whipple)
 for _fn in KERNELS:
     _fn.launches = 0
     _fn.captured = 0
