@@ -33,7 +33,9 @@ FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "cyclistsocialforce_tpu")
 CHECKED_DRAWN = 3
 # rows of each answer's widest gaps that the readings keep
 TOP_ROWS = 64
-# what the comparison reads from a program state (AgentState attributes)
+# what the comparison reads from a program state (AgentState attributes),
+# besides the fields that the reference's model module names
+# (`reference.step.extra_fields`)
 STATE_FIELDS = ("s", "dyn_x", "dyn_gains", "pid_e", "pid_i", "dest",
                 "destqueue", "destpointer", "nq", "i", "znav", "znavparams",
                 "active")
@@ -90,7 +92,9 @@ def forbidden_loaded() -> list:
 
 def build_program(cfg: dict, inputs: dict, device):
     """The port's engine and initial state for the configuration `cfg` on
-    the generated `inputs`."""
+    the generated `inputs`: each rider's destination, or, where the
+    traffic has `waypoints` [rows, K, 2], its route of K queued
+    destinations with the pointer at the first."""
     import torch
 
     from cyclistsocialforce_tpu_torch import params as P
@@ -112,9 +116,16 @@ def build_program(cfg: dict, inputs: dict, device):
     dest[:, :2] = torch.as_tensor(inputs["dest"], dtype=dtype, device=device)
     queue = state.destqueue.clone()
     queue[:, 0] = dest
+    nq = state.nq
+    if "waypoints" in inputs:
+        k = inputs["waypoints"].shape[1]
+        queue[:, :k, :2] = torch.as_tensor(inputs["waypoints"], dtype=dtype,
+                                           device=device)
+        dest = queue[:, 0].clone()
+        nq = torch.full_like(nq, k)
     active = torch.arange(rows, device=device) < inputs["n_riders"]
     state = prepare(model, params, state.replace(
-        destqueue=queue, dest=dest, active=active))
+        destqueue=queue, dest=dest, nq=nq, active=active))
     engine = Engine.create(params, model, rep_force=cfg["rep_force"],
                            dest_force=cfg["dest_force"],
                            neighbors=NeighborConfig(**cfg["neighbors"]))
@@ -224,11 +235,13 @@ def _positions(state):
 
 # ---- the comparison with the reference ------------------------------------
 
-def reference_input(st, dtype):
-    """A program state's fields as the reference's state, in `dtype`."""
+def reference_input(st, dtype, model: str):
+    """A program state's fields as the reference's state of model
+    `model`, in `dtype`."""
     from benchmark.reference import step as R
 
-    return R.cast({f: getattr(st, f) for f in STATE_FIELDS}, dtype)
+    fields = STATE_FIELDS + R.extra_fields(model)
+    return R.cast({f: getattr(st, f) for f in fields}, dtype)
 
 
 def row_gaps(answer: dict, want: dict):
@@ -307,9 +320,9 @@ def compare(items, cfg: dict, inputs: dict, steps: int, device,
         if c == 0:
             start = R.initial_state(cfg, c64, inputs["s0"], inputs["dest"],
                                     inputs["n_riders"], torch.float64,
-                                    device)
+                                    device, inputs.get("waypoints"))
         else:
-            start = reference_input(st_in, torch.float64)
+            start = reference_input(st_in, torch.float64, cfg["model"])
         want = R.run(start, c64, steps)
         for a in answers:
             if a is None:

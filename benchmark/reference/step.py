@@ -3,20 +3,24 @@
 
 It follows upstream cyclistsocialforce's semantics as the configuration
 file states them: the destination queue and the navigation FSM, the
-straight-line destination force, the BMD2023 "twod" repulsive field in its
-published form (trigonometry and all, not the port's half-angle algebra)
-summed over every rider within the configuration's cutoff and inside the
-receiver's field of view, clamped to the destination force's magnitude,
-then one step of the model's dynamics (`models/<model>.py`), and the
-bookkeeping (inactive riders frozen, step counters). Rows keep
-their order: there is no table and no permutation. Nothing here imports
-the program or JAX.
+destination force the configuration names (`dest_force`: the straight
+line here, or `dest_<name>.py`'s, as the spline's in `dest_spline.py`),
+the BMD2023 "twod" repulsive field in its published form (trigonometry
+and all, not the port's half-angle algebra) summed over every rider
+within the configuration's cutoff and inside the receiver's field of
+view, clamped to the destination force's magnitude, then one step of
+the model's dynamics (`models/<model>.py`), and the
+bookkeeping (inactive riders frozen, step counters, the position ring
+where the state has one). Rows keep their order: there is no table and
+no permutation. Nothing here imports the program or JAX.
 
 A state is a dict of tensors: s [N, 8] (x, y, yaw, speed, steer, roll,
 steer rate, roll rate), dyn_x [N, 7] and dyn_gains [N, 12] (balancing
 rider), pid_e, pid_i [N, 2], dest [N, 3], destqueue [N, Q, 3],
 destpointer, nq, i [N] int, znav [N, 3] bool, znavparams [N, 4],
-active [N] bool.
+active [N] bool, and the fields the model's module names in its
+`EXTRA_FIELDS` (twod: pos_hist [N, H, 2], slot t % H the positions at
+global step t, and t_glob, the 0-d global step).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from . import grid
 TWO_PI = 2.0 * math.pi
 BRAKE_SAFETY_K = 1.5
 FLOAT_KEYS = ("s", "dyn_x", "dyn_gains", "pid_e", "pid_i", "dest",
-              "destqueue", "znavparams")
+              "destqueue", "znavparams", "pos_hist")
 
 
 # ---- angles ---------------------------------------------------------------
@@ -59,8 +63,24 @@ def clip(x, lo, hi):
 
 def model_of(name: str):
     """The reference's module of model `name` (`models/<name>.py`): its
-    `constants`, `initial` and `step`."""
+    `constants`, `initial` and `step`, and optionally `EXTRA_FIELDS`."""
     return importlib.import_module(f"{__package__}.models.{name}")
+
+
+def extra_fields(model: str) -> tuple:
+    """The state fields that model `model` reads besides the common ones
+    (its module's `EXTRA_FIELDS`; none by default)."""
+    return tuple(getattr(model_of(model), "EXTRA_FIELDS", ()))
+
+
+def dest_force_of(name: str):
+    """The destination force named by a configuration's `dest_force`:
+    `destination` for the straight line ("straight", "direct"), else
+    `dest_<name>.py`'s `destination`. Each takes (state, parameters) and
+    returns (fx, fy, the updated fields)."""
+    if name in ("straight", "direct"):
+        return destination
+    return importlib.import_module(f"{__package__}.dest_{name}").destination
 
 
 def constants(cfg: dict, dtype, device) -> dict:
@@ -68,15 +88,18 @@ def constants(cfg: dict, dtype, device) -> dict:
     parameters, the cutoff, and what the model's own `constants` works
     out."""
     c = {"p": dict(cfg["params"]), "cutoff": float(cfg["neighbors"]["cutoff"]),
-         "model": cfg["model"]}
+         "model": cfg["model"], "dest_force": cfg["dest_force"]}
     c.update(model_of(cfg["model"]).constants(cfg, dtype, device))
     return c
 
 
 def initial_state(cfg: dict, c: dict, s0, dest, n_riders: int, dtype,
-                  device) -> dict:
+                  device, waypoints=None) -> dict:
     """The state before the first step, from the generated inputs (s0
-    [rows, 5], dest [rows, 2], float64 numpy)."""
+    [rows, 5], dest [rows, 2], float64 numpy). `waypoints` [rows, K, 2],
+    where the traffic has them, fill the first K queue slots (nq = K, the
+    pointer at the first). A model with a position ring starts it as
+    `make_state` does: every slot the initial position."""
     rows = s0.shape[0]
     q = int(cfg.get("queue_size", 16))
     s = torch.zeros((rows, 8), dtype=torch.float64, device=device)
@@ -86,12 +109,19 @@ def initial_state(cfg: dict, c: dict, s0, dest, n_riders: int, dtype,
     d[:, :2] = torch.as_tensor(dest, dtype=torch.float64, device=device)
     queue = torch.zeros((rows, q, 3), dtype=torch.float64, device=device)
     queue[:, 0] = d
+    nq = torch.ones(rows, dtype=torch.int32, device=device)
+    if waypoints is not None:
+        k = waypoints.shape[1]
+        queue[:, :k, :2] = torch.as_tensor(waypoints, dtype=torch.float64,
+                                           device=device)
+        d = queue[:, 0].clone()
+        nq.fill_(k)
     st = {
         "s": s, "pid_e": torch.zeros((rows, 2), dtype=torch.float64,
                                      device=device),
         "dest": d, "destqueue": queue,
         "destpointer": torch.zeros(rows, dtype=torch.int32, device=device),
-        "nq": torch.ones(rows, dtype=torch.int32, device=device),
+        "nq": nq,
         "i": torch.zeros(rows, dtype=torch.int32, device=device),
         "znav": torch.zeros((rows, 3), dtype=torch.bool, device=device),
         "znavparams": torch.zeros((rows, 4), dtype=torch.float64,
@@ -100,6 +130,10 @@ def initial_state(cfg: dict, c: dict, s0, dest, n_riders: int, dtype,
     }
     st["pid_i"] = st["pid_e"].clone()
     st["znav"][:, 0] = True
+    if "pos_hist" in extra_fields(c["model"]):
+        st["pos_hist"] = s[:, None, :2].expand(
+            rows, int(cfg["hist_len"]), 2).clone()
+        st["t_glob"] = torch.zeros((), dtype=torch.int32, device=device)
     st.update(model_of(c["model"]).initial(st, c))
     return cast(st, dtype)
 
@@ -119,9 +153,9 @@ def _norm(d):
     return torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
 
 
-def destination(st: dict, p: dict):
-    """Queue update, navigation FSM and straight-line force: (fx, fy, the
-    updated fields)."""
+def navigate(st: dict, p: dict):
+    """Queue update and navigation FSM: (the desired speed, the distance
+    to the destination, the updated fields)."""
     pos, dest, queue = st["s"][:, :2], st["dest"], st["destqueue"]
     ptr0, nq, znav, i = st["destpointer"], st["nq"], st["znav"], st["i"]
     dnext = _norm(_take(queue, ptr0)[:, :2] - pos)
@@ -165,13 +199,20 @@ def destination(st: dict, p: dict):
     vd = torch.where(n1, torch.where(ddest < k * zp[:, 2], vd_near, vd_far),
                      torch.zeros_like(v))
     vd = torch.where(n0, torch.full_like(v, p["v_desired_default"]), vd)
+    upd = {"dest": dest, "destpointer": ptr, "znavparams": zp,
+           "znav": torch.stack([n0, n1, n2], dim=1)}
+    return vd, ddest, upd
 
+
+def destination(st: dict, p: dict):
+    """Queue update, navigation FSM and straight-line force: (fx, fy, the
+    updated fields)."""
+    vd, ddest, upd = navigate(st, p)
+    pos, dest = st["s"][:, :2], upd["dest"]
     ok = ddest > 0
     safe = torch.where(ok, ddest, 1.0)
     fx = torch.where(ok, -vd * (pos[:, 0] - dest[:, 0]) / safe, 0.0)
     fy = torch.where(ok, -vd * (pos[:, 1] - dest[:, 1]) / safe, 0.0)
-    upd = {"dest": dest, "destpointer": ptr, "znavparams": zp,
-           "znav": torch.stack([n0, n1, n2], dim=1)}
     return fx, fy, upd
 
 
@@ -227,9 +268,20 @@ def clamp_add(frx, fry, fdx, fdy):
     return frx * scale + fdx, fry * scale + fdy
 
 
+def write_ring(st: dict) -> dict:
+    """The position ring with slot (t_glob + 1) % H set to the state's
+    positions, and t_glob + 1 (every row: an inactive one holds its
+    position)."""
+    t1 = st["t_glob"] + 1
+    slot = torch.remainder(t1, st["pos_hist"].shape[1]).long().reshape(1)
+    return {"pos_hist": st["pos_hist"].index_copy(1, slot,
+                                                  st["s"][:, None, :2]),
+            "t_glob": t1}
+
+
 def step(st: dict, c: dict) -> dict:
     p = c["p"]
-    fdx, fdy, upd = destination(st, p)
+    fdx, fdy, upd = dest_force_of(c["dest_force"])(st, p)
     frx, fry = repulsion(st, p, c["cutoff"])
     fx, fy = clamp_add(frx, fry, fdx, fdy)
     upd.update(model_of(c["model"]).step({**st, **upd}, c, fx, fy))
@@ -239,6 +291,8 @@ def step(st: dict, c: dict) -> dict:
         mask = act.reshape((-1,) + (1,) * (val.ndim - 1))
         new[key] = torch.where(mask, val, st[key])
     new["i"] = st["i"] + act.to(st["i"].dtype)
+    if "pos_hist" in st:
+        new.update(write_ring(new))
     return new
 
 

@@ -16,7 +16,8 @@ SMALL = {"n_riders": 600, "episode_steps": 200, "chunk_steps": 100}
     "cuda", marks=pytest.mark.cuda)], indirect=True)
 @pytest.mark.parametrize("cell", ["bicycle2d-dense-100k",
                                   "balancingrider-dense-100k",
-                                  "bicycle2d-district-8k"])
+                                  "bicycle2d-district-8k",
+                                  "twod-routes-100k"])
 def test_control_fails_the_limits(cell, device, small_crowd):
     torch.set_num_threads(4)
     limits = harness.cell_files(cell)[3]["checks"]

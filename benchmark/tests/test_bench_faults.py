@@ -1,7 +1,9 @@
 """A run driven through the whole harness on the CPU at a small size (no
 look for a card), with the timed path broken underneath: `correct` comes
 out false for each fault a cell of this benchmark can have, and true
-without one. The cells run on one chip, so there is no exchange between
+without one; for the twod cell also the spline destination force's
+faults: the straight line in its place, and the position ring read one
+slot off. The cells run on one chip, so there is no exchange between
 chips to leave out."""
 
 import dataclasses
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from benchmark import harness
+from cyclistsocialforce_tpu_torch import engine as E
 from cyclistsocialforce_tpu_torch.engine import Engine, build_neighbor_cache
 
 SMALL = {"n_riders": 600, "episode_steps": 40, "chunk_steps": 20}
@@ -54,14 +57,36 @@ def pairs_left_out(self, state):
                                 state)
 
 
+def straight_force(self, state, params=None):
+    """The straight-line destination force in the spline's place."""
+    return E.dest_force_straight(self.params if params is None else params,
+                                 state)
+
+
+ring_row = E._ring_row
+
+
+def stale_ring(pos_hist, step):
+    """The position ring read one slot off: the slot after the one asked
+    for (one step back reads the current position)."""
+    return ring_row(pos_hist, step + 1)
+
+
 FAULTS = {"simulate": [unchanged, half_left_out, answer_altered,
                        few_rows_altered],
           "neighbor_cache": [pairs_left_out]}
+# the spline destination force's faults (twod), and where they are planted
+SPLINE_FAULTS = {straight_force: (Engine, "destination_forces"),
+                 stale_ring: (E, "_ring_row")}
+CELLS = ["bicycle2d-dense-100k", "balancingrider-dense-100k",
+         "twod-routes-100k"]
 
 
 def run(cell, monkeypatch, fault=None):
     torch.set_num_threads(4)
-    if fault is not None:
+    if fault in SPLINE_FAULTS:
+        monkeypatch.setattr(*SPLINE_FAULTS[fault], fault)
+    elif fault is not None:
         where = next(k for k, v in FAULTS.items() if fault in v)
         monkeypatch.setattr(Engine, where, fault)
     result, lines = harness.run_cell(cell, 2 ** 32 + 17, 0.5, False, "cpu")
@@ -69,8 +94,7 @@ def run(cell, monkeypatch, fault=None):
     return result
 
 
-@pytest.mark.parametrize("cell", ["bicycle2d-dense-100k",
-                                  "balancingrider-dense-100k"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell, monkeypatch, small_crowd):
     result = run(cell, monkeypatch)
     assert result["correct"] is True
@@ -80,8 +104,7 @@ def test_sound_run_is_correct(cell, monkeypatch, small_crowd):
 
 @pytest.mark.parametrize("fault", sum(FAULTS.values(), []),
                          ids=lambda f: f.__name__)
-@pytest.mark.parametrize("cell", ["bicycle2d-dense-100k",
-                                  "balancingrider-dense-100k"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_not_correct(cell, fault, monkeypatch, small_crowd):
     result = run(cell, monkeypatch, fault)
     assert result["correct"] is False
@@ -91,3 +114,10 @@ def test_fault_is_not_correct(cell, fault, monkeypatch, small_crowd):
     if fault is pairs_left_out:
         assert (result["checks"]["failed_chunks"]["value"]
                 > result["checks"]["failed_chunks"]["limit"])
+
+
+@pytest.mark.parametrize("fault", list(SPLINE_FAULTS),
+                         ids=lambda f: f.__name__)
+def test_spline_fault_is_not_correct(fault, monkeypatch, small_crowd):
+    result = run("twod-routes-100k", monkeypatch, fault)
+    assert result["correct"] is False

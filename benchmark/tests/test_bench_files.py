@@ -32,7 +32,7 @@ def test_cell_files_found_by_name(cell):
     w, cfg, mix, limits = harness.cell_files(cell, SPEC)
     assert w["chips"] == 1
     assert cfg["name"] == w["config"] and mix["name"] == w["traffic"]
-    assert mix["generator"] in ("crowd",)
+    assert (harness.BENCH / "generators" / f"{mix['generator']}.py").is_file()
     assert set(limits["checks"]) == {"pos_gap_p999_m", "vel_gap_p999_mps",
                                      "far_rows", "failed_chunks"}
     assert limits["checks"]["failed_chunks"] == 0

@@ -27,3 +27,23 @@ def test_sizes_and_ranges():
     assert np.abs(x["dest"]).max() <= half
     assert x["s0"][:, 3].min() >= 1.0 and x["s0"][:, 3].max() <= 6.0
     assert np.abs(x["s0"][:, 2]).max() <= np.pi
+
+
+def test_routes_ride_the_crowd_of_the_same_seed():
+    routes = harness.load_json(harness.BENCH / "traffic" / "routes_100k.json")
+    m = {**routes, "n_riders": 1000}
+    seed = 2 ** 31 + 99
+    x, crowd = harness.generate(m, seed), harness.generate(
+        {**mix(), "n_riders": 1000}, seed)
+    assert np.array_equal(x["s0"], crowd["s0"])
+    again = harness.generate(m, seed)
+    assert np.array_equal(x["waypoints"], again["waypoints"])
+    k = m["waypoints_per_rider"]
+    assert x["waypoints"].shape == (x["rows"], k, 2)
+    assert np.array_equal(x["dest"], x["waypoints"][:, 0])
+    # the k-th waypoint (k + 1) spacings along the route, at most the
+    # side offset off it
+    dist = np.linalg.norm(x["waypoints"] - x["s0"][:, None, :2], axis=2)
+    along = m["waypoint_spacing_m"] * np.arange(1, k + 1)
+    assert (dist >= along - 1e-9).all()
+    assert (dist <= np.hypot(along, m["waypoint_side_m"]) + 1e-9).all()

@@ -27,7 +27,9 @@ def test_port_passes(monkeypatch):
 
 def test_reference_imports_no_program():
     code = ("import sys; sys.path.insert(0, %r); "
-            "import benchmark.reference.step; "
+            "import benchmark.reference.step, benchmark.reference.dest_spline, "
+            "benchmark.reference.models.twod, "
+            "benchmark.reference.models.balancingrider; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'cyclistsocialforce_tpu', "
             "'cyclistsocialforce_tpu_torch')); print(bad); "
