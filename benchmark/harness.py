@@ -237,7 +237,8 @@ def _positions(state):
 
 def reference_input(st, dtype, model: str):
     """A program state's fields as the reference's state of model
-    `model`, in `dtype`."""
+    `model` (a reference module's name, `reference.step.reference_model`),
+    in `dtype`."""
     from benchmark.reference import step as R
 
     fields = STATE_FIELDS + R.extra_fields(model)
@@ -322,7 +323,8 @@ def compare(items, cfg: dict, inputs: dict, steps: int, device,
                                     inputs["n_riders"], torch.float64,
                                     device, inputs.get("waypoints"))
         else:
-            start = reference_input(st_in, torch.float64, cfg["model"])
+            start = reference_input(st_in, torch.float64,
+                                    R.reference_model(cfg))
         want = R.run(start, c64, steps)
         for a in answers:
             if a is None:

@@ -34,8 +34,10 @@ def pairs_within(x, y, radius: float, mask):
     """Yield (receiver, source) index tensors of every ordered pair of
     distinct riders of `mask` whose distance is below `radius`, in blocks
     of receivers. Distances are taken in float64 whatever the positions'
-    dtype."""
-    idx = torch.nonzero(mask).squeeze(1)
+    dtype. A rider whose position is not finite is in no pair (a state
+    that a reference in a low precision, the control, has blown up)."""
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    idx = torch.nonzero(mask & finite).squeeze(1)
     if idx.numel() == 0:
         return
     xa, ya = x[idx].double(), y[idx].double()

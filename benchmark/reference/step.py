@@ -20,7 +20,10 @@ rider), pid_e, pid_i [N, 2], dest [N, 3], destqueue [N, Q, 3],
 destpointer, nq, i [N] int, znav [N, 3] bool, znavparams [N, 4],
 active [N] bool, and the fields the model's module names in its
 `EXTRA_FIELDS` (twod: pos_hist [N, H, 2], slot t % H the positions at
-global step t, and t_glob, the 0-d global step).
+global step t, and t_glob, the 0-d global step; the stochastic balancing
+rider: key, uid and t_glob, its random streams'). The model's module is
+the configuration's `reference_model`, by default its `model`
+(`reference_model`).
 """
 
 from __future__ import annotations
@@ -61,6 +64,13 @@ def clip(x, lo, hi):
 
 # ---- set-up ---------------------------------------------------------------
 
+def reference_model(cfg: dict) -> str:
+    """The name of the reference's module of configuration `cfg`'s model:
+    its `reference_model` where the program's model name alone does not
+    say what the reference steps, else its `model`."""
+    return cfg.get("reference_model", cfg["model"])
+
+
 def model_of(name: str):
     """The reference's module of model `name` (`models/<name>.py`): its
     `constants`, `initial` and `step`, and optionally `EXTRA_FIELDS`."""
@@ -88,8 +98,8 @@ def constants(cfg: dict, dtype, device) -> dict:
     parameters, the cutoff, and what the model's own `constants` works
     out."""
     c = {"p": dict(cfg["params"]), "cutoff": float(cfg["neighbors"]["cutoff"]),
-         "model": cfg["model"], "dest_force": cfg["dest_force"]}
-    c.update(model_of(cfg["model"]).constants(cfg, dtype, device))
+         "model": reference_model(cfg), "dest_force": cfg["dest_force"]}
+    c.update(model_of(c["model"]).constants(cfg, dtype, device))
     return c
 
 
@@ -268,15 +278,12 @@ def clamp_add(frx, fry, fdx, fdy):
     return frx * scale + fdx, fry * scale + fdy
 
 
-def write_ring(st: dict) -> dict:
-    """The position ring with slot (t_glob + 1) % H set to the state's
-    positions, and t_glob + 1 (every row: an inactive one holds its
-    position)."""
-    t1 = st["t_glob"] + 1
+def write_ring(st: dict, t1) -> torch.Tensor:
+    """The position ring with slot t1 % H (t1 the global step after this
+    one) set to the state's positions (every row: an inactive one holds
+    its position)."""
     slot = torch.remainder(t1, st["pos_hist"].shape[1]).long().reshape(1)
-    return {"pos_hist": st["pos_hist"].index_copy(1, slot,
-                                                  st["s"][:, None, :2]),
-            "t_glob": t1}
+    return st["pos_hist"].index_copy(1, slot, st["s"][:, None, :2])
 
 
 def step(st: dict, c: dict) -> dict:
@@ -291,8 +298,13 @@ def step(st: dict, c: dict) -> dict:
         mask = act.reshape((-1,) + (1,) * (val.ndim - 1))
         new[key] = torch.where(mask, val, st[key])
     new["i"] = st["i"] + act.to(st["i"].dtype)
-    if "pos_hist" in st:
-        new.update(write_ring(new))
+    # the global step advances once a step wherever the state keeps it;
+    # the ring, where there is one, takes the slot of the step after
+    if "t_glob" in st:
+        t1 = st["t_glob"] + 1
+        if "pos_hist" in st:
+            new["pos_hist"] = write_ring(new, t1)
+        new["t_glob"] = t1
     return new
 
 

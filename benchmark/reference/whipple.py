@@ -190,17 +190,23 @@ def exact_gains(mats, pole_lin, v):
     return ackermann(A, B, charpoly(feats))
 
 
-def fit_gains_poly(mats, pole_lin, v_hi: float, n_seg: int):
-    """[n_seg, 5, 6] coefficients (ascending degree, in the local
-    coordinate u in [0, 1] of each segment) of K(v) fitted by least
-    squares, segment by segment, on 129 speeds each of [GAINS_V_LO, v_hi];
-    with the band's lower edge and segment width."""
+def fit_poly(sample, v_hi: float, n_seg: int):
+    """[n_seg, M, 6] coefficients (ascending degree, in the local
+    coordinate u in [0, 1] of each segment) of a map of speed `sample`
+    (v [K] -> [K, M]) fitted by least squares, segment by segment, on 129
+    speeds each of [GAINS_V_LO, v_hi]; with the band's lower edge and
+    segment width."""
     seg = (v_hi - GAINS_V_LO) / n_seg
     u = np.linspace(0.0, 1.0, POLY_POINTS)
     V = np.vander(u, POLY_DEG + 1, increasing=True)
-    coeffs = np.empty((n_seg, 5, POLY_DEG + 1))
+    coeffs = []
     for s in range(n_seg):
-        K = exact_gains(mats, pole_lin, GAINS_V_LO + seg * (s + u))
-        c, *_ = np.linalg.lstsq(V, K, rcond=None)
-        coeffs[s] = c.T
-    return coeffs, GAINS_V_LO, seg
+        c, *_ = np.linalg.lstsq(V, sample(GAINS_V_LO + seg * (s + u)),
+                                rcond=None)
+        coeffs.append(c.T)
+    return np.stack(coeffs), GAINS_V_LO, seg
+
+
+def fit_gains_poly(mats, pole_lin, v_hi: float, n_seg: int):
+    """K(v) fitted as a piecewise quintic (`fit_poly`): [n_seg, 5, 6]."""
+    return fit_poly(lambda v: exact_gains(mats, pole_lin, v), v_hi, n_seg)
