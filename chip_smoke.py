@@ -25,7 +25,8 @@ held by one process (`parallel.sharding`), through the culled allgather,
 ring and halo schedules and a mixed crowd's allgather, all through K1,
 and once over a one-rank NCCL group; and the demos. The first four
 paths run every step through the per-agent kernels agent_pre and
-agent_post (`csrc/agent_step.cu`) around their pair kernel, and
+agent_post (`csrc/agent_step.cu`) around their pair kernel, slice_twod
+through their twod instances (the spline force, the arrived-freeze), and
 slice_balancingrider through agent_pre and agent_post_whipple. Phases, each
 printing one JSON line (a failing phase raises and the script exits
 non-zero):
@@ -60,7 +61,12 @@ non-zero):
                plain versions on one step of the 100,000-rider crowd after
                a table rebuild, in cell-sorted order: twod and legacy
                packs, per-rider columns (the slice_db engine), the
-               crowd with its navigation spread over the FSM (`fsm_crowd`)
+               crowd with its navigation spread over the FSM (`fsm_crowd`),
+               slice_twod's engine on its crowd with queues (`with_queues`)
+               after TWOD_WARM steps (`twod_spline`: agent_pre's spline
+               instance and agent_post's twod instance; its inactive rows'
+               forces are the chain's NaN where their spline is degenerate,
+               so finiteness is checked over the active rows there)
                and slice_balancingrider's crowd and engine (`whipple`),
                every output field bit for bit (the differing elements and
                their ulps named per field), with each kernel's and plain
@@ -99,7 +105,8 @@ non-zero):
   9b. slice_twod  240 steps of the 100,000 riders as twod riders
                (`bench.py:main_row("twod")`: the spline destination force,
                position ring of 128, the main path's NeighborConfig):
-               240 K1 launches, sorted-resident;
+               240 K1 launches and as many of agent_pre and agent_post
+               (their twod instances), sorted-resident;
   9c. slice_mixed  240 steps of a MixedEngine of the 100,000 riders,
                bicycle2d (legacy field) on the first 50,000 rows and twod
                on the rest, NeighborConfig(cutoff=100, block=128,
@@ -317,7 +324,8 @@ errors, times, bounds (with the floor that sets each: FP32, MUFU or
 bytes) and the four yardstick ratios (`vs_k1`: K1's time over the
 kernel's, same work, same call), agent_pre, agent_post and
 agent_post_whipple with their launches on the fused paths, errors, times,
-bounds and shares of them, the nvidia-smi
+bounds and shares of them (agent_pre's and agent_post's twod instances
+under `twod_spline`), the nvidia-smi
 line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA device the script exits
 non-zero before printing any result.
@@ -628,16 +636,19 @@ TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 # other path launches none of them
 FUSED_PATHS = {"slice": "agent_post", "slice_unrolled": "agent_post",
                "slice_db": "agent_post", "slice_legacy": "agent_post",
+               "slice_twod": "agent_post",
                "slice_balancingrider": "agent_post_whipple"}
 # what the per-agent kernels replace: the XLA program of a step, which
 # fuses this chain (no Pallas kernel computes it)
 JAX_STEP = "cyclistsocialforce_tpu/"
 AGENT_REPLACES = {
     "agent_pre": JAX_STEP + "engine.py:49-102 (nav_params_view, "
-                 "dest_force_straight) and :901-980 (pack_pair_fields), "
+                 "dest_force_straight), dest_force_spline and ops/spline.py "
+                 "(the spline instance) and :901-980 (pack_pair_fields), "
                  "fused by XLA",
     "agent_post": JAX_STEP + "ops/forces.py:238 (clamp_add_dest), "
-                  "models/bicycle2d.py:34-87 (step) and engine.py:1153-1198 "
+                  "models/bicycle2d.py:34-87 (step), models/bicycle_twod.py "
+                  "(the twod instance) and engine.py:1153-1198 "
                   "(finish_step), fused by XLA",
     "agent_post_whipple": JAX_STEP + "ops/forces.py:238 (clamp_add_dest), "
                           "models/balancingrider.py (step, gains_poly), "
@@ -648,8 +659,13 @@ FSM_QUEUE, FSM_SEED, FSM_INACTIVE = 4, 11, 0.02
 # FP32 operations a row of each per-agent kernel does, counted from
 # csrc/agent_step.cu (a math-library call as 20; agent_post_whipple:
 # benchmark/roofline/step.py's 560 a balancing rider less the ~100 of the
-# destination force and FSM); the bytes bound them 10-25x over
-OPS_AGENT = {"agent_pre": 160, "agent_post": 300, "agent_post_whipple": 460}
+# destination force and FSM; agent_pre's spline instance: its 1,250 a
+# twod rider less agent_post's 300); the bytes bound them 10-25x over
+OPS_AGENT = {"agent_pre": 160, "agent_post": 300, "agent_post_whipple": 460,
+             "agent_pre_spline": 950}
+# agent_step's twod case: steps of slice_twod's crowd with queues before
+# the step compared, so the ring holds a past and the fits are real
+TWOD_WARM = 120
 
 
 def emit(phase, **kw):
@@ -1319,10 +1335,17 @@ def agent_step_bytes(name, pre, state, engine):
     flag, both forces and the position ring but the slot it writes; for
     an inactive row its speed dyn_v; and writes the state, the latents,
     dyn_v, the gains row, the ring, the counter and the applied force
-    (the constants, 2 KB, read once a block from L2, are not counted)."""
+    (the constants, 2 KB, read once a block from L2, are not counted).
+    On a twod engine agent_pre's spline instance also reads two slots of
+    the ring and the clock, and for a row whose destination is not its
+    last the queue's points (x, y) past the two entries the FSM read;
+    agent_post's twod instance also reads each row's "arrived" flag."""
     import torch
 
+    from cyclistsocialforce_tpu_torch.ops import agent_step as AS
+
     n, hist = state.n, state.hist_len
+    twod = AS.is_twod(engine)
     if name == "agent_pre":
         nbytes = n * (16 + 12 + 4 + 4 + 3 + 16 + 4 + 4 + 4 + 1   # read
                       + 8 + 12 + 4 + 3 + 16 + 4 + 4)             # written
@@ -1335,12 +1358,18 @@ def agent_step_bytes(name, pre, state, engine):
         if tables:
             nbytes += 4 * n + sum(min(n, t.numel()) * t.element_size()
                                   for t in tables)
+        if twod:
+            ptr = pre.state.destpointer
+            fwd = torch.clamp(state.nq - ptr, max=4)
+            past = torch.clamp(ptr + fwd - state.destpointer - 2, min=0)
+            nbytes += 16 * n + 4 + 8 * int(past[ptr < state.nq - 1].sum())
     elif name == "agent_post":
         n_act = int(state.active.sum())
         nbytes = (n * (32 + 8 + 8 + 4 + 1 + 16 + 8 * (hist - 1))   # read
                   + n_act * (8 + 4 + 4)
                   + n * (32 + 8 + 8 + 4 + 8 * hist + 8)          # written
-                  + 8)                              # t_glob, both ways
+                  + 8                               # t_glob, both ways
+                  + n * twod)                       # twod: "arrived"
     else:
         gains = 4 * state.dyn_gains.shape[1]
         n_idle = int((~state.active).sum())
@@ -1358,7 +1387,7 @@ POST_FIELDS = {"agent_post": ("s", "pid_e", "pid_i", "i", "t_glob",
                                       "i", "t_glob", "pos_hist")}
 # the agent_step cases whose kernels are timed, and what the kernels'
 # lines keep of them
-AGENT_TIMED = ("twod", "legacy", "whipple")
+AGENT_TIMED = ("twod", "legacy", "whipple", "twod_spline")
 AGENT_KEYS = ("max_abs_err", "ms", "plain_ms", "eager_ms", "plain_eager_ms",
               "bound_ms", "bound_by", "share")
 
@@ -1399,6 +1428,7 @@ def phase_agent_step(cases):
         post = AS.post_step(engine)
         post_name = post.__name__
         post_ref = getattr(AS, post_name + "_ref")
+        twod = AS.is_twod(engine)
         pre_k = AS.agent_pre(engine, st, npad)
         pre_r = AS.agent_pre_ref(engine, st, npad)
         ragged = engine.pair_rows(n + 1)
@@ -1439,8 +1469,11 @@ def phase_agent_step(cases):
                     float((a.double() - b.double()).abs().max())
                     for a, b in pairs.values() if a.dtype.is_floating_point)}
             bad += [f"{form} {name}.{f}" for f, (d, _) in diffs.items() if d]
-            finite = all(bool(torch.isfinite(t).all()) for t, _ in
-                         pairs.values() if t.dtype.is_floating_point)
+            # on a twod engine an inactive row's forces are the chain's
+            # NaN where its spline is degenerate: its active rows checked
+            finite = all(bool(torch.isfinite(
+                t[st.active] if twod and t.shape == (n,) else t).all())
+                for t, _ in pairs.values() if t.dtype.is_floating_point)
             line[name]["finite"] = finite
             if not finite:
                 bad.append(f"{form} {name}: non-finite")
@@ -1453,7 +1486,9 @@ def phase_agent_step(cases):
                     lambda: post_ref(engine, st, pre_r, frx, fry))}
             for name, (kern, plain) in calls.items():
                 nbytes = agent_step_bytes(name, pre_r, st, engine)
-                floors = {"fp32": 1e3 * OPS_AGENT[name] * n / PEAK_FLOPS,
+                ops = OPS_AGENT[name + ("_spline" if twod and name ==
+                                        "agent_pre" else "")]
+                floors = {"fp32": 1e3 * ops * n / PEAK_FLOPS,
                           "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
                 floor = max(floors, key=floors.get)
                 kern_ms = graphed_ms(kern, reps=50)
@@ -1683,8 +1718,8 @@ KERNEL_SYMBOLS = {"pair_forces_neighbors": "pair_forces_twod_kernel",
                   "pair_forces_neighbors_unrolled":
                       "pair_forces_unrolled_kernel",
                   "pair_forces_neighbors_db": "pair_forces_db_kernel",
-                  "agent_pre": "agent_pre_kernel(",
-                  "agent_post": "agent_post_kernel(",
+                  "agent_pre": "agent_pre_kernel<",
+                  "agent_post": "agent_post_kernel<",
                   "agent_post_whipple": "agent_post_kernel_whipple("}
 
 
@@ -3694,12 +3729,17 @@ def main():
                                                      block_src=BLOCK_SRC))
     vs_k1.update(mixed_vs_k1)
     fsm_state = fsm_crowd(state)
+    # the twod case's crowd, run TWOD_WARM steps by an engine of its own
+    # (slice_twod's must not have captured before its phase)
+    twod_warm, _ = make_twod_engine().simulate(with_queues(twod_state),
+                                               TWOD_WARM, record=False)
     agent = timed("agent_step", phase_agent_step, {
         "twod": (engine, state), "legacy": (leg_engine, state),
         "columns": (db_engine, state), "twod_fsm": (engine, fsm_state),
         "legacy_fsm": (leg_engine, fsm_state),
-        "whipple": (br_engine, br_state)})
-    del fsm_state
+        "whipple": (br_engine, br_state),
+        "twod_spline": (twod_engine, twod_warm)})
+    del fsm_state, twod_warm
     paths = {"slice": (engine, state),
              "slice_unrolled": (make_engine(backend="pallas_unrolled"),
                                 state),
@@ -3941,8 +3981,9 @@ def kernels_line(launches, kernel, forms, vs_k1, kernel_of, agent):
                             "warm_up_launches": launches[path][2 + i][1]}
                      for path, post in FUSED_PATHS.items()
                      if name in ("agent_pre", post)},
-           **({"legacy": {key: agent["legacy"][name][key]
-                          for key in AGENT_KEYS}} if form == "twod" else {})}
+           **({case: {key: agent[case][name][key] for key in AGENT_KEYS}
+               for case in ("legacy", "twod_spline")} if form == "twod"
+              else {})}
           for i, (name, main, form) in enumerate((
               ("agent_pre", "slice", "twod"),
               ("agent_post", "slice", "twod"),

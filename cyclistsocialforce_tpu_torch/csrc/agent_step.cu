@@ -1,15 +1,20 @@
-// One step of a bicycle2d or a balancing-rider engine's per-agent chain,
-// in two kernels around the pair kernel (K1, K2 or K3):
+// One step of a bicycle2d, twod or balancing-rider engine's per-agent
+// chain, in two kernels around the pair kernel (K1, K2 or K3):
 //
 //   agent_pre   the destination queue update, the navigation FSM and the
-//               straight-line destination force, then the pair packs
-//               (src [npad, 16], recv [8, npad]) of the twod or the legacy
-//               field; an inactive row's FSM fields held at their pre-step
-//               values;
+//               destination force, then the pair packs (src [npad, 16],
+//               recv [8, npad]) of the twod or the legacy field; an
+//               inactive row's FSM fields held at their pre-step values.
+//               A template over the destination force: the straight line
+//               (bicycle2d, the balancing rider) or the spline of the
+//               twod model (its design and bound in the note above
+//               `spline_force`);
 //   agent_post  the repulsion clamped to the destination force's magnitude
 //               and added to it, bicycle2d's P control and kinematics, and
 //               the bookkeeping of the step (inactive rows held, step
-//               counters, the position ring);
+//               counters, the position ring); a template over the twod
+//               model's arrived-freeze, whose instance copies the ring a
+//               warp at a time;
 //   agent_post_kernel_whipple
 //               the balancing rider's counterpart of agent_post: the same
 //               clamp, then the linearised Whipple-Carvallo step with its
@@ -22,10 +27,11 @@
 //
 // Replaces the per-agent part of the program that XLA compiles for one
 // step of the JAX package's chunk (cyclistsocialforce_tpu/engine.py
-// nav_params_view :49-66 and dest_force_straight :73-102, pack_pair_fields
-// :901-980, calc_forces' clamp :1118-1151, models/bicycle2d.py step,
+// nav_params_view :49-66, dest_force_straight :73-102 and
+// dest_force_spline, pack_pair_fields :901-980, calc_forces' clamp
+// :1118-1151, models/bicycle2d.py and models/bicycle_twod.py step,
 // finish_step :1153-1198), which it fuses there; the port ran it as ~330
-// PyTorch kernels of ~2 us each.
+// PyTorch kernels of ~2 us each (the twod model's as ~800).
 //
 // What bounds it. One thread per agent row, each reading and writing only
 // its own row: ~240 bytes an agent in agent_pre (the state it reads, the
@@ -48,6 +54,8 @@
 // (ops/agent_step.py passes those constants).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace csf {
 
@@ -160,6 +168,26 @@ struct AgentPostWhippleArgs {
   // its segment width and float(segs - 1e-6), its clamp
   float t_s, half_t_s, k_p_v, a_max_lo, a_max_hi, v_max_lo, v_max_hi;
   float poly_lo, inv_seg_dv, x_max;
+};
+
+// agent_pre's spline instance: agent_pre's arguments, then the position
+// ring the spline looks back into and the fallback counter
+struct AgentPreSplineArgs : AgentPreArgs {
+  const float* pos_hist;               // [n, hist, 2]
+  const int* t_glob;                   // [1]
+  unsigned long long* fallback_rows;   // [1], added to: the rows that took
+                                       // the straight-line fallback
+  int hist, lookback;                  // lookback: floor(1 / t_s) steps
+  // the host's float32 reciprocals 1.0f / 6.0f and 1.0f / 3.0f, the
+  // nearest-sample grid's step float(1.0 / 19), float(theta_comf) *
+  // float(g) rounded in float, and the lowest curve speed 2.5
+  float sixth, third, q_step, tc_g, v_stable;
+};
+
+// agent_post's twod instance: agent_post's arguments and agent_pre's FSM
+// state, whose "arrived" flag freezes the row
+struct AgentPostTwodArgs : AgentPostArgs {
+  const unsigned char* znav;           // [n, 3] bool
 };
 
 }  // namespace csf
@@ -279,36 +307,24 @@ __device__ __forceinline__ void field_cols(const AgentPreArgs& a, float v,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    agent_pre_kernel(const AgentPreArgs a) {
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j >= a.npad) return;
-  float c[kSrcCols];
-  if (j >= a.n) {
-    // a pad row: inactive at row 0's position with row 0's field columns
-    // and zero amplitude (engine.py pack_pair_fields)
-    field_cols(a, a.s[3], a.active[0] ? 1.0f : 0.0f, a.uid[0], c);
-    float* src = a.src_pack + static_cast<size_t>(j) * kSrcCols;
-    for (int k = 0; k < kSrcCols; ++k) src[k] = 0.0f;
-    src[0] = a.s[0];
-    src[1] = a.s[1];
-    for (int k = 5; k < 11; ++k) src[k] = c[k];
-    for (int r = 0; r < kRecvRows; ++r) {
-      a.recv_pack[static_cast<size_t>(r) * a.npad + j] =
-          r == 0 ? a.s[0] : (r == 1 ? a.s[1] : 0.0f);
-    }
-    return;
-  }
-  const float* s = a.s + static_cast<size_t>(j) * 8;
-  const float x = s[0], y = s[1], psi = s[2], v = s[3];
-  const float* dq = a.destqueue + static_cast<size_t>(j) * a.q * 3;
-  const int p0 = a.destpointer[j];
-  const int nq = a.nq[j];
-  const bool z0 = a.znav[3 * j], z1 = a.znav[3 * j + 1],
-             z2 = a.znav[3 * j + 2];
-  const float d0x = a.dest[3 * j], d0y = a.dest[3 * j + 1],
-              d0z = a.dest[3 * j + 2];
-  const int i_step = a.i_step[j];
+// A row's navigation after one pass of the destination-queue update and
+// the FSM: its destination, pointer, stop log, FSM state and parameters,
+// the distance to the new destination and the desired speed
+struct NavPass {
+  float ndx, ndy, ndz, dstop, ddest, vd, zn0, zn1, zn2, zn3;
+  int ptr, istop;
+  bool n0, n1, n2;
+};
+
+// ops/navigation.py update_destination, dest_distance at the new pointer
+// and update_nav_state, from the row's fields before the pass: its
+// destination d0, pointer p0 and FSM state z, and behind zp, istop_in and
+// dstop_in the FSM's parameters, stop step and stop distance
+__device__ __forceinline__ NavPass nav_pass(
+    const AgentPreArgs& a, const float* dq, float x, float y, float v,
+    int nq, int i_step, int p0, bool z0, bool z1, bool z2, float d0x,
+    float d0y, float d0z, const float* zp, const int* istop_in,
+    const float* dstop_in) {
   auto entry = [&](int p) {
     p = p < 0 ? 0 : (p > a.q - 1 ? a.q - 1 : p);
     return dq + 3 * p;
@@ -317,6 +333,7 @@ __global__ void __launch_bounds__(kThreads)
     const float* e = entry(p);
     return norm_rn(__fsub_rn(e[0], x), __fsub_rn(e[1], y));
   };
+  NavPass o;
 
   // ops/navigation.py update_destination
   const float dnext = dist(p0);
@@ -334,15 +351,14 @@ __global__ void __launch_bounds__(kThreads)
     ndz = e[2];
   }
   const bool became_stop = !skip && d0z <= 0.0f && ndz > 0.0f;
-  const int istop = became_stop ? i_step : a.i_stopsignal[j];
-  const float dstop = became_stop
-                          ? norm_rn(__fsub_rn(d0x, ndx), __fsub_rn(d0y, ndy))
-                          : a.d_stopsignal[j];
+  o.istop = became_stop ? i_step : *istop_in;
+  o.dstop = became_stop
+                ? norm_rn(__fsub_rn(d0x, ndx), __fsub_rn(d0y, ndy))
+                : *dstop_in;
   // ops/navigation.py dest_distance at the new pointer
   const float ddest = dist(ptr);
 
   // ops/navigation.py update_nav_state
-  const float* zp = a.znavparams + static_cast<size_t>(j) * 4;
   const float d0_new = __fmul_rn(
       __fmul_rn(0.5f, __fsub_rn(a.vh2, __fmul_rn(v, v))), a.inv_a_des);
   const float d0 = z0 ? d0_new : zp[1];
@@ -375,30 +391,58 @@ __global__ void __launch_bounds__(kThreads)
   const float vd_z1 = ddest < __fmul_rn(1.5f, zn2) ? near : far;
   float vd = n1 ? vd_z1 : 0.0f;
   vd = n0 ? a.v_desired_default : vd;
+  o.ndx = ndx;
+  o.ndy = ndy;
+  o.ndz = ndz;
+  o.ptr = ptr;
+  o.ddest = ddest;
+  o.vd = vd;
+  o.n0 = n0;
+  o.n1 = n1;
+  o.n2 = n2;
+  o.zn0 = zn0;
+  o.zn1 = zn1;
+  o.zn2 = zn2;
+  o.zn3 = zn3;
+  return o;
+}
 
-  // ops/forces.py dest_force_straight
-  const bool ok = ddest > 0.0f;
-  const float safe = ok ? ddest : 1.0f;
-  a.fdx[j] = ok ? __fdiv_rn(__fmul_rn(-vd, __fsub_rn(x, ndx)), safe) : 0.0f;
-  a.fdy[j] = ok ? __fdiv_rn(__fmul_rn(-vd, __fsub_rn(y, ndy)), safe) : 0.0f;
-  // an inactive row holds its pre-step FSM fields (engine.py finish_step)
+// ops/forces.py dest_force_straight toward the pass's destination
+__device__ __forceinline__ void straight_force(float x, float y,
+                                               const NavPass& o, float* fx,
+                                               float* fy) {
+  const bool ok = o.ddest > 0.0f;
+  const float safe = ok ? o.ddest : 1.0f;
+  *fx = ok ? __fdiv_rn(__fmul_rn(-o.vd, __fsub_rn(x, o.ndx)), safe) : 0.0f;
+  *fy = ok ? __fdiv_rn(__fmul_rn(-o.vd, __fsub_rn(y, o.ndy)), safe) : 0.0f;
+}
+
+// Row j's outputs after its destination force: the FSM fields of the pass
+// `o` (an inactive row's held at the pre-step fields it was given:
+// engine.py finish_step), then the pair packs (engine.py
+// pack_pair_fields)
+__device__ __forceinline__ void pre_outputs(
+    const AgentPreArgs& a, int j, float x, float y, float psi, float v,
+    int p0, bool z0, bool z1, bool z2, float d0x, float d0y, float d0z,
+    const float* zp, const NavPass& o) {
   const bool live = a.active[j];
-  a.dest_out[3 * j] = live ? ndx : d0x;
-  a.dest_out[3 * j + 1] = live ? ndy : d0y;
-  a.dest_out[3 * j + 2] = live ? ndz : d0z;
-  a.ptr_out[j] = live ? ptr : p0;
-  a.znav_out[3 * j] = live ? n0 : z0;
-  a.znav_out[3 * j + 1] = live ? n1 : z1;
-  a.znav_out[3 * j + 2] = live ? n2 : z2;
+  a.dest_out[3 * j] = live ? o.ndx : d0x;
+  a.dest_out[3 * j + 1] = live ? o.ndy : d0y;
+  a.dest_out[3 * j + 2] = live ? o.ndz : d0z;
+  a.ptr_out[j] = live ? o.ptr : p0;
+  a.znav_out[3 * j] = live ? o.n0 : z0;
+  a.znav_out[3 * j + 1] = live ? o.n1 : z1;
+  a.znav_out[3 * j + 2] = live ? o.n2 : z2;
   float* zo = a.znavp_out + static_cast<size_t>(j) * 4;
-  zo[0] = live ? zn0 : zp[0];
-  zo[1] = live ? zn1 : zp[1];
-  zo[2] = live ? zn2 : zp[2];
-  zo[3] = live ? zn3 : zp[3];
-  a.istop_out[j] = live ? istop : a.i_stopsignal[j];
-  a.dstop_out[j] = live ? dstop : a.d_stopsignal[j];
+  zo[0] = live ? o.zn0 : zp[0];
+  zo[1] = live ? o.zn1 : zp[1];
+  zo[2] = live ? o.zn2 : zp[2];
+  zo[3] = live ? o.zn3 : zp[3];
+  a.istop_out[j] = live ? o.istop : a.i_stopsignal[j];
+  a.dstop_out[j] = live ? o.dstop : a.d_stopsignal[j];
 
   // engine.py pack_pair_fields
+  float c[kSrcCols];
   const float act = live ? 1.0f : 0.0f;
   const int uid = a.uid[j];
   const float cp = cosf(psi), sp = sinf(psi);
@@ -419,13 +463,460 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The twod model's spline destination force, agent_pre's spline instance.
+//
+// Replaces no TPU kernel: the JAX package's XLA program fuses this chain
+// (cyclistsocialforce_tpu/engine.py dest_force_spline, ops/spline.py),
+// which the port ran as ~800 PyTorch kernels a step, every [N, 6, 2] and
+// [N, 20, 2] intermediate a round trip through memory, and the second
+// queue/FSM pass of the fallback in every row.
+//
+// What bounds it. One thread per row reads ~350 bytes (agent_pre's ~240,
+// two slots of the position ring, up to four queued points) and does
+// ~1,250 FP32 operations (a row whose destination is its last evaluates
+// the spline at the 20 points of the nearest-sample search; the others
+// skip it, as only that row reads its argmin): ~0.01 ms of HBM traffic
+// at 100,000 riders and ~0.002 ms of FP32 work, so bytes bound it, and
+// the ~45 IEEE divisions a row, each a short sequence, sit beside them.
+// The design keeps the fit in registers: the support points, the chord
+// sites, the folded Thomas sweep over the 4 interior moments, the side
+// table of `_interval_pieces` and its one-hot selects are unrolled over
+// their static sizes. The fallback's second queue/FSM pass and straight
+// line run in a branch, in the ~1% of rows that take it; a warp counts
+// its fallback rows with one ballot and at most one atomic.
+//
+// Exactness: the file's header; besides, the chain's reductions in
+// PyTorch's CUDA order. torch.cumsum over the 5 chord lengths is ATen's
+// inner scan (ScanUtils.cuh), one Sklansky tree: c0 = x0 + 0, c1 = x1 +
+// c0, c2 = x2 + c1, c3 = (x3 + x2) + c1, c4 = x4 + c3. A one-hot sum is
+// its selected entry plus zeros (-0 comes out +0), and where it
+// multiplies the one-hot in (`_interval_pieces`), NaN if any other
+// interval's entry is not finite (0 x inf). torch.argmin takes the first
+// NaN, else the first minimum. `** 2` and `** 3` are x * x and (x * x) *
+// x.
+
+// A spline of the force: the chord sites t, the interval widths h, the
+// support points (px, py) and the moments (mx, my), and for each column
+// of `_interval_pieces`' side table the intervals whose entry is not
+// finite (bit i: interval i)
+struct Spline {
+  float t[6], h[5], px[6], py[6], mx[6], my[6];
+  unsigned bad_h, bad_t0, bad_t1, bad_mx0, bad_mx1, bad_my0, bad_my1,
+      bad_px0, bad_px1, bad_py0, bad_py1;
+};
+
+// The entries of v[0..4] that are not finite, as bits
+__device__ __forceinline__ unsigned nonfinite5(const float* v) {
+  unsigned b = 0;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) b |= isfinite(v[i]) ? 0u : 1u << i;
+  return b;
+}
+
+// ops/spline.py _interval_pieces' one-hot contraction over the 5
+// intervals: entry k of v plus the other intervals' zero products, NaN
+// where one of those is not finite
+__device__ __forceinline__ float pick5(const float* v, unsigned bad, int k) {
+  float r = v[0];
+#pragma unroll
+  for (int i = 1; i < 5; ++i) r = k == i ? v[i] : r;
+  return (bad & ~(1u << k)) ? __int_as_float(0x7fffffff)
+                            : __fadd_rn(r, 0.0f);
+}
+
+// ops/spline.py _masked_sites and fit_masked_banded over the first m of
+// the support points sp.px, sp.py: the sites, widths and moments, then
+// the side table's non-finite entries
+__device__ __forceinline__ void fit_spline(const AgentPreSplineArgs& a,
+                                           int m, Spline& sp) {
+  float seg[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const float dx = __fsub_rn(sp.px[k + 1], sp.px[k]);
+    const float dy = __fsub_rn(sp.py[k + 1], sp.py[k]);
+    seg[k] = k < m - 1
+                 ? __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)))
+                 : 0.0f;
+  }
+  const float c0 = __fadd_rn(seg[0], 0.0f);
+  const float c1 = __fadd_rn(seg[1], c0);
+  const float c2 = __fadd_rn(seg[2], c1);
+  const float c3 = __fadd_rn(__fadd_rn(seg[3], seg[2]), c1);
+  const float c4 = __fadd_rn(seg[4], c3);
+  const float cum[6] = {0.0f, c0, c1, c2, c3, c4};
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    sp.t[k] = k < m ? __fdiv_rn(cum[k], c4) : static_cast<float>(k - m + 2);
+  }
+  const float* h = sp.h;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) sp.h[k] = __fsub_rn(sp.t[k + 1], sp.t[k]);
+
+  // the end moments' relations from the two not-a-knot rows
+  const float p1 = __fdiv_rn(__fadd_rn(h[0], h[1]), h[1]);
+  const float p2 = __fdiv_rn(-h[0], h[1]);
+  float h_m3 = 0.0f, h_m2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    h_m3 = i == m - 3 ? h[i] : h_m3;
+    h_m2 = i == m - 2 ? h[i] : h_m2;
+  }
+  h_m3 = __fadd_rn(h_m3, 0.0f);
+  h_m2 = __fadd_rn(h_m2, 0.0f);
+  const float q1 = __fdiv_rn(__fadd_rn(h_m3, h_m2), h_m3);
+  const float q2 = __fdiv_rn(-h_m2, h_m3);
+
+  // the interior rows: slot i live where i <= m - 3, a dead slot identity
+  float sa[4], sb[4], sc[4], dx[4], dy[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool live = i <= m - 3;
+    const float ddx = __fsub_rn(
+        __fdiv_rn(__fsub_rn(sp.px[i + 2], sp.px[i + 1]), h[i + 1]),
+        __fdiv_rn(__fsub_rn(sp.px[i + 1], sp.px[i]), h[i]));
+    const float ddy = __fsub_rn(
+        __fdiv_rn(__fsub_rn(sp.py[i + 2], sp.py[i + 1]), h[i + 1]),
+        __fdiv_rn(__fsub_rn(sp.py[i + 1], sp.py[i]), h[i]));
+    sa[i] = live ? __fmul_rn(h[i], a.sixth) : 0.0f;
+    sb[i] = live ? __fmul_rn(__fadd_rn(h[i], h[i + 1]), a.third) : 1.0f;
+    sc[i] = live ? __fmul_rn(h[i + 1], a.sixth) : 0.0f;
+    dx[i] = live ? ddx : 0.0f;
+    dy[i] = live ? ddy : 0.0f;
+  }
+  // the end relations folded into the first and last live rows
+  const float a0 = sa[0];
+  sb[0] = __fadd_rn(sb[0], __fmul_rn(a0, p1));
+  sc[0] = __fadd_rn(sc[0], __fmul_rn(a0, p2));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool last = i == m - 3;
+    sb[i] = __fadd_rn(sb[i], last ? __fmul_rn(sc[i], q1) : 0.0f);
+    sa[i] = __fadd_rn(sa[i], last ? __fmul_rn(sc[i], q2) : 0.0f);
+    sc[i] = last ? 0.0f : sc[i];
+  }
+  sa[0] = 0.0f;
+
+  // the Thomas sweep over the 4 slots, both coordinates
+  const float cp0 = __fdiv_rn(sc[0], sb[0]);
+  const float den1 = __fsub_rn(sb[1], __fmul_rn(sa[1], cp0));
+  const float cp1 = __fdiv_rn(sc[1], den1);
+  const float den2 = __fsub_rn(sb[2], __fmul_rn(sa[2], cp1));
+  const float cp2 = __fdiv_rn(sc[2], den2);
+  const float den3 = __fsub_rn(sb[3], __fmul_rn(sa[3], cp2));
+  float* mm[2] = {sp.mx, sp.my};
+  const float* dd[2] = {dx, dy};
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const float* d = dd[c];
+    const float dp0 = __fdiv_rn(d[0], sb[0]);
+    const float dp1 =
+        __fdiv_rn(__fsub_rn(d[1], __fmul_rn(sa[1], dp0)), den1);
+    const float dp2 =
+        __fdiv_rn(__fsub_rn(d[2], __fmul_rn(sa[2], dp1)), den2);
+    const float dp3 =
+        __fdiv_rn(__fsub_rn(d[3], __fmul_rn(sa[3], dp2)), den3);
+    const float m3 = dp3;
+    const float m2 = __fsub_rn(dp2, __fmul_rn(cp2, m3));
+    const float m1 = __fsub_rn(dp1, __fmul_rn(cp1, m2));
+    const float m0 = __fsub_rn(dp0, __fmul_rn(cp0, m1));
+    float* M = mm[c];
+    M[1] = 0 <= m - 3 ? m0 : 0.0f;
+    M[2] = 1 <= m - 3 ? m1 : 0.0f;
+    M[3] = 2 <= m - 3 ? m2 : 0.0f;
+    M[4] = 3 <= m - 3 ? m3 : 0.0f;
+    M[5] = 0.0f;
+    M[0] = __fadd_rn(__fmul_rn(p1, M[1]), __fmul_rn(p2, M[2]));
+    float m_m2 = 0.0f, m_m3 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      m_m2 = i == m - 2 ? M[i] : m_m2;
+      m_m3 = i == m - 3 ? M[i] : m_m3;
+    }
+    const float m_end = __fadd_rn(__fmul_rn(q1, __fadd_rn(m_m2, 0.0f)),
+                                  __fmul_rn(q2, __fadd_rn(m_m3, 0.0f)));
+#pragma unroll
+    for (int i = 0; i < 6; ++i) M[i] = i == m - 1 ? m_end : M[i];
+  }
+
+  sp.bad_h = nonfinite5(sp.h);
+  sp.bad_t0 = nonfinite5(sp.t);
+  sp.bad_t1 = nonfinite5(sp.t + 1);
+  sp.bad_mx0 = nonfinite5(sp.mx);
+  sp.bad_mx1 = nonfinite5(sp.mx + 1);
+  sp.bad_my0 = nonfinite5(sp.my);
+  sp.bad_my1 = nonfinite5(sp.my + 1);
+  sp.bad_px0 = nonfinite5(sp.px);
+  sp.bad_px1 = nonfinite5(sp.px + 1);
+  sp.bad_py0 = nonfinite5(sp.py);
+  sp.bad_py1 = nonfinite5(sp.py + 1);
+}
+
+// One interval k of ops/spline.py _interval_pieces' side table, as its
+// one-hot contraction selects it (`pick5`): the width (and 6 times it),
+// the sites at its ends, the moments and, from them and the values,
+// spline_eval's a and b
+struct Interval {
+  float hk, hk6, tk0, tk1, mk[2], mk1[2], a[2], b[2];
+};
+
+__device__ __forceinline__ Interval interval(const Spline& sp, int k,
+                                             float sixth) {
+  Interval iv;
+  iv.hk = pick5(sp.h, sp.bad_h, k);
+  iv.hk6 = __fmul_rn(iv.hk, 6.0f);
+  iv.tk0 = pick5(sp.t, sp.bad_t0, k);
+  iv.tk1 = pick5(sp.t + 1, sp.bad_t1, k);
+  const float yk[2] = {pick5(sp.px, sp.bad_px0, k),
+                       pick5(sp.py, sp.bad_py0, k)};
+  const float yk1[2] = {pick5(sp.px + 1, sp.bad_px1, k),
+                        pick5(sp.py + 1, sp.bad_py1, k)};
+  iv.mk[0] = pick5(sp.mx, sp.bad_mx0, k);
+  iv.mk[1] = pick5(sp.my, sp.bad_my0, k);
+  iv.mk1[0] = pick5(sp.mx + 1, sp.bad_mx1, k);
+  iv.mk1[1] = pick5(sp.my + 1, sp.bad_my1, k);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    iv.a[c] = __fsub_rn(__fdiv_rn(yk[c], iv.hk),
+                        __fmul_rn(__fmul_rn(iv.mk[c], iv.hk), sixth));
+    iv.b[c] = __fsub_rn(__fdiv_rn(yk1[c], iv.hk),
+                        __fmul_rn(__fmul_rn(iv.mk1[c], iv.hk), sixth));
+  }
+  return iv;
+}
+
+// _interval_pieces' interval of query q: the sites strictly below q, less
+// one, clamped to 0..4
+__device__ __forceinline__ int interval_of(const Spline& sp, float q) {
+  int count = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) count += q > sp.t[i] ? 1 : 0;
+  return min(max(count - 1, 0), 4);
+}
+
+// ops/spline.py spline_eval: the position's coordinate c at query q of
+// interval iv
+__device__ __forceinline__ float interval_pos(const Interval& iv, float q,
+                                              int c) {
+  const float t1 = __fsub_rn(iv.tk1, q);
+  const float t2 = __fsub_rn(q, iv.tk0);
+  const float t13 = __fmul_rn(__fmul_rn(t1, t1), t1);
+  const float t23 = __fmul_rn(__fmul_rn(t2, t2), t2);
+  return __fadd_rn(
+      __fadd_rn(__fdiv_rn(__fadd_rn(__fmul_rn(iv.mk[c], t13),
+                                    __fmul_rn(iv.mk1[c], t23)),
+                          iv.hk6),
+                __fmul_rn(iv.a[c], t1)),
+      __fmul_rn(iv.b[c], t2));
+}
+
+// the nearest-sample grid's parameter k: k / 19 as torch.arange(19) times
+// the float of 1 / 19, then 1 (ops/spline.py uniform_grid)
+__device__ __forceinline__ float grid_param(int k, float q_step) {
+  return k == 19 ? 1.0f : __fmul_rn(static_cast<float>(k), q_step);
+}
+
+// engine.py dest_force_spline for row j (the first pass of the queue
+// update and FSM in *o): the force (fx, fy), and in *o the pass the row
+// keeps, the second where it falls back to the straight line. `live`:
+// the row is active.
+__device__ __forceinline__ void spline_force(
+    const AgentPreSplineArgs& a, int j, const float* dq, float x, float y,
+    float psi, float v, int nq, int i_step, bool live, NavPass* o,
+    float* fx, float* fy) {
+  const NavPass o1 = *o;
+  // the ring's slots of global steps t - 1 and t - min(t, lookback)
+  const int tg = a.t_glob[0];
+  int s_prev = (tg - 1) % a.hist;
+  s_prev += s_prev < 0 ? a.hist : 0;
+  int s_back = (tg - min(tg, a.lookback)) % a.hist;
+  s_back += s_back < 0 ? a.hist : 0;
+  const float* ph = a.pos_hist + static_cast<size_t>(j) * a.hist * 2;
+
+  // the support points: not-last (prev, current, the queue from the
+  // pointer on, fwd = min(nq - ptr, 4) of them valid); last (1 s back,
+  // prev, current, the destination)
+  Spline sp;
+  const bool is_last = o1.ptr >= nq - 1;
+  int m;
+  if (is_last) {
+    const float px[6] = {ph[2 * s_back], ph[2 * s_prev], x, o1.ndx, 0.0f,
+                         0.0f};
+    const float py[6] = {ph[2 * s_back + 1], ph[2 * s_prev + 1], y, o1.ndy,
+                         0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      sp.px[k] = px[k];
+      sp.py[k] = py[k];
+    }
+    m = 4;
+  } else {
+    sp.px[0] = ph[2 * s_prev];
+    sp.py[0] = ph[2 * s_prev + 1];
+    sp.px[1] = x;
+    sp.py[1] = y;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int p = min(max(o1.ptr + k, 0), a.q - 1);
+      sp.px[2 + k] = dq[3 * p];
+      sp.py[2 + k] = dq[3 * p + 1];
+    }
+    m = 2 + min(nq - o1.ptr, 4);
+  }
+  fit_spline(a, m, sp);
+
+  // the nearest of the 20 samples, read by a last-destination row only
+  // (the 5 intervals computed once for its 20 samples)
+  int i_spl = 1;
+  if (is_last) {
+    Interval ivs[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) ivs[k] = interval(sp, k, a.sixth);
+    float best = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < 20; ++k) {
+      const float q = grid_param(k, a.q_step);
+      const Interval& iv = ivs[interval_of(sp, q)];
+      const float ex = __fsub_rn(interval_pos(iv, q, 0), x);
+      const float ey = __fsub_rn(interval_pos(iv, q, 1), y);
+      const float d2 = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey));
+      if (k == 0 || (!isnan(best) && (isnan(d2) || d2 < best))) {
+        best = d2;
+        i_spl = k;
+      }
+    }
+  }
+  const int ipred = i_spl + (o1.ndz > 0.0f ? 5 : 3);
+  const float qi = grid_param(i_spl, a.q_step);
+  const float qp = grid_param(min(ipred, 19), a.q_step);
+  const Interval pi = interval(sp, interval_of(sp, qi), a.sixth);
+  const Interval pp = interval(sp, interval_of(sp, qp), a.sixth);
+
+  // the derivatives at the sample, the curvature's speed limit, the force
+  // along the chord to the look-ahead point
+  float ds[2], d2s[2];
+  const float t1 = __fsub_rn(pi.tk1, qi);
+  const float t2 = __fsub_rn(qi, pi.tk0);
+  const float t1sq = __fmul_rn(t1, t1);
+  const float t2sq = __fmul_rn(t2, t2);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    ds[c] = __fadd_rn(
+        __fsub_rn(__fdiv_rn(__fadd_rn(__fmul_rn(-pi.mk[c], t1sq),
+                                      __fmul_rn(pi.mk1[c], t2sq)),
+                            __fmul_rn(pi.hk, 2.0f)),
+                  pi.a[c]),
+        pi.b[c]);
+    d2s[c] = __fdiv_rn(__fadd_rn(__fmul_rn(pi.mk[c], t1),
+                                 __fmul_rn(pi.mk1[c], t2)),
+                       pi.hk);
+  }
+  const float sq = norm_rn(ds[0], ds[1]);
+  const float r_curve = __fdiv_rn(
+      __fmul_rn(__fmul_rn(sq, sq), sq),
+      fabsf(__fsub_rn(__fmul_rn(ds[0], d2s[1]), __fmul_rn(ds[1], d2s[0]))));
+  const float v_curve =
+      clamp_min(__fsqrt_rn(__fmul_rn(a.tc_g, r_curve)), a.v_stable);
+  // torch.minimum: a NaN operand wins
+  const float v_spl = isnan(v_curve) ? v_curve
+                      : isnan(o1.vd) ? o1.vd
+                                     : fminf(v_curve, o1.vd);
+  const float segx =
+      __fsub_rn(interval_pos(pp, qp, 0), interval_pos(pi, qi, 0));
+  const float segy =
+      __fsub_rn(interval_pos(pp, qp, 1), interval_pos(pi, qi, 1));
+  const float seg_len = norm_rn(segx, segy);
+  const float safe = seg_len > 0.0f ? seg_len : 1.0f;
+  const float fsx = __fdiv_rn(__fmul_rn(v_spl, segx), safe);
+  const float fsy = __fdiv_rn(__fmul_rn(v_spl, segy), safe);
+
+  // precedence: step 0 (along the heading), arrived (none), the fallback,
+  // the spline; an inactive row never falls back
+  const bool fb = (ipred >= 20 || !(isfinite(fsx) && isfinite(fsy))) &&
+                  !o1.n2 && i_step > 0 && live;
+  const int lane = threadIdx.x % 32;
+  const int rows = min(32, a.n - (j - lane));
+  const unsigned ballot =
+      __ballot_sync(rows >= 32 ? 0xffffffffu : (1u << rows) - 1u, fb);
+  if (lane == 0 && ballot != 0u) {
+    atomicAdd(a.fallback_rows, static_cast<unsigned long long>(__popc(ballot)));
+  }
+  *fx = i_step == 0 ? __fmul_rn(o1.vd, cosf(psi)) : (o1.n2 ? 0.0f : fsx);
+  *fy = i_step == 0 ? __fmul_rn(o1.vd, sinf(psi)) : (o1.n2 ? 0.0f : fsy);
+  if (fb) {
+    // the second pass of the queue update and FSM, then the straight line
+    const float zp1[4] = {o1.zn0, o1.zn1, o1.zn2, o1.zn3};
+    *o = nav_pass(a, dq, x, y, v, nq, i_step, o1.ptr, o1.n0, o1.n1, o1.n2,
+                  o1.ndx, o1.ndy, o1.ndz, zp1, &o1.istop, &o1.dstop);
+    straight_force(x, y, *o, fx, fy);
+  }
+}
+
+template <bool kSpline>
+using PreArgs = std::conditional_t<kSpline, AgentPreSplineArgs, AgentPreArgs>;
+
+template <bool kSpline>
 __global__ void __launch_bounds__(kThreads)
-    agent_post_kernel(const AgentPostArgs a) {
+    agent_pre_kernel(const PreArgs<kSpline> a) {
   const int j = blockIdx.x * kThreads + threadIdx.x;
-  if (j == 0) a.t_out[0] = a.t_glob[0] + 1;
-  if (j >= a.n) return;
-  const float inv_two_pi = __fdiv_rn(1.0f, kTwoPi);
+  if (j >= a.npad) return;
+  if (j >= a.n) {
+    // a pad row: inactive at row 0's position with row 0's field columns
+    // and zero amplitude (engine.py pack_pair_fields)
+    float c[kSrcCols];
+    field_cols(a, a.s[3], a.active[0] ? 1.0f : 0.0f, a.uid[0], c);
+    float* src = a.src_pack + static_cast<size_t>(j) * kSrcCols;
+    for (int k = 0; k < kSrcCols; ++k) src[k] = 0.0f;
+    src[0] = a.s[0];
+    src[1] = a.s[1];
+    for (int k = 5; k < 11; ++k) src[k] = c[k];
+    for (int r = 0; r < kRecvRows; ++r) {
+      a.recv_pack[static_cast<size_t>(r) * a.npad + j] =
+          r == 0 ? a.s[0] : (r == 1 ? a.s[1] : 0.0f);
+    }
+    return;
+  }
   const float* s = a.s + static_cast<size_t>(j) * 8;
+  const float x = s[0], y = s[1], psi = s[2], v = s[3];
+  const float* dq = a.destqueue + static_cast<size_t>(j) * a.q * 3;
+  const int p0 = a.destpointer[j];
+  const int nq = a.nq[j];
+  const bool z0 = a.znav[3 * j], z1 = a.znav[3 * j + 1],
+             z2 = a.znav[3 * j + 2];
+  const float d0x = a.dest[3 * j], d0y = a.dest[3 * j + 1],
+              d0z = a.dest[3 * j + 2];
+  const int i_step = a.i_step[j];
+  const float* zp = a.znavparams + static_cast<size_t>(j) * 4;
+  NavPass o = nav_pass(a, dq, x, y, v, nq, i_step, p0, z0, z1, z2, d0x, d0y,
+                       d0z, zp, a.i_stopsignal + j, a.d_stopsignal + j);
+  float fdx, fdy;
+  if constexpr (kSpline) {
+    // the spline (and in a fallback row the second pass) replaces `o`
+    spline_force(a, j, dq, x, y, psi, v, nq, i_step, a.active[j], &o, &fdx,
+                 &fdy);
+  } else {
+    straight_force(x, y, o, &fdx, &fdy);
+  }
+  a.fdx[j] = fdx;
+  a.fdy[j] = fdy;
+  pre_outputs(a, j, x, y, psi, v, p0, z0, z1, z2, d0x, d0y, d0z, zp, o);
+}
+
+// The row of element e of a span of rows of w columns (inv_w = 1 / w,
+// rounded): (e + 0.5) / w lies at least 0.5 / w from an integer, far
+// beyond float's error for spans of a warp's rows.
+__device__ __forceinline__ int row_of(int e, float inv_w) {
+  return static_cast<int>((static_cast<float>(e) + 0.5f) * inv_w);
+}
+
+// agent_post's step of row j (`s`: its pre-step state): ops/forces.py
+// clamp_add_dest (the applied force written out), then models/bicycle2d.py
+// control and move: the state's first five columns moved, the P errors
+// and integrals of steer and speed
+__device__ __forceinline__ void kinematic_step(const AgentPostArgs& a, int j,
+                                               const float* s,
+                                               float* moved, float* e,
+                                               float* i) {
+  const float inv_two_pi = __fdiv_rn(1.0f, kTwoPi);
 
   // ops/forces.py clamp_add_dest (utils/angles.py limit_magnitude)
   const float fdx = a.fdx[j], fdy = a.fdy[j];
@@ -474,17 +965,111 @@ __global__ void __launch_bounds__(kThreads)
       inv_two_pi);
   const float ny = __fadd_rn(s[1], __fmul_rn(tv, sinf(psi)));
   const float nx = __fadd_rn(s[0], __fmul_rn(tv, cosf(psi)));
+  moved[0] = nx;
+  moved[1] = ny;
+  moved[2] = psi;
+  moved[3] = v;
+  moved[4] = delta;
+  e[0] = ddelta;
+  e[1] = dv;
+  i[0] = i0;
+  i[1] = i1;
+}
+
+// The twod instance's bookkeeping (models/bicycle_twod.py step, engine.py
+// finish_step): an arrived row holds its position and heading with speed,
+// steer and roll zero, and its P memories; an inactive row its pre-step
+// state. The position ring, ~2 KB of a row's ~2.3 KB at H = 128, is
+// copied a warp at a time: lane l moves the (x, y) slots l, l + rows, ...
+// of the warp's rows' contiguous span (rows: the warp's live rows, 32 but
+// in the last warp), so each access of a whole warp is 256 contiguous
+// bytes, where a thread copying its own row would stride the warp's lanes
+// 2 H x 4 bytes apart; and kRingBatch loads are in flight before their
+// stores, since a store that may alias the next load would otherwise
+// hold that load back for a whole round trip to memory.
+constexpr int kRingBatch = 8;
+
+__device__ __forceinline__ void twod_finish(const AgentPostTwodArgs& a,
+                                            int j, const float* s,
+                                            const float* moved,
+                                            const float* e, const float* i) {
+  __shared__ float2 pbuf[kThreads];      // the rows' new positions
+  const bool act = a.active[j];
+  const bool arrived = a.znav[3 * j + 2];
+  float so[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float frozen = k == 3 || k == 4 || k == 5 ? 0.0f : s[k];
+    so[k] = !act ? s[k] : (arrived ? frozen : (k < 5 ? moved[k] : s[k]));
+  }
+  float* out = a.s_out + static_cast<size_t>(j) * 8;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) out[k] = so[k];
+  const bool ctl = act && !arrived;
+  a.pid_e_out[2 * j] = ctl ? e[0] : a.pid_e[2 * j];
+  a.pid_e_out[2 * j + 1] = ctl ? e[1] : a.pid_e[2 * j + 1];
+  a.pid_i_out[2 * j] = ctl ? i[0] : a.pid_i[2 * j];
+  a.pid_i_out[2 * j + 1] = ctl ? i[1] : a.pid_i[2 * j + 1];
+  a.i_out[j] = a.i_step[j] + (act ? 1 : 0);
+
+  const int lane = threadIdx.x % 32;
+  const int r0 = j - lane;
+  const int rows = min(32, a.n - r0);
+  const float2* wbuf = pbuf + (threadIdx.x - lane);
+  pbuf[threadIdx.x] = make_float2(so[0], so[1]);
+  __syncwarp(rows >= 32 ? 0xffffffffu : (1u << rows) - 1u);
+  const int hist = a.hist;
+  int slot = (a.t_glob[0] + 1) % hist;
+  slot = slot < 0 ? slot + hist : slot;
+  const float inv_h = __frcp_rn(static_cast<float>(hist));
+  const size_t first = static_cast<size_t>(r0) * hist;
+  const float2* ph = reinterpret_cast<const float2*>(a.pos_hist) + first;
+  float2* po = reinterpret_cast<float2*>(a.pos_hist_out) + first;
+  const int total = rows * hist;
+  for (int k0 = lane; k0 < total; k0 += kRingBatch * rows) {
+    float2 v[kRingBatch];
+#pragma unroll
+    for (int b = 0; b < kRingBatch; ++b) {
+      const int k = k0 + b * rows;
+      if (k < total) v[b] = ph[k];
+    }
+#pragma unroll
+    for (int b = 0; b < kRingBatch; ++b) {
+      const int k = k0 + b * rows;
+      if (k < total) {
+        const int r = row_of(k, inv_h);
+        po[k] = k - r * hist == slot ? wbuf[r] : v[b];
+      }
+    }
+  }
+}
+
+template <bool kFreeze>
+using PostArgs = std::conditional_t<kFreeze, AgentPostTwodArgs, AgentPostArgs>;
+
+template <bool kFreeze>
+__global__ void __launch_bounds__(kThreads)
+    agent_post_kernel(const PostArgs<kFreeze> a) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j == 0) a.t_out[0] = a.t_glob[0] + 1;
+  if (j >= a.n) return;
+  const float* s = a.s + static_cast<size_t>(j) * 8;
+  float moved[5], e[2], i[2];
+  kinematic_step(a, j, s, moved, e, i);
+  if constexpr (kFreeze) {
+    twod_finish(a, j, s, moved, e, i);
+    return;
+  }
 
   // engine.py finish_step: an inactive row holds its pre-step state (its
   // FSM fields, agent_pre's, already do)
   const bool act = a.active[j];
   float* so = a.s_out + static_cast<size_t>(j) * 8;
-  const float moved[5] = {nx, ny, psi, v, delta};
   for (int k = 0; k < 8; ++k) so[k] = act && k < 5 ? moved[k] : s[k];
-  a.pid_e_out[2 * j] = act ? ddelta : a.pid_e[2 * j];
-  a.pid_e_out[2 * j + 1] = act ? dv : a.pid_e[2 * j + 1];
-  a.pid_i_out[2 * j] = act ? i0 : a.pid_i[2 * j];
-  a.pid_i_out[2 * j + 1] = act ? i1 : a.pid_i[2 * j + 1];
+  a.pid_e_out[2 * j] = act ? e[0] : a.pid_e[2 * j];
+  a.pid_e_out[2 * j + 1] = act ? e[1] : a.pid_e[2 * j + 1];
+  a.pid_i_out[2 * j] = act ? i[0] : a.pid_i[2 * j];
+  a.pid_i_out[2 * j + 1] = act ? i[1] : a.pid_i[2 * j + 1];
   a.i_out[j] = a.i_step[j] + (act ? 1 : 0);
 
   // the position ring, copied, its slot (t_glob + 1) % H written
@@ -590,13 +1175,6 @@ template <int W>
 __device__ __forceinline__ void warp_store(float* g, const float* buf,
                                            int rows, int lane) {
   for (int e = lane; e < rows * W; e += 32) g[e] = buf[e / W * kLd + e % W];
-}
-
-// The row of element e of a span of rows of w columns (inv_w = 1 / w,
-// rounded): (e + 0.5) / w lies at least 0.5 / w from an integer, far
-// beyond float's error for spans of a warp's rows.
-__device__ __forceinline__ int row_of(int e, float inv_w) {
-  return static_cast<int>((static_cast<float>(e) + 0.5f) * inv_w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -829,38 +1407,62 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
-
-extern "C" {
-
 // agent_pre over args->npad rows on `stream` of `device`. Every pointer is
 // a contiguous CUDA tensor of the shape its field names (bools 1 byte,
 // int32, float32; a per-rider pair column float32 or float64). Returns
 // cudaGetLastError() after the launch (0 on success).
-int csf_agent_pre(const csf::AgentPreArgs* args, int device, void* stream) {
-  if (args->npad <= 0) return 0;
+template <bool kSpline>
+int launch_pre(const PreArgs<kSpline>& a, int device, void* stream) {
+  if (a.npad <= 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (args->n <= 0 || args->n > args->npad || args->q <= 0) {
+  if (a.n <= 0 || a.n > a.npad || a.q <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (args->npad + kThreads - 1) / kThreads;
-  agent_pre_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
+  const int blocks = (a.npad + kThreads - 1) / kThreads;
+  agent_pre_kernel<kSpline>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // agent_post over args->n rows (at least one block: it advances t_glob).
-int csf_agent_post(const csf::AgentPostArgs* args, int device, void* stream) {
+template <bool kFreeze>
+int launch_post(const PostArgs<kFreeze>& a, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (args->n < 0 || args->hist <= 0) {
+  if (a.n < 0 || a.hist <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = args->n > 0 ? (args->n + kThreads - 1) / kThreads : 1;
-  agent_post_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(*args);
+  const int blocks = a.n > 0 ? (a.n + kThreads - 1) / kThreads : 1;
+  agent_post_kernel<kFreeze>
+      <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+int csf_agent_pre(const csf::AgentPreArgs* args, int device, void* stream) {
+  return launch_pre<false>(*args, device, stream);
+}
+
+// the spline instance: besides, a ring of at least lookback + 1 slots
+int csf_agent_pre_spline(const csf::AgentPreSplineArgs* args, int device,
+                         void* stream) {
+  if (args->hist < args->lookback + 1 || args->lookback < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_pre<true>(*args, device, stream);
+}
+
+int csf_agent_post(const csf::AgentPostArgs* args, int device, void* stream) {
+  return launch_post<false>(*args, device, stream);
+}
+
+int csf_agent_post_twod(const csf::AgentPostTwodArgs* args, int device,
+                        void* stream) {
+  return launch_post<true>(*args, device, stream);
 }
 
 // agent_post_kernel_whipple over args->n rows (at least one block: it

@@ -25,8 +25,8 @@ shared space, advanced step by step --
 
 Every stage is a batched function over the [N] agent axis. The culled
 pair stage runs its CUDA kernel on CUDA tensors and its plain version on
-CPU tensors: the state's device selects the backend. For a bicycle2d or
-balancing-rider engine of the fused form on a CUDA state
+CPU tensors: the state's device selects the backend. For a bicycle2d,
+twod or balancing-rider engine of the fused form on a CUDA state
 (`agent_step.fused_form`), stages 1 and 3-5 run as two kernels around the
 pair kernel (`ops.agent_step`).
 
@@ -190,6 +190,14 @@ def dest_force_spline(params, state: AgentState, lookback="auto"):
         an engine decides once when it is built (None: per agent, from
         each agent's t_s, by a one-hot contraction over the ring); "auto"
         decides it here (a host read of per-agent t_s)."""
+    return spline_force_fallback(params, state, lookback)[:3]
+
+
+def spline_force_fallback(params, state: AgentState, lookback="auto"):
+    """`dest_force_spline`'s (fx, fy, new_state), and the [N] bool mask of
+    the rows that took the straight-line fallback (the count that
+    agent_pre's spline instance adds to `agent_step.spline_fallback_rows`
+    on the card)."""
     if isinstance(lookback, str):
         lookback = spline_lookback(params)
     n = state.n
@@ -304,7 +312,7 @@ def dest_force_spline(params, state: AgentState, lookback="auto"):
         dest=sel(dest2, dest1), destpointer=sel(ptr2, ptr1),
         znav=sel(znav2, znav1), znavparams=sel(znavp2, znavp1),
         i_stopsignal=sel(istop2, istop1), d_stopsignal=sel(dstop2, dstop1))
-    return sel(fbx, fx), sel(fby, fy), new_state
+    return sel(fbx, fx), sel(fby, fy), new_state, use_fb
 
 
 DEST_FORCES = {"straight": dest_force_straight,
@@ -1561,12 +1569,12 @@ class Engine(nn.Module):
                    presorted: bool = False):
         """One step of an engine of the fused form (`agent_step.fused_form`)
         through `agent_pre`, the pair stage (`pair_stage`) and the model's
-        post kernel (`agent_step.post_step`: `agent_post` for bicycle2d,
-        `agent_post_whipple` for the balancing rider): (state, fx, fy) as
-        `step_with_forces`. On CPU tensors the wrappers run their plain
-        versions (the torch functions), so the result is the torch chain's
-        bit for bit; the fields the step does not change are the
-        argument's own tensors."""
+        post kernel (`agent_step.post_step`: `agent_post` for bicycle2d and
+        the twod model, `agent_post_whipple` for the balancing rider):
+        (state, fx, fy) as `step_with_forces`. On CPU tensors the wrappers
+        run their plain versions (the torch functions), so the result is
+        the torch chain's bit for bit; the fields the step does not change
+        are the argument's own tensors."""
         pre = AS.agent_pre(self, state, self.pair_rows(state.n))
         frx, fry = self.pair_stage(state, pre.src_pack, pre.recv_pack,
                                    nbr_cache, presorted)
@@ -1731,6 +1739,12 @@ class Engine(nn.Module):
             graph = on_card and chunked
         probe = tracing.probe(state.device)
         tracing.count(probe, "steps", n_steps)
+        if probe is not None and AS.is_twod(self) and \
+                AS.fused_form(self, state):
+            # agent_pre's spline instance counts its fallback rows on the
+            # device, in a counter that only grows
+            tracing.grows(probe, "spline_fallback_rows",
+                          AS.spline_fallback_rows(self, state.device))
         with tracing.span(probe, "simulate", stream=False):
             return self._simulate(state, n_steps, mode,
                                   not record and not record_forces,

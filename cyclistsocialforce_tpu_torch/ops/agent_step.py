@@ -1,14 +1,18 @@
-"""One step of a bicycle2d or a balancing-rider engine's per-agent chain
-as two CUDA kernels around the pair kernel (`csrc/agent_step.cu`), their
-wrappers, their plain PyTorch versions and their launch counters.
+"""One step of a bicycle2d, twod or balancing-rider engine's per-agent
+chain as two CUDA kernels around the pair kernel (`csrc/agent_step.cu`),
+their wrappers, their plain PyTorch versions and their launch counters.
 
   agent_pre   the destination force with the destination-queue update and
-              the navigation FSM (`engine.dest_force_straight`; an
-              inactive row's FSM fields held, as `Engine.finish_step`
-              holds them), then the pair packs (`Engine.pack_pair_fields`)
+              the navigation FSM (`engine.dest_force_straight`, or the
+              twod model's `engine.dest_force_spline` in the kernel's
+              spline instance; an inactive row's FSM fields held, as
+              `Engine.finish_step` holds them), then the pair packs
+              (`Engine.pack_pair_fields`)
   agent_post  the repulsion clamped and added to the destination force
               (`ops.forces.clamp_add_dest`), bicycle2d's step
-              (`models.bicycle2d.step`) and the step's bookkeeping
+              (`models.bicycle2d.step`; the twod model's,
+              `models.bicycle_twod.step`, with its arrived-freeze, in the
+              kernel's twod instance) and the step's bookkeeping
               (`Engine.finish_step`)
   agent_post_whipple
               the same clamp and bookkeeping around the balancing rider's
@@ -19,7 +23,8 @@ wrappers, their plain PyTorch versions and their launch counters.
 
 The JAX package compiles this chain with the rest of a chunk into one XLA
 program, which fuses it (its `engine.py` :49-102, :901-980, :1118-1198,
-`models/bicycle2d.py` and `models/balancingrider.py`); the port's
+`models/bicycle2d.py`, `models/bicycle_twod.py` and
+`models/balancingrider.py`); the port's
 `Engine.step_with_forces` takes the kernels for a step of the fused form
 (`fused_form`, the one rule of which steps take them), agent_pre and the
 post kernel of the engine's model (`post_step`).
@@ -64,6 +69,9 @@ NAV_FIELDS = ("d_arrived_inter", "d_arrived_stop", "v_max_stop",
 MODEL_FIELDS = ("t_s", "k_p_delta", "k_p_v", "a_max", "delta_max",
                 "v_max_riding", "l")
 WHIPPLE_FIELDS = ("t_s", "k_p_v", "a_max", "v_max_riding")
+# the shared parameter the spline instance takes beyond the others (t_s,
+# a model field, also sets the lookback: `engine.spline_lookback`)
+SPLINE_FIELDS = ("g",)
 LIMIT_PAIRS = ("a_max", "a_desired_default", "v_max_riding")
 # the pack's field columns, in csrc/agent_step.cu's `Col` order ("v_max"
 # is v_max_riding's upper limit, the legacy field's excentricity scale)
@@ -95,6 +103,15 @@ _AgentPreArgs = _struct(
     "_AgentPreArgs", _PRE_IN + _PRE_OUT, ("n", "npad", "q", "legacy"),
     _NAV_CONSTANTS, [("cols", _PairCol * len(PACK_COLUMNS))])
 
+# agent_pre's spline instance: agent_pre's arguments, the ring, the clock
+# and the fallback counter, the ring's length and the lookback, and the
+# spline's constants
+_SPLINE_CONSTANTS = ("sixth", "third", "q_step", "tc_g", "v_stable")
+_AgentPreSplineArgs = type("_AgentPreSplineArgs", (ctypes.Structure,), {
+    "_fields_": [("base", _AgentPreArgs), ("pos_hist", _P), ("t_glob", _P),
+                 ("fallback_rows", _P), ("hist", _I), ("lookback", _I),
+                 *((f, _F) for f in _SPLINE_CONSTANTS)]})
+
 # the destination and FSM fields agent_pre sets
 _CHANGED = ("dest", "destpointer", "znav", "znavparams", "i_stopsignal",
             "d_stopsignal")
@@ -113,6 +130,10 @@ _MODEL_CONSTANTS = ("t_s", "inv_t_s", "k_p_delta", "k_p_v", "a_max_lo",
                     "v_max_hi", "inv_l")
 _AgentPostArgs = _struct("_AgentPostArgs", _POST_IN + _POST_OUT,
                          ("n", "hist"), _MODEL_CONSTANTS)
+# agent_post's twod instance: agent_post's arguments and agent_pre's FSM
+# state
+_AgentPostTwodArgs = type("_AgentPostTwodArgs", (ctypes.Structure,), {
+    "_fields_": [("base", _AgentPostArgs), ("znav", _P)]})
 # agent_post_whipple: the pre-step state fields, the forces and the
 # balancing rider's kept constants, then its outputs
 _WPOST_IN = ("s", "dyn_x", "dyn_v", "dyn_gains", "i", "t_glob", "pos_hist",
@@ -229,15 +250,23 @@ def _fit_fits(poly) -> bool:
     return len(poly[0]) * len(poly[0][0]) <= WHIPPLE_MAX_COEFFS
 
 
+def is_twod(engine) -> bool:
+    """Is `engine`'s model step the twod model's (`models.bicycle_twod`:
+    agent_pre's spline instance and agent_post's twod instance)?"""
+    from cyclistsocialforce_tpu_torch.models import bicycle_twod
+
+    return getattr(engine, "model_step", None) is bicycle_twod.step
+
+
 def post_step(engine):
     """The post kernel's wrapper for `engine`'s model step, or None:
-    agent_post for bicycle2d, agent_post_whipple for a balancing rider of
-    the "poly" gain mode (`whipple_mode`) whose fit it stages; every other
-    model and mode keeps the torch chain."""
+    agent_post for bicycle2d and the twod model, agent_post_whipple for a
+    balancing rider of the "poly" gain mode (`whipple_mode`) whose fit it
+    stages; every other model and mode keeps the torch chain."""
     from cyclistsocialforce_tpu_torch.models import balancingrider, bicycle2d
 
     step = getattr(engine, "model_step", None)
-    if step is bicycle2d.step:
+    if step is bicycle2d.step or is_twod(engine):
         return agent_post
     if (step is balancingrider.step
             and whipple_mode(engine.params) == "poly"
@@ -248,18 +277,25 @@ def post_step(engine):
 
 def takes_engine(engine, device) -> bool:
     """Is `engine` of the fused form on `device`: a model step a post
-    kernel takes (`post_step`), the straight destination force, a field
-    culled through a pair kernel (twod or legacy for bicycle2d, twod for
-    the balancing rider), parameters the kernels take (`takes_params`),
-    and no road, scripts or force hooks?"""
-    from cyclistsocialforce_tpu_torch.engine import dest_force_straight
+    kernel takes (`post_step`) with its destination force (the twod
+    model's spline, the straight line for the others), a field culled
+    through a pair kernel (twod or legacy for agent_post's models, twod
+    for the balancing rider), parameters the kernels take (`takes_params`:
+    shared t_s, so one lookback for the spline, and the spline's g), and
+    no road, scripts or force hooks? (The spline's ring belongs to the
+    state: `takes_ring`.)"""
+    from cyclistsocialforce_tpu_torch.engine import (dest_force_spline,
+                                                     dest_force_straight)
 
     post = post_step(engine)
     if post is None:
         return False
     model_fields, families = _POST_NEEDS[post]
+    dest = dest_force_straight
+    if is_twod(engine):
+        dest, model_fields = dest_force_spline, model_fields + SPLINE_FIELDS
     return (getattr(engine, "pair_family", None) in families
-            and getattr(engine, "dest_force", None) is dest_force_straight
+            and getattr(engine, "dest_force", None) is dest
             and engine.neighbors is not None and engine.road is None
             and engine.scripted is None and engine.rep_reduce is None
             and engine.combine_forces is None
@@ -275,12 +311,25 @@ def fused_form(engine, state) -> bool:
     there (`takes_engine`)? Every other step, and every step of a CPU
     state, goes through the engine's torch functions. The engine decides
     once per device: it keeps the answer with its pack columns, which it
-    drops when a field the answer reads changes."""
+    drops when a field the answer reads changes; the twod model's spline
+    takes a ring that holds its lookback (`takes_ring`)."""
     if not (state.s.is_cuda and state.s.dtype == torch.float32
             and state.n > 1):
         return False
-    return engine.kept(("fused_form", state.device),
-                       lambda: takes_engine(engine, state.device))
+    return (engine.kept(("fused_form", state.device),
+                        lambda: takes_engine(engine, state.device))
+            and takes_ring(engine, state.hist_len))
+
+
+def takes_ring(engine, hist_len: int) -> bool:
+    """Does a position ring of `hist_len` slots hold what the kernels read:
+    for the twod model's spline its 1 s lookback and the step before it
+    (lookback + 1 slots; a shorter ring keeps the torch chain, which
+    warns that it reads wrapped samples)?"""
+    if not is_twod(engine):
+        return True
+    lookback = engine.dest_kw.get("lookback")
+    return lookback is not None and hist_len >= lookback + 1
 
 
 def _require_fused(name, engine, state, post=None):
@@ -291,9 +340,11 @@ def _require_fused(name, engine, state, post=None):
         raise ValueError(
             f"{name}: the kernel takes a float32 state of more than one row "
             f"and an engine of the fused form (`agent_step.fused_form`): "
-            f"bicycle2d (agent_post) or a balancing rider whose gains are "
-            f"a piecewise polynomial (agent_post_whipple), the straight "
-            f"destination force, the twod (or for bicycle2d the legacy) "
+            f"bicycle2d with the straight destination force or the twod "
+            f"model with its spline and a ring of its 1 s lookback "
+            f"(agent_post), or a balancing rider whose gains are a "
+            f"piecewise polynomial with the straight destination force "
+            f"(agent_post_whipple), the twod (or for agent_post the legacy) "
             f"field culled, shared navigation and model parameters, "
             f"per-rider pair columns as 1-D float tables on the state's "
             f"device, no road, scripts or hooks")
@@ -359,6 +410,31 @@ def _whipple_constants(params) -> dict:
             "x_max": _f32(float(len(coeffs)) - 1e-6)}
 
 
+def _spline_constants(params) -> dict:
+    """engine.py dest_force_spline's and ops/spline.py's shared values, as
+    PyTorch's CUDA kernels apply them: the divisions by 6.0 and 3.0
+    multiplications by float32 reciprocals, the nearest-sample grid's
+    step the float of 1 / 19 (`spline.uniform_grid`), the comfort lean
+    times g the float32 product of the two floats (`SPL_THETA_COMF * g`
+    with g a float32 tensor)."""
+    from cyclistsocialforce_tpu_torch import engine as E
+
+    return {"sixth": _inv(6.0), "third": _inv(3.0),
+            "q_step": _f32(1.0 / (E.SPL_N_PNTS - 1)),
+            "tc_g": float(np.float32(E.SPL_THETA_COMF) * np.float32(params.g)),
+            "v_stable": _f32(E.SPL_V_MIN_STABLE)}
+
+
+def spline_fallback_rows(engine, device) -> torch.Tensor:
+    """The int64 [1] counter on `device` (a state's, with its index) to
+    which agent_pre's spline instance adds the rows that took the
+    straight-line fallback, every step it runs; kept with the engine's
+    pack columns (a captured chunk adds to it by address)."""
+    device = torch.device(device)
+    return engine.kept(("spline_fallback_rows", device), lambda: torch.zeros(
+        1, dtype=torch.int64, device=device))
+
+
 def _pair_col(v) -> _PairCol:
     if isinstance(v, torch.Tensor):
         return _PairCol(v.data_ptr(), v.shape[0],
@@ -381,8 +457,8 @@ def _check_state(name, state, fields):
 
 
 def _check_post_inputs(name, before, pre: PreStep, frx, fry):
-    """A post kernel takes contiguous float32 [n] forces, a contiguous
-    float32 [n, H, 2] position ring and a one-element int32 clock."""
+    """A post kernel takes contiguous float32 [n] forces, and the ring and
+    clock of `_check_ring`."""
     n = before.n
     for label, t in (("fdx", pre.fdx), ("fdy", pre.fdy), ("frx", frx),
                      ("fry", fry)):
@@ -390,6 +466,13 @@ def _check_post_inputs(name, before, pre: PreStep, frx, fry):
                 or not t.is_contiguous()):
             raise TypeError(f"{name}: {label} must be a contiguous "
                             f"float32 [{n}] tensor")
+    _check_ring(name, before)
+
+
+def _check_ring(name, before):
+    """A contiguous float32 [n, H, 2] position ring and a one-element
+    int32 clock."""
+    n = before.n
     ph = before.pos_hist
     if (ph.dtype != torch.float32 or ph.ndim != 3 or ph.shape[0] != n
             or ph.shape[2] != 2 or not ph.is_contiguous()):
@@ -413,9 +496,10 @@ def _launch(name, symbol, args, device):
 
 def agent_pre_ref(engine, state, npad: int) -> PreStep:
     """Plain version of agent_pre: the engine's destination force (the
-    destination-queue update, the navigation FSM, the straight-line
-    force), an inactive row's FSM fields held as `Engine.finish_step`
-    holds them, and the pair packs, padded to `npad` rows."""
+    destination-queue update, the navigation FSM, the straight-line or
+    the spline force), an inactive row's FSM fields held as
+    `Engine.finish_step` holds them, and the pair packs, padded to `npad`
+    rows."""
     fdx, fdy, st = engine.destination_forces(state)
     act = state.active
     st = st.replace(**{f: torch.where(
@@ -440,11 +524,11 @@ def _post_ref(engine, before, pre: PreStep, frx, fry, unchanged):
 
 
 def agent_post_ref(engine, before, pre: PreStep, frx, fry):
-    """Plain version of agent_post: the clamp, bicycle2d's step and the
-    bookkeeping (`_post_ref`). Returns (state, fx, fy) with the applied
-    forces, as `Engine.step_with_forces`; as the kernel returns them, the
-    fields that no step changes (`UNCHANGED`) are `before`'s own
-    tensors."""
+    """Plain version of agent_post: the clamp, bicycle2d's (or the twod
+    model's) step and the bookkeeping (`_post_ref`). Returns (state, fx,
+    fy) with the applied forces, as `Engine.step_with_forces`; as the
+    kernel returns them, the fields that no step changes (`UNCHANGED`) are
+    `before`'s own tensors."""
     return _post_ref(engine, before, pre, frx, fry, UNCHANGED)
 
 
@@ -459,7 +543,8 @@ def agent_pre(engine, state, npad: int) -> PreStep:
     """agent_pre: the CUDA kernel on a CUDA state, the plain version on a
     CPU state. The kernel takes a step of the fused form (`fused_form`),
     the state's fields contiguous as `make_state` builds them, and npad
-    >= n rows."""
+    >= n rows; on a twod engine its spline instance, which also reads the
+    position ring and adds its fallback rows to `spline_fallback_rows`."""
     fields = ("s", "dest", "destqueue", "destpointer", "nq", "znav",
               "znavparams", "i", "i_stopsignal", "d_stopsignal", "active",
               "uid")
@@ -495,7 +580,16 @@ def agent_pre(engine, state, npad: int) -> PreStep:
         *(_nav_constants(params)[f] for f in _NAV_CONSTANTS),
         (_PairCol * len(PACK_COLUMNS))(
             *(_pair_col(values[f]) for f in PACK_COLUMNS)))
-    _launch("agent_pre", "csf_agent_pre", args, device)
+    symbol = "csf_agent_pre"
+    if is_twod(engine):
+        _check_ring("agent_pre", state)
+        consts = _spline_constants(params)
+        args, symbol = _AgentPreSplineArgs(
+            args, state.pos_hist.data_ptr(), state.t_glob.data_ptr(),
+            spline_fallback_rows(engine, device).data_ptr(), state.hist_len,
+            engine.dest_kw["lookback"],
+            *(consts[f] for f in _SPLINE_CONSTANTS)), "csf_agent_pre_spline"
+    _launch("agent_pre", symbol, args, device)
     PF._count(agent_pre)
     st = state.replace(
         dest=out["dest_out"], destpointer=out["ptr_out"],
@@ -507,8 +601,9 @@ def agent_pre(engine, state, npad: int) -> PreStep:
 
 def agent_post(engine, before, pre: PreStep, frx, fry):
     """agent_post: the CUDA kernel on a CUDA state, the plain version on a
-    CPU state; arguments and result as `agent_post_ref`. The kernel takes
-    what agent_pre takes and returns fresh tensors for the fields it
+    CPU state; arguments and result as `agent_post_ref`. The kernel (its
+    twod instance on a twod engine, which reads agent_pre's FSM state)
+    takes what agent_pre takes and returns fresh tensors for the fields it
     changes (`s`, `pid_e`, `pid_i`, `i`, `t_glob`, `pos_hist`: the ring
     copied and one slot written); the destination and FSM fields are
     `pre.state`'s, the others (`UNCHANGED`) `before`'s own."""
@@ -539,7 +634,16 @@ def agent_post(engine, before, pre: PreStep, frx, fry):
         *(inputs[f].data_ptr() for f in _POST_IN),
         *(outputs[f].data_ptr() for f in _POST_OUT),
         n, before.hist_len, *(consts[f] for f in _MODEL_CONSTANTS))
-    _launch("agent_post", "csf_agent_post", args, before.device)
+    symbol = "csf_agent_post"
+    if is_twod(engine):
+        _check_state("agent_post", pre.state, ("znav",))
+        # the twod instance moves the ring's (x, y) slots as float2
+        if before.pos_hist.data_ptr() % 8:
+            raise ValueError("agent_post: the twod instance takes a position "
+                             "ring aligned to 8 bytes")
+        args, symbol = (_AgentPostTwodArgs(args, pre.state.znav.data_ptr()),
+                        "csf_agent_post_twod")
+    _launch("agent_post", symbol, args, before.device)
     PF._count(agent_post)
     return before.replace(**new, **{f: getattr(pre.state, f)
                                     for f in _CHANGED}), fx, fy

@@ -1,7 +1,10 @@
 """PyTorch port: the per-agent kernels' plain versions (`ops/agent_step.py`)
 held to the JAX package at float64 and to the engine's torch chain bit for
-bit, which engines take the fused route, the route's functional contract,
-and on the card each kernel against its plain version.
+bit, on bicycle2d (the straight destination force) and on the twod model
+(the spline force and the arrived-freeze), which engines take the fused
+route, the route's functional contract, and on the card each kernel
+against its plain version (the twod model's instances on the card:
+tests/test_torch_agent_step_twod.py).
 
 The JAX package is imported by the tests that compare with it (the `jx`
 fixture), so that the card's machine, which cannot import it, runs the
@@ -18,7 +21,8 @@ torch = pytest.importorskip("torch")
 from cyclistsocialforce_tpu_torch import convert, external  # noqa: E402
 from cyclistsocialforce_tpu_torch import engine as TE  # noqa: E402
 from cyclistsocialforce_tpu_torch.mixed import MixedEngine  # noqa: E402
-from cyclistsocialforce_tpu_torch.models import MODELS, bicycle2d  # noqa: E402
+from cyclistsocialforce_tpu_torch.models import (MODELS,  # noqa: E402
+                                                 bicycle2d, bicycle_twod)
 from cyclistsocialforce_tpu_torch.ops import agent_step as AS  # noqa: E402
 from cyclistsocialforce_tpu_torch.params import (BicycleParams,  # noqa: E402
                                                  as_population)
@@ -29,9 +33,13 @@ torch.set_num_threads(1)
 DEV = "cpu"   # the port's entry points default to the card
 N, NPAD = 500, 512          # a ragged crowd: 12 pad rows in the packs
 CFG = dict(cutoff=40.0, block=64, block_src=32, kb=16)
-# the per-rider pair columns of each family; their tables are shorter
-# than the crowd, so the last uids read the table's last row (clamped)
-PER_RIDER = {"twod": ("f_0", "sigma_0"), "legacy": ("p_0", "p_decay")}
+# the per-rider pair columns of each family ("spline": the twod model, its
+# spline force and the twod field); their tables are shorter than the
+# crowd, so the last uids read the table's last row (clamped)
+PER_RIDER = {"twod": ("f_0", "sigma_0"), "legacy": ("p_0", "p_decay"),
+             "spline": ("f_0", "sigma_0")}
+# the twod model's position ring: its spline looks 1 s (100 steps) back
+SPLINE_HIST = 128
 TABLE_ROWS = N - 20
 
 
@@ -45,6 +53,7 @@ def jx():
     from cyclistsocialforce_tpu import make_state as jax_make_state
     from cyclistsocialforce_tpu import params as JP
     from cyclistsocialforce_tpu.models import bicycle2d as jbike
+    from cyclistsocialforce_tpu.models import bicycle_twod as jtwod
     from cyclistsocialforce_tpu.ops import forces as JF
 
     from test_torch_step import close
@@ -65,16 +74,23 @@ def jx():
             (f, getattr(port_params(family, per_rider), f))
             for f in PER_RIDER[family]) if per_rider})
 
+    def model(family):
+        """The JAX model and destination force of `family`."""
+        if family == "spline":
+            return jtwod, JE.dest_force_spline
+        return jbike, JE.dest_force_straight
+
     return types.SimpleNamespace(JE=JE, JP=JP, jbike=jbike, JF=JF, jnp=jnp,
-                                 close=close, state=state, params=params)
+                                 close=close, state=state, params=params,
+                                 model=model)
 
 
-def crowd(n=N, seed=5, dtype=torch.float64, device=DEV):
+def crowd(n=N, seed=5, dtype=torch.float64, device=DEV, hist=8):
     """Riders spread over every navigation-FSM state, drawn as
     tests/test_torch_step.py's fsm_state draws them (queue points 0.5-30
     m away, stop flags, pointers, latched braking profiles), with 10% of
     the riders inactive, shuffled uids, pid memories, a position ring of
-    8 and t_glob = 13."""
+    `hist` and t_glob = 13."""
     rng = np.random.default_rng(seed)
     q = 4
     s0 = np.zeros((n, 5))
@@ -95,7 +111,7 @@ def crowd(n=N, seed=5, dtype=torch.float64, device=DEV):
     def t(a, dt=dtype):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 
-    st = make_state(s0, queue_size=q, hist_len=8, dtype=dtype,
+    st = make_state(s0, queue_size=q, hist_len=hist, dtype=dtype,
                     device=device)
     return st.replace(
         destqueue=t(dq), dest=t(dq[np.arange(n), ptr]),
@@ -108,7 +124,7 @@ def crowd(n=N, seed=5, dtype=torch.float64, device=DEV):
         active=t(rng.uniform(size=n) >= 0.1, torch.bool),
         uid=t(rng.permutation(n), torch.int32),
         pid_e=t(rng.normal(size=(n, 2))), pid_i=t(rng.normal(size=(n, 2))),
-        pos_hist=t(rng.uniform(-20, 20, (n, 8, 2))),
+        pos_hist=t(rng.uniform(-20, 20, (n, hist, 2))),
         t_glob=t(13, torch.int32))
 
 
@@ -125,24 +141,33 @@ def port_params(family, per_rider, device=DEV):
 
 
 def rep_force(family):
-    return "twod" if family == "twod" else None   # bicycle2d's: legacy
+    return None if family == "legacy" else "twod"   # bicycle2d's: legacy
 
 
 def port_engine(params, family, **kw):
-    return TE.Engine.create(params, bicycle2d, rep_force=rep_force(family),
+    """bicycle2d with `family`'s field, or for "spline" the twod model."""
+    model = bicycle_twod if family == "spline" else bicycle2d
+    return TE.Engine.create(params, model, rep_force=rep_force(family),
                             neighbors=TE.NeighborConfig(**{**CFG, **kw}))
 
 
-@pytest.mark.parametrize("family", ["twod", "legacy"])
+def family_crowd(family, n=N, **kw):
+    """`crowd`, with the ring of the twod model's lookback for "spline"."""
+    return crowd(n, hist=SPLINE_HIST if family == "spline" else 8, **kw)
+
+
+@pytest.mark.parametrize("family", ["twod", "legacy", "spline"])
 @pytest.mark.parametrize("per_rider", [False, True])
 def test_agent_pre_ref_matches_jax(jx, family, per_rider):
     """Destination force, FSM fields (an inactive row's held, as JAX's
     finish_step holds them) and both packs (pad rows included) against
-    the JAX package's dest_force_straight and pack_pair_fields."""
-    st = crowd()
+    the JAX package's dest_force_straight (the twod model: its
+    dest_force_spline) and pack_pair_fields."""
+    st = family_crowd(family)
     jst, jp = jx.state(st), jx.params(family, per_rider)
-    jfx, jfy, jnew = jx.JE.dest_force_straight(jp, jst)
-    jeng = jx.JE.Engine.create(jp, jx.jbike, rep_force=rep_force(family))
+    jmodel, jdest = jx.model(family)
+    jfx, jfy, jnew = jdest(jp, jst)
+    jeng = jx.JE.Engine.create(jp, jmodel, rep_force=rep_force(family))
     jsrc, jrecv = jeng.pack_pair_fields(jnew, NPAD)
     pre = AS.agent_pre_ref(
         port_engine(port_params(family, per_rider), family), st, NPAD)
@@ -159,28 +184,31 @@ def test_agent_pre_ref_matches_jax(jx, family, per_rider):
     jx.close(pre.recv_pack, jrecv, "recv_pack")
     if per_rider:
         # a uid past the table reads its last row
-        col, table = ((4, jp.f_0) if family == "twod"
-                      else (7, 1.0 / jp.p_decay))
+        col, table = ((7, 1.0 / jp.p_decay) if family == "legacy"
+                      else (4, jp.f_0))
         past = (st.uid >= TABLE_ROWS) & st.active
         assert past.any()
         np.testing.assert_allclose(pre.src_pack[:N][past, col].numpy(),
                                    float(table[-1]), rtol=1e-15)
 
 
-def test_agent_post_ref_matches_jax(jx):
-    """Clamp, bicycle2d step and bookkeeping (inactive rows held, the
-    counters, the ring slot) against the JAX package."""
+@pytest.mark.parametrize("family", ["twod", "spline"])
+def test_agent_post_ref_matches_jax(jx, family):
+    """Clamp, the model's step (bicycle2d's; the twod model's with its
+    arrived-freeze) and bookkeeping (inactive rows held, the counters, the
+    ring slot) against the JAX package."""
     rng = np.random.default_rng(4)
-    st = crowd(seed=6)
+    st = family_crowd(family, seed=6)
     jst, jp = jx.state(st), jx.JP.BicycleParams.create()
-    jfx, jfy, jnew = jx.JE.dest_force_straight(jp, jst)
+    jmodel, jdest = jx.model(family)
+    jfx, jfy, jnew = jdest(jp, jst)
     frx = rng.normal(size=N) * 8
     fry = rng.normal(size=N) * 8
     wfx, wfy = jx.JF.clamp_add_dest(jx.jnp.asarray(frx), jx.jnp.asarray(fry),
                                     jfx, jfy)
-    jeng = jx.JE.Engine.create(jp, jx.jbike, rep_force="twod")
-    want = jeng.finish_step(jst, jx.jbike.step(jp, jnew, wfx, wfy))
-    eng = port_engine(BicycleParams.create(), "twod")
+    jeng = jx.JE.Engine.create(jp, jmodel, rep_force="twod")
+    want = jeng.finish_step(jst, jmodel.step(jp, jnew, wfx, wfy))
+    eng = port_engine(BicycleParams.create(), family)
     pre = AS.agent_pre_ref(eng, st, NPAD)
     got, fx, fy = AS.agent_post_ref(eng, st, pre, torch.from_numpy(frx),
                                     torch.from_numpy(fry))
@@ -190,9 +218,16 @@ def test_agent_post_ref_matches_jax(jx):
         if f != "key":
             jx.close(v, getattr(want, f), f)
     assert (~got.active).any()
+    if family == "spline":
+        # active riders that arrived: held still, speed, steer, roll zero
+        frozen = (pre.state.znav[:, 2] & st.active).numpy()
+        assert frozen.any()
+        np.testing.assert_array_equal(got.s[frozen][:, 3:6].numpy(), 0.0)
+        np.testing.assert_array_equal(got.pid_e[frozen].numpy(),
+                                      st.pid_e[frozen].numpy())
 
 
-@pytest.mark.parametrize("family", ["twod", "legacy"])
+@pytest.mark.parametrize("family", ["twod", "legacy", "spline"])
 @pytest.mark.parametrize("presorted", [False, True])
 def test_fused_step_bit_equal_to_torch_chain(family, presorted):
     """The fused route (the two plain versions around the pair stage) is
@@ -200,7 +235,7 @@ def test_fused_step_bit_equal_to_torch_chain(family, presorted):
     not (ragged, with pad rows in the packs)."""
     n = NPAD if presorted else N
     eng = port_engine(port_params(family, per_rider=True), family)
-    st = crowd(n, dtype=torch.float32)
+    st = family_crowd(family, n, dtype=torch.float32)
     cache = eng.neighbor_cache(st)
     if presorted:
         st = TE.permute_state(st, cache[0])
@@ -214,8 +249,10 @@ def test_fused_step_bit_equal_to_torch_chain(family, presorted):
 
 def test_fused_form_table():
     """Which engines take the per-agent kernels (on the card): bicycle2d
-    with the straight destination force and a culled named field, shared
-    navigation and model parameters, per-rider pair columns allowed."""
+    with the straight destination force and the twod model with its
+    spline force, a culled named field, shared navigation and model
+    parameters (for the spline t_s, so one lookback, and g), per-rider
+    pair columns allowed; the twod model's ring must hold its lookback."""
     cpu = torch.device("cpu")
     base = BicycleParams.create()
     pop = as_population(base, 64, DEV)
@@ -225,6 +262,10 @@ def test_fused_form_table():
     def bike(params=base, **kw):
         return TE.Engine.create(params, MODELS["bicycle2d"], **{
             "rep_force": "twod", "neighbors": cfg, **kw})
+
+    def twod(params=base, **kw):
+        return TE.Engine.create(params, MODELS["twod"],
+                                **{"neighbors": cfg, **kw})
 
     table = {
         "twod K1": (bike(), True),
@@ -247,8 +288,21 @@ def test_fused_form_table():
             64, {0: np.zeros((4, 4))}, device=DEV)), False),
         "combine_forces hook": (bike(
             combine_forces=lambda a, b, c, d: (a + c, b + d)), False),
-        "twod model": (TE.Engine.create(base, MODELS["twod"],
-                                        neighbors=cfg), False),
+        "twod model": (twod(), True),
+        "twod model, legacy field": (twod(rep_force="legacy"), True),
+        "twod model, per-rider pair columns": (twod(base.replace(
+            f_0=pop.f_0, sigma_0=pop.sigma_0.float())), True),
+        "twod model, per-rider t_s": (twod(base.replace(t_s=pop.t_s)),
+                                      False),
+        "twod model, per-rider g": (twod(base.replace(g=pop.g)), False),
+        "twod model, road": (twod(road=TE.RoadElements(*(torch.zeros(k) for k
+                                                         in ((1, 2), 1, 1,
+                                                             1)))), False),
+        "twod model, combine_forces hook": (twod(
+            combine_forces=lambda a, b, c, d: (a + c, b + d)), False),
+        "twod model, straight force": (twod(dest_force="straight"), False),
+        "twod model, dense": (twod(neighbors=None), False),
+        "bicycle2d, spline force": (bike(dest_force="spline"), False),
         "invpendulum": (TE.Engine.create(
             base, MODELS["invpendulum"], neighbors=cfg), False),
         "kaths": (TE.Engine.create(BicycleParams.create(
@@ -265,6 +319,14 @@ def test_fused_form_table():
     # torch chain; so does any state on the CPU
     assert not AS.takes_engine(table["per-rider pair columns"][0], "meta")
     assert not AS.fused_form(bike(), crowd(64, dtype=torch.float32))
+    # the twod model's ring holds its 1 s lookback (100 steps) and the
+    # step before it; bicycle2d reads no lookback
+    lookback = TE.spline_lookback(base)
+    assert lookback == 100
+    assert [AS.takes_ring(twod(), h) for h in (8, lookback, lookback + 1,
+                                               SPLINE_HIST)] == [
+        False, False, True, True]
+    assert AS.takes_ring(bike(), 8)
 
 
 def test_fused_step_contract():
