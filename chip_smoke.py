@@ -632,7 +632,7 @@ DEMO_TIMEOUT = 300
 SRC = "cyclistsocialforce_tpu_torch/csrc/"
 TPU = "cyclistsocialforce_tpu/ops/pallas_forces.py:"
 # the paths whose every step goes through agent_pre, the pair kernel and a
-# post kernel (`agent_step.fused_form`), by the post kernel's name; every
+# post kernel (`Engine.agent_kernels`), by the post kernel's name; every
 # other path launches none of them
 FUSED_PATHS = {"slice": "agent_post", "slice_unrolled": "agent_post",
                "slice_db": "agent_post", "slice_legacy": "agent_post",
@@ -1317,7 +1317,7 @@ def bits_differ(got, want):
     return differ, int((line(got) - line(want)).abs().max())
 
 
-def agent_step_bytes(name, pre, state, engine):
+def agent_step_bytes(name, pre, state, engine, kernels):
     """Bytes of one call of the kernel `name` that its function needs on
     this state, each input read once and each output written once.
     agent_pre reads the state fields of the destination update and the
@@ -1336,16 +1336,14 @@ def agent_step_bytes(name, pre, state, engine):
     an inactive row its speed dyn_v; and writes the state, the latents,
     dyn_v, the gains row, the ring, the counter and the applied force
     (the constants, 2 KB, read once a block from L2, are not counted).
-    On a twod engine agent_pre's spline instance also reads two slots of
-    the ring and the clock, and for a row whose destination is not its
-    last the queue's points (x, y) past the two entries the FSM read;
-    agent_post's twod instance also reads each row's "arrived" flag."""
+    Where `kernels` (`Engine.agent_kernels`) name the spline, agent_pre's
+    spline instance also reads two slots of the ring and the clock, and
+    for a row whose destination is not its last the queue's points (x, y)
+    past the two entries the FSM read; agent_post's twod instance also
+    reads each row's "arrived" flag."""
     import torch
 
-    from cyclistsocialforce_tpu_torch.ops import agent_step as AS
-
     n, hist = state.n, state.hist_len
-    twod = AS.is_twod(engine)
     if name == "agent_pre":
         nbytes = n * (16 + 12 + 4 + 4 + 3 + 16 + 4 + 4 + 4 + 1   # read
                       + 8 + 12 + 4 + 3 + 16 + 4 + 4)             # written
@@ -1358,7 +1356,7 @@ def agent_step_bytes(name, pre, state, engine):
         if tables:
             nbytes += 4 * n + sum(min(n, t.numel()) * t.element_size()
                                   for t in tables)
-        if twod:
+        if kernels.dest == "spline":
             ptr = pre.state.destpointer
             fwd = torch.clamp(state.nq - ptr, max=4)
             past = torch.clamp(ptr + fwd - state.destpointer - 2, min=0)
@@ -1369,7 +1367,7 @@ def agent_step_bytes(name, pre, state, engine):
                   + n_act * (8 + 4 + 4)
                   + n * (32 + 8 + 8 + 4 + 8 * hist + 8)          # written
                   + 8                               # t_glob, both ways
-                  + n * twod)                       # twod: "arrived"
+                  + n * (kernels.post == "agent_post_twod"))  # "arrived"
     else:
         gains = 4 * state.dyn_gains.shape[1]
         n_idle = int((~state.active).sum())
@@ -1393,7 +1391,7 @@ AGENT_KEYS = ("max_abs_err", "ms", "plain_ms", "eager_ms", "plain_eager_ms",
 
 
 def phase_agent_step(cases):
-    """agent_pre and the engine's post kernel (`agent_step.post_step`:
+    """agent_pre and the engine's post kernel (`Engine.agent_kernels`:
     agent_post, or agent_post_whipple on a balancing rider) against their
     plain versions on one step
     of each of `cases` (form -> (engine, state)): the state after a table
@@ -1423,12 +1421,13 @@ def phase_agent_step(cases):
         cache = engine.neighbor_cache(state)
         st = permute_state(state, cache[0])
         n = npad = st.n
-        if not AS.fused_form(engine, st):
+        kernels = engine.agent_kernels(st)
+        if kernels is None:
             raise AssertionError(f"agent_step {form}: not the fused form")
-        post = AS.post_step(engine)
+        post = AS.POST_KERNELS[kernels.post]
         post_name = post.__name__
         post_ref = getattr(AS, post_name + "_ref")
-        twod = AS.is_twod(engine)
+        twod = kernels.dest == "spline"
         pre_k = AS.agent_pre(engine, st, npad)
         pre_r = AS.agent_pre_ref(engine, st, npad)
         ragged = engine.pair_rows(n + 1)
@@ -1485,7 +1484,7 @@ def phase_agent_step(cases):
                     lambda: post(engine, st, pre_r, frx, fry),
                     lambda: post_ref(engine, st, pre_r, frx, fry))}
             for name, (kern, plain) in calls.items():
-                nbytes = agent_step_bytes(name, pre_r, st, engine)
+                nbytes = agent_step_bytes(name, pre_r, st, engine, kernels)
                 ops = OPS_AGENT[name + ("_spline" if twod and name ==
                                         "agent_pre" else "")]
                 floors = {"fp32": 1e3 * ops * n / PEAK_FLOPS,

@@ -171,12 +171,10 @@ struct AgentPostWhippleArgs {
 };
 
 // agent_pre's spline instance: agent_pre's arguments, then the position
-// ring the spline looks back into and the fallback counter
+// ring the spline looks back into
 struct AgentPreSplineArgs : AgentPreArgs {
   const float* pos_hist;               // [n, hist, 2]
   const int* t_glob;                   // [1]
-  unsigned long long* fallback_rows;   // [1], added to: the rows that took
-                                       // the straight-line fallback
   int hist, lookback;                  // lookback: floor(1 / t_s) steps
   // the host's float32 reciprocals 1.0f / 6.0f and 1.0f / 3.0f, the
   // nearest-sample grid's step float(1.0 / 19), float(theta_comf) *
@@ -482,8 +480,7 @@ __device__ __forceinline__ void pre_outputs(
 // sites, the folded Thomas sweep over the 4 interior moments, the side
 // table of `_interval_pieces` and its one-hot selects are unrolled over
 // their static sizes. The fallback's second queue/FSM pass and straight
-// line run in a branch, in the ~1% of rows that take it; a warp counts
-// its fallback rows with one ballot and at most one atomic.
+// line run in a branch, in the few rows that take it.
 //
 // Exactness: the file's header; besides, the chain's reductions in
 // PyTorch's CUDA order. torch.cumsum over the 5 chord lengths is ATen's
@@ -833,13 +830,6 @@ __device__ __forceinline__ void spline_force(
   // the spline; an inactive row never falls back
   const bool fb = (ipred >= 20 || !(isfinite(fsx) && isfinite(fsy))) &&
                   !o1.n2 && i_step > 0 && live;
-  const int lane = threadIdx.x % 32;
-  const int rows = min(32, a.n - (j - lane));
-  const unsigned ballot =
-      __ballot_sync(rows >= 32 ? 0xffffffffu : (1u << rows) - 1u, fb);
-  if (lane == 0 && ballot != 0u) {
-    atomicAdd(a.fallback_rows, static_cast<unsigned long long>(__popc(ballot)));
-  }
   *fx = i_step == 0 ? __fmul_rn(o1.vd, cosf(psi)) : (o1.n2 ? 0.0f : fsx);
   *fy = i_step == 0 ? __fmul_rn(o1.vd, sinf(psi)) : (o1.n2 ? 0.0f : fsy);
   if (fb) {

@@ -25,10 +25,10 @@ shared space, advanced step by step --
 
 Every stage is a batched function over the [N] agent axis. The culled
 pair stage runs its CUDA kernel on CUDA tensors and its plain version on
-CPU tensors: the state's device selects the backend. For a bicycle2d,
-twod or balancing-rider engine of the fused form on a CUDA state
-(`agent_step.fused_form`), stages 1 and 3-5 run as two kernels around the
-pair kernel (`ops.agent_step`).
+CPU tensors: the state's device selects the backend. Where the model
+declares per-agent kernels (its `agent_kernels` hook) and the engine takes
+them for a CUDA state (`Engine.agent_kernels`), stages 1 and 3-5 run as
+two kernels around the pair kernel (`ops.agent_step`).
 
 `Engine.simulate` is the step loop. The JAX package compiles a chunk of
 `rebuild_every` steps (its inner `lax.scan`) into one program; the port's
@@ -56,6 +56,9 @@ from cyclistsocialforce_tpu_torch.ops import navigation as nav
 from cyclistsocialforce_tpu_torch.ops import neighbors as NB
 from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 from cyclistsocialforce_tpu_torch.ops import spline as spl
+from cyclistsocialforce_tpu_torch.ops.spline import (SPL_N_PNTS,
+                                                     SPL_THETA_COMF,
+                                                     SPL_V_MIN_STABLE)
 from cyclistsocialforce_tpu_torch.params import pair_hi
 from cyclistsocialforce_tpu_torch.state import (PSI, STATE_DIM, THETA, V, X,
                                                 Y, AgentState)
@@ -136,13 +139,11 @@ def dest_force_hm(params, state: AgentState):
 
 # ---- the spline (path-planning) destination force ----
 
-# local constants of the reference implementation (vehicle.py:1443-1448)
+# local constants of the reference implementation (vehicle.py:1443-1448;
+# SPL_N_PNTS, SPL_THETA_COMF and SPL_V_MIN_STABLE are ops/spline.py's)
 SPL_N_FWD = 4          # most forward destinations in the spline
-SPL_N_PNTS = 20        # interpolated spline points
 SPL_IPRED = 3          # look-ahead for normal riding
 SPL_IPRED_LAST = 5     # look-ahead for the final destination
-SPL_THETA_COMF = 10.0 * (2.0 * math.pi / 360.0)   # comfort lean ~10 deg
-SPL_V_MIN_STABLE = 2.5                            # vehicle.py:1534
 
 
 def spline_lookback(params):
@@ -190,14 +191,6 @@ def dest_force_spline(params, state: AgentState, lookback="auto"):
         an engine decides once when it is built (None: per agent, from
         each agent's t_s, by a one-hot contraction over the ring); "auto"
         decides it here (a host read of per-agent t_s)."""
-    return spline_force_fallback(params, state, lookback)[:3]
-
-
-def spline_force_fallback(params, state: AgentState, lookback="auto"):
-    """`dest_force_spline`'s (fx, fy, new_state), and the [N] bool mask of
-    the rows that took the straight-line fallback (the count that
-    agent_pre's spline instance adds to `agent_step.spline_fallback_rows`
-    on the card)."""
     if isinstance(lookback, str):
         lookback = spline_lookback(params)
     n = state.n
@@ -312,7 +305,7 @@ def spline_force_fallback(params, state: AgentState, lookback="auto"):
         dest=sel(dest2, dest1), destpointer=sel(ptr2, ptr1),
         znav=sel(znav2, znav1), znavparams=sel(znavp2, znavp1),
         i_stopsignal=sel(istop2, istop1), d_stopsignal=sel(dstop2, dstop1))
-    return sel(fbx, fx), sel(fby, fy), new_state, use_fb
+    return sel(fbx, fx), sel(fby, fy), new_state
 
 
 DEST_FORCES = {"straight": dest_force_straight,
@@ -920,15 +913,16 @@ class Engine(nn.Module):
         "params", "model_step", "state_widths", "dest_force", "dest_kw",
         "rep_force", "pair_family", "neighbors", "full_fov", "uniform_pair",
         "priority_p2r", "rep_chunk", "step_constants", "road",
-        "clock_hook", "scripted", "rep_reduce", "combine_forces"))
+        "clock_hook", "kernel_hook", "scripted", "rep_reduce",
+        "combine_forces"))
 
     def __init__(self, params, model_step, state_widths, dest_force,
                  rep_force, pair_family, neighbors, full_fov: bool,
                  uniform_pair, priority_p2r: bool = False,
                  rep_chunk: int | None = None, dest_kw=None,
                  step_constants=None, road=None, clock_hook=None,
-                 scripted=None, rep_reduce=None, combine_forces=None,
-                 sorted_resident: bool = True):
+                 kernel_hook=None, scripted=None, rep_reduce=None,
+                 combine_forces=None, sorted_resident: bool = True):
         super().__init__()
         self.params = params
         self.model_step = model_step
@@ -959,9 +953,12 @@ class Engine(nn.Module):
         # the model's `clock_period` hook, or None (the step never reads
         # the global step clock on the host)
         self.clock_hook = clock_hook
+        # the model's `agent_kernels` hook, or None (no step takes the
+        # per-agent kernels: `agent_kernels`)
+        self.kernel_hook = kernel_hook
         # what the engine builds once and keeps (`kept`): the constant
         # pack columns, the road, the scripts, the model's constants, the
-        # fused-form answer
+        # per-agent kernels' answer
         self._columns = {}
         self._runners = {}    # captured program -> ChunkRunner
 
@@ -1034,6 +1031,7 @@ class Engine(nn.Module):
                    step_constants=getattr(model, "step_constants", None),
                    road=road, clock_hook=getattr(model, "clock_period",
                                                  None),
+                   kernel_hook=getattr(model, "agent_kernels", None),
                    scripted=scripted,
                    rep_reduce=(rep_reduce
                                or getattr(model, "REP_REDUCE", None)),
@@ -1058,8 +1056,9 @@ class Engine(nn.Module):
                           if self.pair_family == "twod" else None),
             priority_p2r=self.priority_p2r, rep_chunk=self.rep_chunk,
             step_constants=self.step_constants, road=self.road,
-            clock_hook=self.clock_hook, scripted=self.scripted,
-            rep_reduce=self.rep_reduce, combine_forces=self.combine_forces,
+            clock_hook=self.clock_hook, kernel_hook=self.kernel_hook,
+            scripted=self.scripted, rep_reduce=self.rep_reduce,
+            combine_forces=self.combine_forces,
             sorted_resident=self.sorted_resident)
 
     # ---- the dense pair stage ----
@@ -1565,31 +1564,74 @@ class Engine(nn.Module):
                                **self._clock_kw(self.clock_hook, self.params,
                                                 t_host))
 
-    def fused_step(self, state: AgentState, nbr_cache=None,
+    def agent_kernels(self, state: AgentState):
+        """The per-agent kernels a step of `state` takes (an
+        `ops.agent_step.AgentKernels`), or None: a float32 state of more
+        than one row on a CUDA device, and an engine that takes its model's
+        kernels there (`kernels_on`). Every other step, and every step of a
+        CPU state, goes through the engine's torch functions."""
+        if not (state.s.is_cuda and state.s.dtype == torch.float32
+                and state.n > 1):
+            return None
+        return self.kernels_on(state.device, state.hist_len)
+
+    def kernels_on(self, device, hist_len: int):
+        """The kernels the model declares (its `agent_kernels(params)`
+        hook) where the engine takes them on `device` with a position ring
+        of `hist_len` slots, else None: the declared destination force is
+        the engine's, the field one of the declared families culled
+        through a pair kernel, the parameters the kernels read shared
+        (`ops.agent_step.takes_params`: per-rider pair columns allowed as
+        tables on `device`), no road, scripts or force hooks; and for the
+        spline a ring that holds its 1 s lookback and the step before it
+        (a shorter one keeps the torch chain, which warns that it reads
+        wrapped samples). The engine decides once per device and keeps the
+        answer with its pack columns, which it drops when a field the
+        answer reads changes."""
+        device = torch.device(device)
+
+        def admit():
+            k = self.kernel_hook(self.params) if self.kernel_hook else None
+            takes = (k is not None and DEST_FORCES[k.dest] is self.dest_force
+                     and self.pair_family in k.families
+                     and self.neighbors is not None and self.road is None
+                     and self.scripted is None and self.rep_reduce is None
+                     and self.combine_forces is None
+                     and not getattr(self.params, "dest_force", None)
+                     and not getattr(self.params, "rep_force", None)
+                     and AS.takes_params(self.params, device, k.fields))
+            return k if takes else None
+
+        k = self.kept(("agent_kernels", device), admit)
+        if k is not None and k.dest == "spline" and \
+                hist_len <= self.dest_kw["lookback"]:
+            return None
+        return k
+
+    def fused_step(self, state: AgentState, kernels, nbr_cache=None,
                    presorted: bool = False):
-        """One step of an engine of the fused form (`agent_step.fused_form`)
-        through `agent_pre`, the pair stage (`pair_stage`) and the model's
-        post kernel (`agent_step.post_step`: `agent_post` for bicycle2d and
-        the twod model, `agent_post_whipple` for the balancing rider):
-        (state, fx, fy) as `step_with_forces`. On CPU tensors the wrappers
-        run their plain versions (the torch functions), so the result is
-        the torch chain's bit for bit; the fields the step does not change
-        are the argument's own tensors."""
+        """One step through the per-agent kernels `kernels`
+        (`agent_kernels`): `agent_pre`, the pair stage (`pair_stage`) and
+        the post kernel; (state, fx, fy) as `step_with_forces`. On CPU
+        tensors the wrappers run their plain versions (the torch
+        functions), so the result is the torch chain's bit for bit; the
+        fields the step does not change are the argument's own tensors."""
         pre = AS.agent_pre(self, state, self.pair_rows(state.n))
         frx, fry = self.pair_stage(state, pre.src_pack, pre.recv_pack,
                                    nbr_cache, presorted)
-        return AS.post_step(self)(self, state, pre, frx, fry)
+        return AS.POST_KERNELS[kernels.post](self, state, pre, frx, fry)
 
     def step_with_forces(self, state: AgentState, nbr_cache=None,
                          presorted: bool = False, t_host=None):
         """One full step; returns (state, fx, fy) with the applied
         forces. `t_host`: the global step (state.t_glob) as the caller
         knows it on the host, or None (a clock-dependent model then
-        decides on the device). An engine of the fused form takes the
-        per-agent kernels on a CUDA state (`fused_step`)."""
+        decides on the device). A step that takes the per-agent kernels
+        (`agent_kernels`) goes through them (`fused_step`)."""
         self.check_state(state)
-        if AS.fused_form(self, state):
-            return self.fused_step(state, nbr_cache, presorted)
+        kernels = self.agent_kernels(state)
+        if kernels is not None:
+            return self.fused_step(state, kernels, nbr_cache, presorted)
         before = state
         fx, fy, state = self.calc_forces(state, nbr_cache,
                                          presorted=presorted)
@@ -1739,12 +1781,6 @@ class Engine(nn.Module):
             graph = on_card and chunked
         probe = tracing.probe(state.device)
         tracing.count(probe, "steps", n_steps)
-        if probe is not None and AS.is_twod(self) and \
-                AS.fused_form(self, state):
-            # agent_pre's spline instance counts its fallback rows on the
-            # device, in a counter that only grows
-            tracing.grows(probe, "spline_fallback_rows",
-                          AS.spline_fallback_rows(self, state.device))
         with tracing.span(probe, "simulate", stream=False):
             return self._simulate(state, n_steps, mode,
                                   not record and not record_forces,

@@ -89,6 +89,8 @@ class MixedEngine(eng.Engine):
     # the named families only: the pair channels are summed and clamped
     rep_reduce = None
     combine_forces = None
+    # no group's model takes the per-agent kernels (`Engine.agent_kernels`)
+    kernel_hook = None
     _FROZEN_BY_A_CAPTURE = frozenset((
         "groups", "neighbors", "full_fov", "priority_p2r", "road",
         "scripted"))

@@ -2,7 +2,10 @@
 
 Each model module exposes ``N_STATES``, the default force names
 ``DEST_FORCE`` / ``REP_FORCE``, ``STATE_WIDTHS`` and
-``step(params, state, fx, fy) -> state``.
+``step(params, state, fx, fy) -> state``, and may declare the hooks that
+``Engine.create`` reads: ``step_constants``, ``clock_period`` and
+``agent_kernels(params)``, the per-agent kernels its step takes
+(``ops.agent_step.AgentKernels``, or None).
 """
 
 from cyclistsocialforce_tpu_torch.models import (balancingrider, bicycle2d,

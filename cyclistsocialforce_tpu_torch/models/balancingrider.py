@@ -57,6 +57,7 @@ from cyclistsocialforce_tpu_torch.ops.piecewise import (coeff_matrix,
                                                         eval_piecewise_poly)
 from cyclistsocialforce_tpu_torch.ops.smallmat import (matvec_small,
                                                        solve_small)
+from cyclistsocialforce_tpu_torch.ops import agent_step as AS
 from cyclistsocialforce_tpu_torch.ops import random as rnd
 from cyclistsocialforce_tpu_torch.params import pair_hi, pair_lo
 from cyclistsocialforce_tpu_torch.state import (DDELTA, DELTA, DTHETA, PSI,
@@ -127,6 +128,44 @@ def step_constants(params, dtype, device) -> dict:
     rt = params.polemodel_rt
     c["polemodel"] = None if rt is None else rt.to(dtype, device)
     return {"constants": c}
+
+
+def gain_mode(params) -> str:
+    """How `step` updates the gains, the first of the modes in the order
+    it tries them: "prop_poly" or "prop_lut" (a propagator of the
+    midpoint speed, a piecewise quintic or a table, in place of the whole
+    update), "fixed", "poly" (a piecewise quintic of speed,
+    `create(gains_poly=)`), "lut", "stochastic" (the placement of
+    resampled pole features) or "exact" (the Ackermann placement)."""
+    if params.br_prop_poly is not None:
+        return "prop_poly"
+    if params.br_prop_lut is not None:
+        return "prop_lut"
+    if params.br_gains_fixed is not None:
+        return "fixed"
+    if params.br_gains_poly is not None:
+        return "poly"
+    if params.br_gains_lut is not None:
+        return "lut"
+    if params.stochastic_control_behavior:
+        return "stochastic"
+    return "exact"
+
+
+def agent_kernels(params):
+    """The per-agent kernels of a step (`ops.agent_step`), agent_pre with
+    the straight destination force and agent_post_whipple, the twod field
+    culled between them, where the gains are a piecewise quintic of speed
+    (`gain_mode` "poly") whose coefficients the kernel stages in shared
+    memory (`WHIPPLE_MAX_COEFFS`), with no resampling and no torque
+    disturbances; else None (the torch chain)."""
+    poly = params.br_gains_poly
+    if (gain_mode(params) != "poly" or params.stochastic_control_behavior
+            or params.br_disturb
+            or len(poly[0]) * len(poly[0][0]) > AS.WHIPPLE_MAX_COEFFS):
+        return None
+    return AS.AgentKernels("straight", "agent_post_whipple",
+                           AS.WHIPPLE_FIELDS, ("twod",))
 
 
 def _per_rider(value, like):
@@ -378,14 +417,15 @@ def step(params, state: AgentState, fx, fy, constants=None,
     psi_c = psi_bike + angle_difference(psi_bike, psi_F)
     t_roll, t_steer = _disturbances(params, state)
 
-    if params.br_prop_poly is not None:
+    mode = gain_mode(params)
+    if mode == "prop_poly":
         # the propagator as a piecewise quintic of the midpoint speed;
         # below-band speeds clamp the whole propagator to the band edge
         rt = eval_piecewise_poly(params.br_prop_poly, v_mid, 40,
                                  c["prop_coeffs"])
         return _prop_apply(state, rt, psi_c, v_mid, h, v_new, t_roll,
                            t_steer)
-    if params.br_prop_lut is not None:
+    if mode == "prop_lut":
         # the propagator interpolated on the speed grid: K(v_mid) every
         # step (the stale-gain hold of the exact path is dropped)
         r0, r1, w = _interp(c["prop_lut"], v_mid)
@@ -396,17 +436,17 @@ def step(params, state: AgentState, fx, fy, constants=None,
     # ---- gains: recomputed only where the speed changed, else the cache
     # (reference dynamics.py:680-681)
     changed = (v_new != v_old)[:, None]
-    if c["gains_fixed"] is not None:
+    if mode == "fixed":
         K = c["gains_fixed"].expand(state.n, 5)
     else:
-        if params.br_gains_poly is not None:
+        if mode == "poly":
             # below-band speeds (v < GAINS_POLY_V_LO) clamp to the band edge
             K_new = torch.stack(eval_piecewise_poly(
                 params.br_gains_poly, v_mid, 5, c["gains_coeffs"]), dim=1)
-        elif params.br_gains_lut is not None:
+        elif mode == "lut":
             r0, r1, w = _interp(c["gains_lut"], v_mid)
             K_new = r0 * (1.0 - w) + r1 * w
-        elif params.stochastic_control_behavior:
+        elif mode == "stochastic":
             feats, state = _pole_features(params, c, state, v_mid,
                                           changed[:, 0], t_host)
             if params.br_ackermann_poly is not None:

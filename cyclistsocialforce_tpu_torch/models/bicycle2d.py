@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from cyclistsocialforce_tpu_torch.ops import agent_step as AS
 from cyclistsocialforce_tpu_torch.ops.control import pid_step
 from cyclistsocialforce_tpu_torch.params import pair_hi, pair_lo
 from cyclistsocialforce_tpu_torch.state import DELTA, PSI, V, X, Y, AgentState
@@ -21,6 +22,14 @@ N_STATES = 5
 REP_FORCE = "legacy"
 DEST_FORCE = "straight"
 STATE_WIDTHS = {"dyn_x": 0, "dyn_gains": 0, "zrid": 0}
+
+
+def agent_kernels(params) -> AS.AgentKernels:
+    """The per-agent kernels of a step (`ops.agent_step`): agent_pre with
+    the straight destination force, then agent_post, the twod or legacy
+    field culled between them."""
+    return AS.AgentKernels("straight", "agent_post", AS.MODEL_FIELDS,
+                           ("twod", "legacy"))
 
 
 def control(params, state: AgentState, fx, fy):

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from cyclistsocialforce_tpu_torch.models import bicycle2d
+from cyclistsocialforce_tpu_torch.ops import agent_step as AS
 from cyclistsocialforce_tpu_torch.state import (DELTA, STATE_DIM, THETA, V,
                                                 AgentState)
 
@@ -18,6 +19,16 @@ N_STATES = 5
 REP_FORCE = "twod"
 DEST_FORCE = "spline"
 STATE_WIDTHS = {"dyn_x": 0, "dyn_gains": 0, "zrid": 0}
+
+
+def agent_kernels(params) -> AS.AgentKernels:
+    """The per-agent kernels of a step (`ops.agent_step`): agent_pre's
+    spline instance (the spline force, which also reads g), then
+    agent_post's twod instance (the arrived-freeze), the twod or legacy
+    field culled between them."""
+    return AS.AgentKernels("spline", "agent_post_twod",
+                           AS.MODEL_FIELDS + AS.SPLINE_FIELDS,
+                           ("twod", "legacy"))
 
 
 def step(params, state: AgentState, fx, fy) -> AgentState:

@@ -72,14 +72,10 @@ def _declare(lib):
     lib.csf_pair_forces_unrolled.argtypes = [*head, i, i, i, i, i, *field,
                                              i, p]
     lib.csf_pair_forces_db.argtypes = [*head, i, i, i, f, i, p]
-    # the per-agent kernels' instances: a pointer to their argument struct
-    # (ops/agent_step.py), device, stream
-    agent = (lib.csf_agent_pre, lib.csf_agent_pre_spline, lib.csf_agent_post,
-             lib.csf_agent_post_twod, lib.csf_agent_post_whipple)
-    for fn in agent:
-        fn.argtypes = [p, i, p]
+    # (the per-agent kernels' instances, `csf_agent_*`, are declared where
+    # ops/agent_step.py first launches them)
     for fn in (lib.csf_pair_forces_twod, lib.csf_pair_forces_unrolled,
-               lib.csf_pair_forces_db, *agent):
+               lib.csf_pair_forces_db):
         fn.restype = i
     lib.csf_error_string.argtypes = [i]
     lib.csf_error_string.restype = ctypes.c_char_p

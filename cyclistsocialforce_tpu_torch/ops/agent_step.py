@@ -1,13 +1,12 @@
-"""One step of a bicycle2d, twod or balancing-rider engine's per-agent
-chain as two CUDA kernels around the pair kernel (`csrc/agent_step.cu`),
-their wrappers, their plain PyTorch versions and their launch counters.
+"""One step of a model's per-agent chain as two CUDA kernels around the
+pair kernel (`csrc/agent_step.cu`), their wrappers, their plain PyTorch
+versions and their launch counters.
 
   agent_pre   the destination force with the destination-queue update and
-              the navigation FSM (`engine.dest_force_straight`, or the
-              twod model's `engine.dest_force_spline` in the kernel's
-              spline instance; an inactive row's FSM fields held, as
-              `Engine.finish_step` holds them), then the pair packs
-              (`Engine.pack_pair_fields`)
+              the navigation FSM (`engine.dest_force_straight`, or
+              `engine.dest_force_spline` in the kernel's spline instance;
+              an inactive row's FSM fields held, as `Engine.finish_step`
+              holds them), then the pair packs (`Engine.pack_pair_fields`)
   agent_post  the repulsion clamped and added to the destination force
               (`ops.forces.clamp_add_dest`), bicycle2d's step
               (`models.bicycle2d.step`; the twod model's,
@@ -17,17 +16,16 @@ their wrappers, their plain PyTorch versions and their launch counters.
   agent_post_whipple
               the same clamp and bookkeeping around the balancing rider's
               step (`models.balancingrider.step`) with its gains a
-              piecewise polynomial of speed (`whipple_mode` "poly"): the
-              speed control, the gains, A(v) - B K, the implicit-midpoint
-              5x5 solve and the positions
+              piecewise polynomial of speed: the speed control, the gains,
+              A(v) - B K, the implicit-midpoint 5x5 solve and the positions
 
 The JAX package compiles this chain with the rest of a chunk into one XLA
 program, which fuses it (its `engine.py` :49-102, :901-980, :1118-1198,
 `models/bicycle2d.py`, `models/bicycle_twod.py` and
-`models/balancingrider.py`); the port's
-`Engine.step_with_forces` takes the kernels for a step of the fused form
-(`fused_form`, the one rule of which steps take them), agent_pre and the
-post kernel of the engine's model (`post_step`).
+`models/balancingrider.py`). In the port a model module declares the
+kernels its step takes (an `AgentKernels` from its `agent_kernels(params)`
+hook), the engine decides where a step takes them (`Engine.agent_kernels`)
+and `Engine.step_with_forces` runs them; this module only launches them.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 version on CPU tensors. The plain versions are the engine's own torch
@@ -60,12 +58,16 @@ import torch
 from cyclistsocialforce_tpu_torch.ops import forces as F
 from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
 from cyclistsocialforce_tpu_torch.ops.navigation import BRAKE_SAFETY_K
+from cyclistsocialforce_tpu_torch.ops.spline import (SPL_N_PNTS,
+                                                     SPL_THETA_COMF,
+                                                     SPL_V_MIN_STABLE)
 from cyclistsocialforce_tpu_torch.params import pair_hi, pair_lo
 
 # the shared parameters the kernels take as arguments
 NAV_FIELDS = ("d_arrived_inter", "d_arrived_stop", "v_max_stop",
               "v_max_harddecel", "v_desired_default", "a_max",
               "a_desired_default")
+# agent_post's and agent_post_whipple's (a model's `AgentKernels.fields`)
 MODEL_FIELDS = ("t_s", "k_p_delta", "k_p_v", "a_max", "delta_max",
                 "v_max_riding", "l")
 WHIPPLE_FIELDS = ("t_s", "k_p_v", "a_max", "v_max_riding")
@@ -103,13 +105,12 @@ _AgentPreArgs = _struct(
     "_AgentPreArgs", _PRE_IN + _PRE_OUT, ("n", "npad", "q", "legacy"),
     _NAV_CONSTANTS, [("cols", _PairCol * len(PACK_COLUMNS))])
 
-# agent_pre's spline instance: agent_pre's arguments, the ring, the clock
-# and the fallback counter, the ring's length and the lookback, and the
-# spline's constants
+# agent_pre's spline instance: agent_pre's arguments, the ring and the
+# clock, the ring's length and the lookback, and the spline's constants
 _SPLINE_CONSTANTS = ("sixth", "third", "q_step", "tc_g", "v_stable")
 _AgentPreSplineArgs = type("_AgentPreSplineArgs", (ctypes.Structure,), {
     "_fields_": [("base", _AgentPreArgs), ("pos_hist", _P), ("t_glob", _P),
-                 ("fallback_rows", _P), ("hist", _I), ("lookback", _I),
+                 ("hist", _I), ("lookback", _I),
                  *((f, _F) for f in _SPLINE_CONSTANTS)]})
 
 # the destination and FSM fields agent_pre sets
@@ -167,6 +168,27 @@ _FIELD_FORMS = {"s": (torch.float32, 8), "dest": (torch.float32, 3),
                 "dyn_x": (torch.float32, 7), "dyn_v": (torch.float32, 0)}
 
 
+class AgentKernels(NamedTuple):
+    """The per-agent kernels a model's step takes, as its module declares
+    them (its `agent_kernels(params)` hook; `Engine.agent_kernels` decides
+    where a step takes them).
+
+      dest      agent_pre's destination force, a name in
+                `engine.DEST_FORCES`: "straight" (agent_pre) or "spline"
+                (its spline instance)
+      post      the post kernel's instance: "agent_post", "agent_post_twod"
+                (agent_post's twod instance, with the arrived-freeze) or
+                "agent_post_whipple"
+      fields    the shared parameters the kernels read beside the
+                navigation ones (`takes_params`)
+      families  the culled pair families they are admitted for"""
+
+    dest: str
+    post: str
+    fields: tuple
+    families: tuple
+
+
 class PreStep(NamedTuple):
     """What agent_pre hands on: the destination force (fdx, fdy) [n], the
     state with the destination and FSM fields the step sets (`dest`,
@@ -200,12 +222,11 @@ def _pack_values(params) -> dict:
     return values
 
 
-def takes_params(params, device, model_fields=MODEL_FIELDS) -> bool:
+def takes_params(params, device, model_fields) -> bool:
     """Do the kernels take `params`: every navigation parameter and each
-    of `model_fields` (those of the post kernel: `MODEL_FIELDS` for
-    agent_post, `WHIPPLE_FIELDS` for agent_post_whipple) shared, every
-    pair-field column shared or a 1-D float32 or float64 per-rider table
-    on `device`?"""
+    of `model_fields` (an `AgentKernels`' fields) shared, every pair-field
+    column shared or a 1-D float32 or float64 per-rider table on
+    `device`?"""
     if not all(hasattr(params, f) for f in NAV_FIELDS + model_fields
                + PACK_COLUMNS[:-1]):
         return False
@@ -222,132 +243,21 @@ def takes_params(params, device, model_fields=MODEL_FIELDS) -> bool:
     return True
 
 
-def whipple_mode(params) -> str:
-    """The gain mode of a balancing rider's step: "poly" (the gains a
-    piecewise polynomial of speed, `BalancingRiderParams.create(
-    gains_poly=)`, which agent_post_whipple computes), or a mode that
-    keeps the torch chain: "stochastic", "disturbed" (torque
-    disturbances), "prop" (a propagator table or fit), "fixed", "lut"
-    or "exact" (the Ackermann placement every step)."""
-    if params.stochastic_control_behavior:
-        return "stochastic"
-    if params.br_disturb:
-        return "disturbed"
-    if params.br_prop_poly is not None or params.br_prop_lut is not None:
-        return "prop"
-    if params.br_gains_fixed is not None:
-        return "fixed"
-    if params.br_gains_lut is not None:
-        return "lut"
-    if params.br_gains_poly is not None:
-        return "poly"
-    return "exact"
-
-
-def _fit_fits(poly) -> bool:
-    """Does agent_post_whipple stage the gains' fit in shared memory (its
-    coefficients within `WHIPPLE_MAX_COEFFS`)?"""
-    return len(poly[0]) * len(poly[0][0]) <= WHIPPLE_MAX_COEFFS
-
-
-def is_twod(engine) -> bool:
-    """Is `engine`'s model step the twod model's (`models.bicycle_twod`:
-    agent_pre's spline instance and agent_post's twod instance)?"""
-    from cyclistsocialforce_tpu_torch.models import bicycle_twod
-
-    return getattr(engine, "model_step", None) is bicycle_twod.step
-
-
-def post_step(engine):
-    """The post kernel's wrapper for `engine`'s model step, or None:
-    agent_post for bicycle2d and the twod model, agent_post_whipple for a
-    balancing rider of the "poly" gain mode (`whipple_mode`) whose fit it
-    stages; every other model and mode keeps the torch chain."""
-    from cyclistsocialforce_tpu_torch.models import balancingrider, bicycle2d
-
-    step = getattr(engine, "model_step", None)
-    if step is bicycle2d.step or is_twod(engine):
-        return agent_post
-    if (step is balancingrider.step
-            and whipple_mode(engine.params) == "poly"
-            and _fit_fits(engine.params.br_gains_poly)):
-        return agent_post_whipple
-    return None
-
-
-def takes_engine(engine, device) -> bool:
-    """Is `engine` of the fused form on `device`: a model step a post
-    kernel takes (`post_step`) with its destination force (the twod
-    model's spline, the straight line for the others), a field culled
-    through a pair kernel (twod or legacy for agent_post's models, twod
-    for the balancing rider), parameters the kernels take (`takes_params`:
-    shared t_s, so one lookback for the spline, and the spline's g), and
-    no road, scripts or force hooks? (The spline's ring belongs to the
-    state: `takes_ring`.)"""
-    from cyclistsocialforce_tpu_torch.engine import (dest_force_spline,
-                                                     dest_force_straight)
-
-    post = post_step(engine)
-    if post is None:
-        return False
-    model_fields, families = _POST_NEEDS[post]
-    dest = dest_force_straight
-    if is_twod(engine):
-        dest, model_fields = dest_force_spline, model_fields + SPLINE_FIELDS
-    return (getattr(engine, "pair_family", None) in families
-            and getattr(engine, "dest_force", None) is dest
-            and engine.neighbors is not None and engine.road is None
-            and engine.scripted is None and engine.rep_reduce is None
-            and engine.combine_forces is None
-            and not getattr(engine.params, "dest_force", None)
-            and not getattr(engine.params, "rep_force", None)
-            and takes_params(engine.params, torch.device(device),
-                             model_fields))
-
-
-def fused_form(engine, state) -> bool:
-    """Does a step of `state` go through the kernels: a float32 state of
-    more than one row on a CUDA device and an engine of the fused form
-    there (`takes_engine`)? Every other step, and every step of a CPU
-    state, goes through the engine's torch functions. The engine decides
-    once per device: it keeps the answer with its pack columns, which it
-    drops when a field the answer reads changes; the twod model's spline
-    takes a ring that holds its lookback (`takes_ring`)."""
-    if not (state.s.is_cuda and state.s.dtype == torch.float32
-            and state.n > 1):
-        return False
-    return (engine.kept(("fused_form", state.device),
-                        lambda: takes_engine(engine, state.device))
-            and takes_ring(engine, state.hist_len))
-
-
-def takes_ring(engine, hist_len: int) -> bool:
-    """Does a position ring of `hist_len` slots hold what the kernels read:
-    for the twod model's spline its 1 s lookback and the step before it
-    (lookback + 1 slots; a shorter ring keeps the torch chain, which
-    warns that it reads wrapped samples)?"""
-    if not is_twod(engine):
-        return True
-    lookback = engine.dest_kw.get("lookback")
-    return lookback is not None and hist_len >= lookback + 1
-
-
-def _require_fused(name, engine, state, post=None):
-    """Raise unless a step of `state` is of the fused form, and `post`
-    (None: any) is the engine's post kernel."""
-    if not fused_form(engine, state) or post not in (None,
-                                                      post_step(engine)):
+def _require_fused(name, engine, state, posts=None) -> AgentKernels:
+    """The kernels a step of `state` takes (`Engine.agent_kernels`); raise
+    unless there are any and their post kernel is one of `posts` (None:
+    any)."""
+    k = engine.agent_kernels(state)
+    if k is None or (posts is not None and k.post not in posts):
         raise ValueError(
             f"{name}: the kernel takes a float32 state of more than one row "
-            f"and an engine of the fused form (`agent_step.fused_form`): "
-            f"bicycle2d with the straight destination force or the twod "
-            f"model with its spline and a ring of its 1 s lookback "
-            f"(agent_post), or a balancing rider whose gains are a "
-            f"piecewise polynomial with the straight destination force "
-            f"(agent_post_whipple), the twod (or for agent_post the legacy) "
-            f"field culled, shared navigation and model parameters, "
-            f"per-rider pair columns as 1-D float tables on the state's "
-            f"device, no road, scripts or hooks")
+            f"on a CUDA device and an engine of the fused form "
+            f"(`Engine.agent_kernels`): a model that declares this kernel, "
+            f"its destination force, a declared pair family culled, shared "
+            f"navigation and model parameters, per-rider pair columns as "
+            f"1-D float tables on the state's device, a ring that holds the "
+            f"spline's lookback, no road, scripts or hooks")
+    return k
 
 
 def _f32(x) -> float:
@@ -417,22 +327,10 @@ def _spline_constants(params) -> dict:
     step the float of 1 / 19 (`spline.uniform_grid`), the comfort lean
     times g the float32 product of the two floats (`SPL_THETA_COMF * g`
     with g a float32 tensor)."""
-    from cyclistsocialforce_tpu_torch import engine as E
-
     return {"sixth": _inv(6.0), "third": _inv(3.0),
-            "q_step": _f32(1.0 / (E.SPL_N_PNTS - 1)),
-            "tc_g": float(np.float32(E.SPL_THETA_COMF) * np.float32(params.g)),
-            "v_stable": _f32(E.SPL_V_MIN_STABLE)}
-
-
-def spline_fallback_rows(engine, device) -> torch.Tensor:
-    """The int64 [1] counter on `device` (a state's, with its index) to
-    which agent_pre's spline instance adds the rows that took the
-    straight-line fallback, every step it runs; kept with the engine's
-    pack columns (a captured chunk adds to it by address)."""
-    device = torch.device(device)
-    return engine.kept(("spline_fallback_rows", device), lambda: torch.zeros(
-        1, dtype=torch.int64, device=device))
+            "q_step": _f32(1.0 / (SPL_N_PNTS - 1)),
+            "tc_g": float(np.float32(SPL_THETA_COMF) * np.float32(params.g)),
+            "v_stable": _f32(SPL_V_MIN_STABLE)}
 
 
 def _pair_col(v) -> _PairCol:
@@ -487,8 +385,13 @@ def _launch(name, symbol, args, device):
     from cyclistsocialforce_tpu_torch.ops import _build
 
     lib = _build.library()
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        # every instance takes a pointer to its argument struct, the
+        # device and the stream, and returns an error code
+        fn.argtypes, fn.restype = [_P, _I, _P], _I
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, symbol)(ctypes.byref(args), device.index, stream)
+    rc = fn(ctypes.byref(args), device.index, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed "
                            f"({_build.error_string(lib, rc)})")
@@ -541,10 +444,11 @@ def agent_post_whipple_ref(engine, before, pre: PreStep, frx, fry):
 
 def agent_pre(engine, state, npad: int) -> PreStep:
     """agent_pre: the CUDA kernel on a CUDA state, the plain version on a
-    CPU state. The kernel takes a step of the fused form (`fused_form`),
-    the state's fields contiguous as `make_state` builds them, and npad
-    >= n rows; on a twod engine its spline instance, which also reads the
-    position ring and adds its fallback rows to `spline_fallback_rows`."""
+    CPU state. The kernel takes a step that takes the per-agent kernels
+    (`Engine.agent_kernels`), the state's fields contiguous as
+    `make_state` builds them, and npad >= n rows; for the spline
+    destination force its spline instance, which also reads the position
+    ring."""
     fields = ("s", "dest", "destqueue", "destpointer", "nq", "znav",
               "znavparams", "i", "i_stopsignal", "d_stopsignal", "active",
               "uid")
@@ -552,7 +456,7 @@ def agent_pre(engine, state, npad: int) -> PreStep:
         return agent_pre_ref(engine, state, npad)
     n, device = state.n, state.device
     params = engine.params
-    _require_fused("agent_pre", engine, state)
+    kernels = _require_fused("agent_pre", engine, state)
     _check_state("agent_pre", state, [f for f in fields if f != "destqueue"])
     dq = state.destqueue
     if (dq.dtype != torch.float32 or dq.ndim != 3 or dq.shape[0] != n
@@ -581,13 +485,12 @@ def agent_pre(engine, state, npad: int) -> PreStep:
         (_PairCol * len(PACK_COLUMNS))(
             *(_pair_col(values[f]) for f in PACK_COLUMNS)))
     symbol = "csf_agent_pre"
-    if is_twod(engine):
+    if kernels.dest == "spline":
         _check_ring("agent_pre", state)
         consts = _spline_constants(params)
         args, symbol = _AgentPreSplineArgs(
             args, state.pos_hist.data_ptr(), state.t_glob.data_ptr(),
-            spline_fallback_rows(engine, device).data_ptr(), state.hist_len,
-            engine.dest_kw["lookback"],
+            state.hist_len, engine.dest_kw["lookback"],
             *(consts[f] for f in _SPLINE_CONSTANTS)), "csf_agent_pre_spline"
     _launch("agent_pre", symbol, args, device)
     PF._count(agent_pre)
@@ -601,9 +504,9 @@ def agent_pre(engine, state, npad: int) -> PreStep:
 
 def agent_post(engine, before, pre: PreStep, frx, fry):
     """agent_post: the CUDA kernel on a CUDA state, the plain version on a
-    CPU state; arguments and result as `agent_post_ref`. The kernel (its
-    twod instance on a twod engine, which reads agent_pre's FSM state)
-    takes what agent_pre takes and returns fresh tensors for the fields it
+    CPU state; arguments and result as `agent_post_ref`. The kernel (or
+    its twod instance, which reads agent_pre's FSM state) takes what
+    agent_pre takes and returns fresh tensors for the fields it
     changes (`s`, `pid_e`, `pid_i`, `i`, `t_glob`, `pos_hist`: the ring
     copied and one slot written); the destination and FSM fields are
     `pre.state`'s, the others (`UNCHANGED`) `before`'s own."""
@@ -611,7 +514,8 @@ def agent_post(engine, before, pre: PreStep, frx, fry):
     if not PF._on_cuda("agent_post", *tensors):
         return agent_post_ref(engine, before, pre, frx, fry)
     n = before.n
-    _require_fused("agent_post", engine, before, agent_post)
+    kernels = _require_fused("agent_post", engine, before,
+                             ("agent_post", "agent_post_twod"))
     _check_state("agent_post", before,
                  ("s", "pid_e", "pid_i", "i", "active", "nq"))
     _check_state("agent_post", pre.state, ("dest", "destpointer"))
@@ -634,16 +538,14 @@ def agent_post(engine, before, pre: PreStep, frx, fry):
         *(inputs[f].data_ptr() for f in _POST_IN),
         *(outputs[f].data_ptr() for f in _POST_OUT),
         n, before.hist_len, *(consts[f] for f in _MODEL_CONSTANTS))
-    symbol = "csf_agent_post"
-    if is_twod(engine):
+    if kernels.post == "agent_post_twod":
         _check_state("agent_post", pre.state, ("znav",))
         # the twod instance moves the ring's (x, y) slots as float2
         if before.pos_hist.data_ptr() % 8:
             raise ValueError("agent_post: the twod instance takes a position "
                              "ring aligned to 8 bytes")
-        args, symbol = (_AgentPostTwodArgs(args, pre.state.znav.data_ptr()),
-                        "csf_agent_post_twod")
-    _launch("agent_post", symbol, args, before.device)
+        args = _AgentPostTwodArgs(args, pre.state.znav.data_ptr())
+    _launch("agent_post", "csf_" + kernels.post, args, before.device)
     PF._count(agent_post)
     return before.replace(**new, **{f: getattr(pre.state, f)
                                     for f in _CHANGED}), fx, fy
@@ -652,8 +554,8 @@ def agent_post(engine, before, pre: PreStep, frx, fry):
 def agent_post_whipple(engine, before, pre: PreStep, frx, fry):
     """agent_post_whipple: the CUDA kernel on a CUDA state, the plain
     version on a CPU state; arguments and result as
-    `agent_post_whipple_ref`. The kernel takes what agent_pre takes, on a
-    balancing-rider engine of the "poly" gain mode (`post_step`), and
+    `agent_post_whipple_ref`. The kernel takes what agent_pre takes, where
+    the model declares it (`models.balancingrider.agent_kernels`), and
     returns fresh tensors for the fields it changes (`s`, `dyn_x`,
     `dyn_v`, `dyn_gains`, `i`, `t_glob`, `pos_hist`: the ring copied and
     one slot written); the destination and FSM fields are `pre.state`'s,
@@ -662,7 +564,7 @@ def agent_post_whipple(engine, before, pre: PreStep, frx, fry):
     if not PF._on_cuda("agent_post_whipple", *tensors):
         return agent_post_whipple_ref(engine, before, pre, frx, fry)
     name = "agent_post_whipple"
-    _require_fused(name, engine, before, agent_post_whipple)
+    _require_fused(name, engine, before, ("agent_post_whipple",))
     _check_state(name, before, ("s", "dyn_x", "dyn_v", "i", "active"))
     _check_post_inputs(name, before, pre, frx, fry)
     dg = before.dyn_gains
@@ -703,10 +605,9 @@ def agent_post_whipple(engine, before, pre: PreStep, frx, fry):
                                     for f in _CHANGED}), fx, fy
 
 
-# each post kernel's shared parameters (`takes_params`) and the fields it
-# is admitted for (`takes_engine`)
-_POST_NEEDS = {agent_post: (MODEL_FIELDS, ("twod", "legacy")),
-               agent_post_whipple: (WHIPPLE_FIELDS, ("twod",))}
+# the wrapper of each post instance (`AgentKernels.post`)
+POST_KERNELS = {"agent_post": agent_post, "agent_post_twod": agent_post,
+                "agent_post_whipple": agent_post_whipple}
 
 # launches since the last reset and launches recorded into CUDA-graph
 # captures, as `ops.pair_forces` counts its kernels'

@@ -15,9 +15,17 @@ engine sends such agents to the straight-line fallback.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from cyclistsocialforce_tpu_torch.ops.smallmat import solve_small
+
+# constants of the reference's path-planning force (vehicle.py:1443-1448,
+# :1534) that the spline instance of agent_pre takes as well
+SPL_N_PNTS = 20        # interpolated spline points
+SPL_THETA_COMF = 10.0 * (2.0 * math.pi / 360.0)   # comfort lean ~10 deg
+SPL_V_MIN_STABLE = 2.5                            # vehicle.py:1534
 
 
 def chord_param(pts):

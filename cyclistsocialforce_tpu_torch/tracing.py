@@ -43,13 +43,7 @@ Counters: `steps`, `rebuilds`, `captures` (`ChunkRunner` constructions);
 the tables' valid slots (a table's valid slots x block x block_src x the
 steps it serves); `table_overflow_rows`, the receiver blocks whose table
 overflowed (`NeighborConfig.kb` too small: the farthest source blocks
-were dropped), summed over the rebuilds; `spline_fallback_rows`, the
-rows of the twod model's steps that took the spline force's
-straight-line fallback, as agent_pre's spline instance counts them on the
-card (`ops.agent_step.spline_fallback_rows`; a run of the torch chain
-counts none). That count lives in a device tensor that only grows
-(`grows`): the recorder copies it once, where a recording first sees it,
-and reports how far it grew, so a chunk adds no operation for it.
+were dropped), summed over the rebuilds.
 """
 
 from __future__ import annotations
@@ -148,7 +142,6 @@ class Recorder:
         self._totals = {}     # name -> [count, host ms, stream ms or None]
         self._pending = {}    # counter -> [(device tensor, factor)]
         self._folded = {}     # counter -> device tensor
-        self._grown = {}      # (counter, tensor address) -> (tensor, copy)
 
     def _stack(self) -> list:
         stack = getattr(self._local, "stack", None)
@@ -193,14 +186,6 @@ class Recorder:
         if len(pending) >= FOLD_COUNTS:
             self._fold_counter(name)
 
-    def grows(self, name: str, tensor):
-        """Report under counter `name` how far the device tensor `tensor`,
-        a count that only grows, grows from the first call that names it
-        (its value then copied once) to `report()`."""
-        key = (name, tensor.data_ptr())
-        if key not in self._grown:
-            self._grown[key] = (tensor, tensor.clone())
-
     def _fold_counter(self, name: str):
         total = self._folded.get(name)
         by_factor = {}
@@ -224,8 +209,6 @@ class Recorder:
             self._fold_counter(name)
         for name, t in self._folded.items():
             counters[name] = counters.get(name, 0) + int(t)
-        for (name, _), (t, start) in self._grown.items():
-            counters[name] = counters.get(name, 0) + int((t - start).sum())
         return {"steps": counters.get("steps", 0),
                 "spans": {k: {"count": n, "host_ms": h, "stream_ms": s}
                           for k, (n, h, s) in totals.items()},
@@ -294,13 +277,6 @@ def count(p: Probe | None, name: str, value, factor: int = 1):
     """Add to counter `name` where probe `p` records."""
     if p is not None:
         RECORDER.count(name, value, factor)
-
-
-def grows(p: Probe | None, name: str, tensor):
-    """Report the growth of the count `tensor` under counter `name`
-    (`Recorder.grows`) where probe `p` records."""
-    if p is not None:
-        RECORDER.grows(name, tensor)
 
 
 @contextlib.contextmanager

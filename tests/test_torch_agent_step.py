@@ -240,7 +240,8 @@ def test_fused_step_bit_equal_to_torch_chain(family, presorted):
     if presorted:
         st = TE.permute_state(st, cache[0])
     want, wfx, wfy = eng.step_with_forces(st, cache, presorted)
-    got, gfx, gfy = eng.fused_step(st, cache, presorted)
+    got, gfx, gfy = eng.fused_step(st, eng.kernels_on(DEV, st.hist_len),
+                                   cache, presorted)
     assert torch.equal(gfx, wfx) and torch.equal(gfy, wfy)
     for f in TE._STATE_FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
@@ -252,7 +253,8 @@ def test_fused_form_table():
     with the straight destination force and the twod model with its
     spline force, a culled named field, shared navigation and model
     parameters (for the spline t_s, so one lookback, and g), per-rider
-    pair columns allowed; the twod model's ring must hold its lookback."""
+    pair columns allowed; the twod model's ring must hold its lookback.
+    The engine-side rule (`Engine.kernels_on`) is asked for the CPU."""
     cpu = torch.device("cpu")
     base = BicycleParams.create()
     pop = as_population(base, 64, DEV)
@@ -312,21 +314,32 @@ def test_fused_form_table():
                                       ("twod", base, 32)],
                                      neighbors=cfg), False),
     }
-    got = {name: AS.takes_engine(eng, cpu) for name, (eng, _) in
-           table.items()}
-    assert got == {name: want for name, (_, want) in table.items()}
-    # a per-rider column on another device than the state's keeps the
-    # torch chain; so does any state on the CPU
-    assert not AS.takes_engine(table["per-rider pair columns"][0], "meta")
-    assert not AS.fused_form(bike(), crowd(64, dtype=torch.float32))
     # the twod model's ring holds its 1 s lookback (100 steps) and the
-    # step before it; bicycle2d reads no lookback
+    # step before it; bicycle2d reads no lookback (every other case is
+    # asked with a ring of SPLINE_HIST slots)
     lookback = TE.spline_lookback(base)
     assert lookback == 100
-    assert [AS.takes_ring(twod(), h) for h in (8, lookback, lookback + 1,
-                                               SPLINE_HIST)] == [
-        False, False, True, True]
-    assert AS.takes_ring(bike(), 8)
+    rings = {"twod model, ring of 8": (twod(), 8, False),
+             "twod model, ring of the lookback": (twod(), lookback, False),
+             "twod model, ring of the lookback and one": (
+                 twod(), lookback + 1, True),
+             "bicycle2d, ring of 8": (bike(), 8, True)}
+    table.update({name: (eng, want) for name, (eng, _, want) in
+                  rings.items()})
+    got = {name: eng.kernels_on(cpu, rings[name][1] if name in rings
+                                else SPLINE_HIST)
+           for name, (eng, _) in table.items()}
+    assert {name: k is not None for name, k in got.items()} == {
+        name: want for name, (_, want) in table.items()}
+    # the kernels are the ones the model declares
+    assert got["twod K1"] == bicycle2d.agent_kernels(base)
+    assert got["twod model"] == bicycle_twod.agent_kernels(base)
+    assert (got["twod model"].dest, got["twod model"].post) == (
+        "spline", "agent_post_twod")
+    # a per-rider column on another device than the state's keeps the
+    # torch chain; so does any state on the CPU
+    assert table["per-rider pair columns"][0].kernels_on("meta", 8) is None
+    assert bike().agent_kernels(crowd(64, dtype=torch.float32)) is None
 
 
 def test_fused_step_contract():
@@ -335,7 +348,7 @@ def test_fused_step_contract():
     eng = port_engine(BicycleParams.create(), "twod")
     st = crowd(dtype=torch.float32)
     keep = {f: getattr(st, f).clone() for f in TE._STATE_FIELDS}
-    new, _, _ = eng.fused_step(st)
+    new, _, _ = eng.fused_step(st, eng.kernels_on(DEV, st.hist_len))
     for f in TE._STATE_FIELDS:
         assert torch.equal(getattr(st, f), keep[f]), f
         shared = getattr(new, f) is getattr(st, f)
@@ -413,7 +426,7 @@ def test_cuda_agent_kernels_match_plain(cuda_device, family):
     eng = port_engine(port_params(family, True, cuda_device), family)
     st = crowd(n, dtype=torch.float32, device=cuda_device)
     npad = eng.pair_rows(n)
-    assert npad > n and AS.fused_form(eng, st)
+    assert npad > n and eng.agent_kernels(st) is not None
     keep = {f: getattr(st, f).clone() for f in TE._STATE_FIELDS}
     before = AS.agent_pre.launches, AS.agent_post.launches
     pre = AS.agent_pre(eng, st, npad)

@@ -8,9 +8,8 @@ plain versions and the rule that picks the kernels are tested on the CPU
 in tests/test_torch_agent_step.py. On a crowd on routes of up to four
 waypoints, some ending at a stop, some riders already arrived and some
 inactive: the fused route against the engine's torch chain bit for bit
-over 300 eager steps (the ring wraps past its 128 slots), with the
-fallback counter against the chain's fallback rows; a graphed 100-step
-run against the eager one; the kernels against their plain versions at
+over 300 eager steps (the ring wraps past its 128 slots); a graphed
+100-step run against the eager one; the kernels against their plain versions at
 ragged sizes; and a ring shorter than the lookback keeping the chain.
 
 No test here imports the JAX package: the torch chain is the reference
@@ -24,7 +23,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from cyclistsocialforce_tpu_torch import engine as TE  # noqa: E402
-from cyclistsocialforce_tpu_torch import tracing  # noqa: E402
 from cyclistsocialforce_tpu_torch.models import MODELS  # noqa: E402
 from cyclistsocialforce_tpu_torch.ops import agent_step as AS  # noqa: E402
 from cyclistsocialforce_tpu_torch.params import BicycleParams  # noqa: E402
@@ -129,37 +127,30 @@ def test_cuda_fused_twod_equals_torch_chain(cuda_device):
     """Over 300 eager steps of the routes crowd, the fused route (agent_pre's
     spline instance, K1, agent_post's twod instance) equals the torch
     chain bit for bit in every state field and the applied forces; the
-    run holds step 0, last-destination rows, fallback rows, arrived
-    (frozen) rows and inactive rows, and the fallback counter reads the
-    chain's fallback rows."""
+    run holds step 0, last-destination rows, arrived (frozen) rows and
+    inactive rows."""
     eng = twod_engine()
     st = routes_crowd(RIDERS, cuda_device)
-    assert AS.fused_form(eng, st)
+    kernels = eng.agent_kernels(st)
+    assert kernels is not None
     lookback = eng.dest_kw["lookback"]
-    counter = AS.spline_fallback_rows(eng, st.device)
-    start = counter.clone()
-    seen = dict.fromkeys(("step0", "last", "fallback", "frozen", "inactive"),
-                         0)
-    fallback = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    seen = dict.fromkeys(("step0", "last", "frozen", "inactive"), 0)
     for k in range(STEPS):
         if k % CFG["rebuild_every"] == 0:
             cache = eng.neighbor_cache(st)
-        got, gfx, gfy = eng.fused_step(st, cache)
+        got, gfx, gfy = eng.fused_step(st, kernels, cache)
         want, wfx, wfy = torch_chain_step(eng, st, cache)
         assert same(gfx, wfx) and same(gfy, wfy), k
         assert_states_same(got, want, k)
-        _, _, pre, fb = TE.spline_force_fallback(eng.params, st, lookback)
+        _, _, pre = TE.dest_force_spline(eng.params, st, lookback)
         act = st.active
-        fallback += fb.sum()
         seen["step0"] += int(((st.i == 0) & act).sum())
         seen["last"] += int(((pre.destpointer >= st.nq - 1) & act).sum())
-        seen["fallback"] += int(fb.sum())
         seen["frozen"] += int((pre.znav[:, 2] & act).sum())
         seen["inactive"] += int((~act).sum())
         st = want
     torch.cuda.synchronize()
     assert all(seen.values()), seen
-    assert int(counter - start) == int(fallback) == seen["fallback"]
     assert torch.isfinite(st.s).all()
 
 
@@ -167,21 +158,13 @@ def test_cuda_fused_twod_equals_torch_chain(cuda_device):
 def test_cuda_graphed_twod_equals_eager(cuda_device):
     """A graphed 100-step run (five replays of a captured 20-step chunk)
     equals the eager steps bit for bit, and replays one agent_pre and one
-    agent_post launch a step, no agent_post_whipple; recorded, it reports
-    the fallback counter's growth over the run."""
+    agent_post launch a step, no agent_post_whipple."""
     st = routes_crowd(RIDERS, cuda_device, seed=8)
     graphed, eager = twod_engine(), twod_engine()
-    counter = AS.spline_fallback_rows(graphed, st.device)
-    start = counter.clone()
-    tracing.clear()
-    with tracing.recording():
-        got, _ = graphed.simulate(st, GRAPH_STEPS, record=False)
+    got, _ = graphed.simulate(st, GRAPH_STEPS, record=False)
     want, _ = eager.simulate(st, GRAPH_STEPS, record=False, graph=False)
     torch.cuda.synchronize()
     assert_states_same(got, want)
-    assert tracing.report()["counters"]["spline_fallback_rows"] == \
-        int(counter - start)
-    tracing.clear()
     runner, = graphed._runners.values()
     assert runner.graph is not None
     assert graphed.graph_launches(KERNELS) == (GRAPH_STEPS, GRAPH_STEPS, 0)
@@ -221,7 +204,7 @@ def test_cuda_short_ring_keeps_the_torch_chain(cuda_device):
     the torch chain, which warns that it reads wrapped samples."""
     eng = twod_engine()
     st = routes_crowd(1024, cuda_device, hist=8)
-    assert not AS.fused_form(eng, st)
+    assert eng.agent_kernels(st) is None
     before = tuple(fn.launches for fn in KERNELS)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")

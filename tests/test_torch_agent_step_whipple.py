@@ -1,7 +1,8 @@
 """PyTorch port: the balancing rider's post kernel (`agent_post_whipple`,
 `csrc/agent_step.cu`) on the fused route. On the CPU: which engines the
-rule admits (`agent_step.fused_form`: the benchmark's balancing-rider
-configuration) and which gain modes keep the torch chain, and the fused
+rule admits (the model's `agent_kernels` hook and `Engine.agent_kernels`:
+the benchmark's balancing-rider configuration) and which gain modes keep
+the torch chain, and the fused
 route's plain versions against the engine's torch chain bit for bit over
 20 steps, with the route's functional contract. On the card (`cuda`
 marker): the kernel against its plain version bit for bit at 2, 129 and
@@ -22,7 +23,8 @@ torch = pytest.importorskip("torch")
 
 from cyclistsocialforce_tpu_torch import engine as TE  # noqa: E402
 from cyclistsocialforce_tpu_torch import params as P  # noqa: E402
-from cyclistsocialforce_tpu_torch.models import MODELS, prepare  # noqa: E402
+from cyclistsocialforce_tpu_torch.models import (MODELS,  # noqa: E402
+                                                 balancingrider, prepare)
 from cyclistsocialforce_tpu_torch.ops import agent_step as AS  # noqa: E402
 from cyclistsocialforce_tpu_torch.params import (  # noqa: E402
     BalancingRiderParams, BicycleParams)
@@ -43,6 +45,7 @@ SPEEDS = (0.5, 1.5, 3.0, 5.0, 9.999, 10.0)
 V_DESIRED = 12.0
 STEPS, REBUILD = 20, 5
 FIXED_GAINS = [-13.14, 1.10, -6.69, -0.11, -11.38]
+HIST = 8        # the ring the rule is asked for (the rider reads no lookback)
 
 
 def bench_engine():
@@ -88,28 +91,31 @@ def test_rule_admits_the_benchmark_configuration():
     """The benchmark's balancing rider (gains_poly=16, the twod field
     culled through K1) takes agent_pre and agent_post_whipple."""
     eng = bench_engine()
-    assert AS.whipple_mode(eng.params) == "poly"
-    assert AS.takes_engine(eng, torch.device("cpu"))
-    assert AS.post_step(eng) is AS.agent_post_whipple
+    assert balancingrider.gain_mode(eng.params) == "poly"
+    declared = balancingrider.agent_kernels(eng.params)
+    assert (declared.dest, declared.post) == ("straight",
+                                              "agent_post_whipple")
+    assert eng.kernels_on(torch.device("cpu"), HIST) == declared
     # on the CPU every state keeps the torch chain
-    assert not AS.fused_form(eng, crowd(64))
+    assert eng.agent_kernels(crowd(64)) is None
 
 
 def refused(mode):
-    """(params, the mode `whipple_mode` reports) of each refused case."""
+    """(params, the mode `balancingrider.gain_mode` reports) of each
+    refused case: `step` takes the gains' fit before it resamples, and
+    the disturbances come on top of any mode."""
     base = poly_params()
     if mode == "stochastic":
-        return base.replace(stochastic_control_behavior=True), "stochastic"
+        return base.replace(stochastic_control_behavior=True), "poly"
     if mode == "br_disturb":
-        return base.replace(p_dist_roll=0.01), "disturbed"
+        return base.replace(p_dist_roll=0.01), "poly"
     if mode == "per-rider t_s":
         return base.replace(t_s=torch.full((64,), 0.01,
                                            dtype=torch.float64)), "poly"
     kw = {"gains_lut": {"gains_lut": 64}, "prop_poly": {"prop_poly": 16},
           "prop_lut": {"prop_lut": 64}, "exact": {},
           "fixed": {"gains": FIXED_GAINS, "gains_poly": 16}}[mode]
-    want = {"gains_lut": "lut", "prop_poly": "prop",
-            "prop_lut": "prop"}.get(mode, mode)
+    want = {"gains_lut": "lut"}.get(mode, mode)
     return BalancingRiderParams.create(**kw), want
 
 
@@ -121,10 +127,10 @@ def test_rule_refuses(mode):
     chain; the rule says which mode it saw."""
     params, want = refused(mode)
     eng = br_engine(params)
-    assert AS.whipple_mode(params) == want
-    assert not AS.takes_engine(eng, torch.device("cpu"))
+    assert balancingrider.gain_mode(params) == want
+    assert eng.kernels_on(torch.device("cpu"), HIST) is None
     if mode != "per-rider t_s":
-        assert AS.post_step(eng) is None
+        assert balancingrider.agent_kernels(params) is None
 
 
 def test_rule_refuses_the_legacy_field_and_a_dense_stage():
@@ -135,7 +141,7 @@ def test_rule_refuses_the_legacy_field_and_a_dense_stage():
                               neighbors=TE.NeighborConfig(**CFG))
     dense = TE.Engine.create(poly_params(), MODELS["balancingrider"])
     for eng in (legacy, dense):
-        assert not AS.takes_engine(eng, torch.device("cpu"))
+        assert eng.kernels_on(torch.device("cpu"), HIST) is None
 
 
 def test_plain_route_equals_torch_chain_over_20_steps():
@@ -153,7 +159,8 @@ def test_plain_route_equals_torch_chain_over_20_steps():
         if k % REBUILD == 0:
             cache = eng.neighbor_cache(st)
         want, wfx, wfy = eng.step_with_forces(st, cache)
-        got, gfx, gfy = eng.fused_step(st, cache)
+        got, gfx, gfy = eng.fused_step(st, eng.kernels_on(DEV, st.hist_len),
+                                       cache)
         assert torch.equal(gfx, wfx) and torch.equal(gfy, wfy), k
         for f in TE._STATE_FIELDS:
             assert torch.equal(getattr(got, f), getattr(want, f)), (k, f)
@@ -182,7 +189,7 @@ def test_whipple_contract_and_cpu_wrapper():
     for f in TE._STATE_FIELDS:
         assert torch.equal(getattr(got[0], f), getattr(want[0], f)), f
     assert AS.agent_post_whipple.launches == 0
-    new, _, _ = eng.fused_step(st)
+    new, _, _ = eng.fused_step(st, eng.kernels_on(DEV, st.hist_len))
     for f in TE._STATE_FIELDS:
         assert torch.equal(getattr(st, f), keep[f]), f
         shared = getattr(new, f) is getattr(st, f)
@@ -215,7 +222,7 @@ def test_cuda_whipple_kernel_matches_plain(cuda_device, n):
     balancing-rider engine), counted once per call."""
     eng = br_engine()
     st = crowd(n, device=cuda_device)
-    assert AS.fused_form(eng, st)
+    assert eng.agent_kernels(st) is not None
     npad = eng.pair_rows(n)
     pre = AS.agent_pre(eng, st, npad)
     pre_r = AS.agent_pre_ref(eng, st, npad)
@@ -248,7 +255,7 @@ def test_cuda_captured_chunk_equals_torch_chain(cuda_device, monkeypatch):
     assert st.n == 100_096
     plain, fused = bench_engine(), bench_engine()
     with monkeypatch.context() as m:
-        m.setattr(AS, "fused_form", lambda engine, state: False)
+        m.setattr(plain, "agent_kernels", lambda state: None)
         want, _ = plain.simulate(st, STEPS, record=False, graph=False)
     kernels = (AS.agent_pre, AS.agent_post, AS.agent_post_whipple)
     got, _ = fused.simulate(st, STEPS, record=False)

@@ -160,6 +160,30 @@ def test_package_never_imports_jax():
                     f"{path} imports the JAX package ({name})"
 
 
+def test_ops_never_import_higher_modules():
+    """The kernels' layer decides nothing by model: no module under ops/
+    imports the engine, the models, the mixed engine or the scenarios, at
+    any depth (inside a function too)."""
+    import ast
+    import pathlib
+
+    import cyclistsocialforce_tpu_torch
+
+    pkg = pathlib.Path(cyclistsocialforce_tpu_torch.__file__).parent
+    higher = tuple(f"cyclistsocialforce_tpu_torch.{m}" for m in (
+        "engine", "models", "mixed", "scenario", "scenarios"))
+    for path in (pkg / "ops").rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            for name in names:
+                assert not any(name == h or name.startswith(h + ".")
+                               for h in higher), f"{path} imports {name}"
+
+
 
 def test_package_imports_without_optional_modules():
     """Every module of the port imports with matplotlib, yaml, cv2 and

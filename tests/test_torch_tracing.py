@@ -225,25 +225,6 @@ def test_folding_keeps_the_report(monkeypatch):
         {k: v["count"] for k, v in want["spans"].items()}
 
 
-def test_grows_reports_the_growth_from_its_first_sight():
-    """A count that only grows is copied where a recording first names it
-    and reported as its growth since; naming it again copies nothing, and
-    an off probe names nothing."""
-    tracing.clear()
-    count = torch.tensor([7], dtype=torch.int64)
-    tracing.grows(None, "rows", count)
-    count += 1
-    with tracing.recording():
-        p = tracing.probe("cpu")
-        tracing.grows(p, "rows", count)
-        count += 3
-        tracing.grows(p, "rows", count)
-        count += 2
-    assert tracing.report()["counters"]["rows"] == 5
-    tracing.clear()
-    assert "rows" not in tracing.report()["counters"]
-
-
 # ---- the benchmark's readers -------------------------------------------
 
 
