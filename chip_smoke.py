@@ -516,10 +516,15 @@ CPU_WORKERS = 6
 # priority to the right 4, the mixed form's family test 1. MUFU operations per pair, the least the field needs: twod 5 (the
 # rsqrts of rho2, m4 and |(u, v)|^2, one rsqrt for the exponent's
 # sqrt(rho2 ec2) / sigma, the exponential), legacy 2 (rsqrt, exp).
+# Of these, every walked pair needs the decision (OPS_DECIDE: dx, dy,
+# rho2, its clamp, the unit vector, rho2 > 0; the rsqrt of rho2; and the
+# cone, priority and family tests), and only a tracked pair the rest: a
+# pair the decision drops adds exactly 0 (`tracked_pairs`).
 PEAK_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 PEAK_SFU_PER_S = 132 * 16 * 1.98e9
 OPS_TWOD, OPS_LEGACY, OPS_FOV, OPS_P2R, OPS_FAMILY = 67, 35, 5, 4, 1
 OPS_SFU_TWOD, OPS_SFU_LEGACY = 5, 2
+OPS_DECIDE, OPS_SFU_DECIDE = 9, 1
 # calls timed in turns (a, b, b, a) for the in-call yardsticks
 YARDSTICK_REPS = 50
 # slice_scripted: every SCRIPTED_EVERY-th rider of the main path's crowd
@@ -1171,10 +1176,14 @@ def work(tensors, plain_kw):
     fov = plain_kw.get("fov", True)
     p2r = plain_kw.get("priority_p2r", False)
     extra = OPS_FOV * fov + OPS_P2R * p2r + OPS_FAMILY * mixed
-    ops = ((pairs - legacy_pairs) * (OPS_TWOD + extra)
-           + legacy_pairs * (OPS_LEGACY + extra))
-    sfu_ops = ((pairs - legacy_pairs) * OPS_SFU_TWOD
-               + legacy_pairs * OPS_SFU_LEGACY)
+    tracked, legacy_tracked = tracked_pairs(tensors, plain_kw)
+    twod_tracked = tracked - legacy_tracked
+    ops = (pairs * (OPS_DECIDE + extra)
+           + twod_tracked * (OPS_TWOD - OPS_DECIDE)
+           + legacy_tracked * (OPS_LEGACY - OPS_DECIDE))
+    sfu_ops = (pairs * OPS_SFU_DECIDE
+               + twod_tracked * (OPS_SFU_TWOD - OPS_SFU_DECIDE)
+               + legacy_tracked * (OPS_SFU_LEGACY - OPS_SFU_DECIDE))
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
     nbytes += 2 * recv.shape[1] * 4
     floors = {"fp32": 1e3 * ops / PEAK_FLOPS,
@@ -1182,7 +1191,8 @@ def work(tensors, plain_kw):
               "bytes": 1e3 * nbytes / PEAK_BYTES_PER_S}
     floor = max(floors, key=floors.get)
     out = {"candidate_pairs": int(valid.sum()) * block_src * block,
-           "pairs": pairs, "legacy_pairs": legacy_pairs, "operations": ops,
+           "pairs": pairs, "legacy_pairs": legacy_pairs,
+           "tracked_pairs": tracked, "operations": ops,
            "sfu_operations": sfu_ops, "bytes": nbytes,
            "floors_ms": floors, "bound_ms": floors[floor],
            "bound_by": "bytes" if floor == "bytes" else "operations",
@@ -1190,6 +1200,51 @@ def work(tensors, plain_kw):
     if plain_kw.get("screen"):
         out["screen_admits"] = pieces / float(valid.sum() * n_strips)
     return out
+
+
+def tracked_pairs(tensors, plain_kw):
+    """(all, legacy rows'): the walked pairs the field needs past the
+    decision, those `pair_forces_neighbors_ref`'s form tracks: rho2 > 0,
+    in the receiver's FOV cone where `fov`, to its right where
+    `priority_p2r`, an active receiver, in a valid slot and a strip the
+    screen admits; in float32 as the plain version decides them."""
+    import torch
+
+    from cyclistsocialforce_tpu_torch.ops import pair_forces as PF
+
+    nbr, valid, src, recv = tensors
+    block = plain_kw.get("block", BLOCK)
+    block_src = plain_kw.get("block_src", block)
+    strip = (plain_kw.get("sub") or block_src) if plain_kw.get("screen") \
+        else block_src
+    uniform = plain_kw.get("uniform")
+    cutoff2 = PF.cutoff_squared(plain_kw.get("cutoff", float("inf")))
+    src_blocks = src.reshape(-1, block_src, PF.SRC_COLS)
+    r_all = recv.reshape(PF.RECV_ROWS, nbr.shape[0], 1, 1, block)
+    total = legacy = 0
+    for lo in range(0, nbr.shape[0], 64):
+        hi = min(lo + 64, nbr.shape[0])
+        s = src_blocks[nbr[lo:hi].long()]                  # [C, KB, S, 16]
+        r = r_all[:, lo:hi]
+        dx, dy = r[0] - s[..., 0:1], r[1] - s[..., 1:2]
+        rho2 = dx * dx + dy * dy                           # [C, KB, S, R]
+        inv_rho = torch.rsqrt(torch.clamp(rho2, min=1e-30))
+        dxn, dyn = dx * inv_rho, dy * inv_rho
+        keep = (rho2 > 0) & (r[4] > 0) & valid[lo:hi, :, None, None]
+        if plain_kw.get("fov", True):
+            chf = (uniform[6] if uniform is not None
+                   else s[..., 11:12])
+            keep &= (dxn * r[2] + dyn * r[3]) <= -chf
+        if plain_kw.get("priority_p2r"):
+            keep &= (dyn * r[2] - dxn * r[3]) >= 0
+        if plain_kw.get("screen"):
+            strips = rho2.reshape(*rho2.shape[:2], block_src // strip, -1)
+            admit = strips.amin(dim=-1) <= cutoff2
+            keep &= admit.repeat_interleave(strip, dim=-1)[..., None]
+        total += int(keep.sum())
+        if plain_kw.get("mixed"):
+            legacy += int((keep & (s[..., 13:14] > 0.5)).sum())
+    return total, legacy
 
 
 def check_form(phase, form, fn, tensors, kw, plain_kw):
@@ -1211,6 +1266,22 @@ def check_form(phase, form, fn, tensors, kw, plain_kw):
     err = (out_k - out_r).abs()
     n_bad = int((err > KERNEL_ATOL + KERNEL_RTOL * out_r.abs()).sum())
     max_abs_err = float(err.max())
+    field = {}
+    if fn is PF.pair_forces_neighbors:
+        # K1's count of the pairs whose field it evaluated against its
+        # plain version, and a second call's bits against the first's
+        counter = torch.zeros(1, dtype=torch.int64, device=src.device)
+        again = fn(*tensors, **kw, field_pairs=counter)
+        want = PF.field_pairs_ref(*tensors, **kw)
+        field = {"field_pairs": int(counter), "field_pairs_ref": want,
+                 "field_pct": 100 * int(counter) / (
+                     int(valid.sum()) * kw.get("block_src", BLOCK) *
+                     kw.get("block", BLOCK))}
+        if int(counter) != want or not torch.equal(again, out_k):
+            raise AssertionError(
+                f"{form}: K1 counts {int(counter)} field pairs (plain "
+                f"{want}), same bits on a second call: "
+                f"{torch.equal(again, out_k)}")
     ms = cuda_ms(lambda: fn(*tensors, **kw), reps=50)
     plain_ms = cuda_ms(lambda: PF.pair_forces_neighbors_ref(*tensors,
                                                             **plain_kw),
@@ -1226,7 +1297,7 @@ def check_form(phase, form, fn, tensors, kw, plain_kw):
         uniform=plain_kw.get("uniform") is not None, **w,
         max_abs_err=max_abs_err, max_abs_force=float(out_r.abs().max()),
         n_over_tolerance=n_bad, atol=KERNEL_ATOL, rtol=KERNEL_RTOL, ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms, **field)
     if n_bad:
         raise AssertionError(f"{form}: {fn.__name__} disagrees with its "
                              f"plain version on {n_bad} values (max |diff| "

@@ -123,6 +123,24 @@ __device__ __forceinline__ bool group_in_range(const float4* tile, int j0,
   return group_any<kGroupThreads>(rho2_min <= cutoff2, bar);
 }
 
+// The groups' partial sums `part` ([kGroups][2][kBlock], complete in
+// shared memory) added in group order into out [2, npad]. Every thread of
+// the CTA calls it.
+template <int kBlock>
+__device__ __forceinline__ void add_parts(const float* part, float* out,
+                                          int npad, int b) {
+  using C = Cta<kBlock>;
+  for (int o = threadIdx.x; o < 2 * kBlock; o += C::kThreads) {
+    const int c = o / kBlock, rr = o % kBlock;     // c: 0 fx, 1 fy
+    float sum = part[c * kBlock + rr];
+#pragma unroll
+    for (int q = 1; q < C::kGroups; ++q) {
+      sum += part[(2 * q + c) * kBlock + rr];
+    }
+    out[c * npad + b * kBlock + rr] = sum;
+  }
+}
+
 // The end of a kernel: the groups' partial sums meet in `part`
 // ([kGroups][2][kBlock] floats of shared memory) and are added in group
 // order into out [2, npad]; an inactive receiver gets 0 (the plain
@@ -142,15 +160,7 @@ __device__ __forceinline__ void sum_groups(float* part, int g, int lt,
     part[(2 * g + 1) * kBlock + rr] = rc[i].act ? fy[i] : 0.0f;
   }
   __syncthreads();
-  for (int o = threadIdx.x; o < 2 * kBlock; o += C::kThreads) {
-    const int c = o / kBlock, rr = o % kBlock;     // c: 0 fx, 1 fy
-    float sum = part[c * kBlock + rr];
-#pragma unroll
-    for (int q = 1; q < C::kGroups; ++q) {
-      sum += part[(2 * q + c) * kBlock + rr];
-    }
-    out[c * npad + b * kBlock + rr] = sum;
-  }
+  add_parts<kBlock>(part, out, npad, b);
 }
 
 // ---- cp.async: each thread copies 16 bytes ---------------------------------

@@ -6,11 +6,12 @@
 // field) and the compile-time form switch.
 //
 // One version of each field lives here, add_pairs, shared by the three
-// kernels. It is split in two parts. The decision chain rounds each
-// operation as the plain PyTorch version's elementwise op does, with
-// intrinsics that no compiler flag contracts, so a kernel decides every
-// pair on a discontinuity of the field as the plain version does; the
-// smooth rest is fused (see below). The thread-group pieces the kernels
+// kernels (K1's cone loop calls the twod field's two parts apart,
+// decision_frame and twod_rest). It is split in two parts. The decision
+// chain rounds each operation as the plain PyTorch version's elementwise
+// op does, with intrinsics that no compiler flag contracts, so a kernel
+// decides every pair on a discontinuity of the field as the plain version
+// does; the smooth rest is fused (see below). The thread-group pieces the kernels
 // share (barriers, the screen vote, the sum of the groups' partial sums,
 // bulk copies) are in pair_groups.cuh.
 
@@ -155,22 +156,32 @@ __device__ __forceinline__ FieldConsts field_consts(const TwodParams& p) {
                    p.e0 * kLog2e, p.e1 * kLog2e, -p.chf};
 }
 
-// Add the twod field of row `s` at receiver `r` to (fx, fy).
-template <bool kUniform, bool kFov, bool kP2R>
-__device__ __forceinline__ void twod_pair(const SrcRow& s, const Receiver& r,
-                                        const FieldConsts& p, float& fx,
-                                        float& fy) {
-  const float cs = s.a.z, ss = s.a.w;
-  float s0, s1, hs2, hs3, e0, e1, neg_chf;
+// The twod field parameters of row `s` in the form the pair loop uses:
+// the shared ones `p` (kUniform), else the row's columns.
+template <bool kUniform>
+__device__ __forceinline__ FieldConsts row_consts(const SrcRow& s,
+                                                  const FieldConsts& p) {
   if constexpr (kUniform) {
-    s0 = p.s0, s1 = p.s1, hs2 = p.hs2, hs3 = p.hs3;
-    e0 = p.e0, e1 = p.e1, neg_chf = p.neg_chf;
+    return p;
   } else {
-    s0 = s.b.w, s1 = s.c.x, hs2 = s.c.y * 0.5f, hs3 = s.c.z * 0.5f;
-    e0 = s.b.y * kLog2e, e1 = s.b.z * kLog2e, neg_chf = -s.c.w;
+    return FieldConsts{s.b.w,          s.c.x,          s.c.y * 0.5f,
+                       s.c.z * 0.5f,   s.b.y * kLog2e, s.b.z * kLog2e,
+                       -s.c.w};
   }
+}
+
+// The twod field of row `s` at receiver `r`, given the pair's decision
+// frame `f` (its parameters `fc`, `row_consts`), added to (fx, fy): the
+// rest of the decision chain, then the smooth rest. The pair adds
+// exactly 0 where it is not tracked and the inputs are finite.
+__device__ __forceinline__ void twod_rest(const SrcRow& s, const Receiver& r,
+                                          const FieldConsts& fc,
+                                          const DecisionFrame& f, float& fx,
+                                          float& fy) {
+  const float cs = s.a.z, ss = s.a.w;
+  const float s0 = fc.s0, s1 = fc.s1, hs2 = fc.hs2, hs3 = fc.hs3,
+              e0 = fc.e0, e1 = fc.e1;
   // decision chain
-  const DecisionFrame f = decision_frame<kFov, kP2R>(s.a.x, s.a.y, r, neg_chf);
   const float sinphi = __fsub_rn(__fmul_rn(f.dyn, cs), __fmul_rn(f.dxn, ss));
   const float ax = __fsub_rn(f.dxn, cs);
   const float ay = __fsub_rn(f.dyn, ss);
@@ -209,6 +220,17 @@ __device__ __forceinline__ void twod_pair(const SrcRow& s, const Receiver& r,
   const float wu = w * u, wv = w * v;
   fx = fmaf(wu, f.dxn, fmaf(-wv, f.dyn, fx));
   fy = fmaf(wu, f.dyn, fmaf(wv, f.dxn, fy));
+}
+
+// Add the twod field of row `s` at receiver `r` to (fx, fy).
+template <bool kUniform, bool kFov, bool kP2R>
+__device__ __forceinline__ void twod_pair(const SrcRow& s, const Receiver& r,
+                                        const FieldConsts& p, float& fx,
+                                        float& fy) {
+  const FieldConsts q = row_consts<kUniform>(s, p);
+  const DecisionFrame f = decision_frame<kFov, kP2R>(s.a.x, s.a.y, r,
+                                                     q.neg_chf);
+  twod_rest(s, r, q, f, fx, fy);
 }
 
 // Add the legacy field of row `s` (a legacy row of the mixed form) at

@@ -586,7 +586,7 @@ def unsort_forces(out, perm, n):
 def pair_kernel_dispatch(cfg: NeighborConfig, nbr, valid, src_sorted,
                          recv_sorted, fov: bool = True, uniform=None,
                          priority_p2r: bool = False, mixed: bool = False,
-                         count=None):
+                         count=None, field_pairs=None):
     """[2, B*block] sorted forces from cell-sorted packs through the
     kernel `cfg.backend` names: the CUDA kernel (float32) for CUDA
     tensors, its plain version in the packs' dtype for CPU tensors. The
@@ -594,7 +594,8 @@ def pair_kernel_dispatch(cfg: NeighborConfig, nbr, valid, src_sorted,
     the per-source field columns. `mixed` selects each source row's field
     family by its column 13 (the legacy field's form); it excludes
     `uniform`. `count` is the table's valid entries per row where the
-    caller has them (`build_neighbor_cache`)."""
+    caller has them (`build_neighbor_cache`); `field_pairs` the counter K1
+    adds its evaluated pairs to (`Engine.field_pairs`)."""
     dtype = src_sorted.dtype
     if src_sorted.is_cuda:
         src_sorted = src_sorted.float()
@@ -612,7 +613,7 @@ def pair_kernel_dispatch(cfg: NeighborConfig, nbr, valid, src_sorted,
         out = PF.pair_forces_neighbors(
             nbr, valid, src_sorted, recv_sorted, block_src=cfg.block_src,
             uniform=uniform, screen=cfg.screen, sub=cfg.sub,
-            cutoff=cfg.cutoff, **kw)
+            cutoff=cfg.cutoff, field_pairs=field_pairs, **kw)
     return out.to(dtype)
 
 
@@ -1229,7 +1230,23 @@ class Engine(nn.Module):
                                     uniform=None if mixed
                                     else self.uniform_pair,
                                     priority_p2r=self.priority_p2r,
-                                    mixed=mixed, count=count)
+                                    mixed=mixed, count=count,
+                                    field_pairs=self.field_pairs(
+                                        src_sorted.device))
+
+    def field_pairs(self, device):
+        """The int64 [1] counter on a card `device` to which K1 adds the
+        pairs whose field it evaluates, every call this engine makes (kept
+        with the pack columns: a captured chunk adds to it by address);
+        None on the CPU. `simulate` reports its growth as the counter
+        `field_pairs` where it records (`tracing`)."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return self.kept(("field_pairs", device), lambda: torch.zeros(
+            1, dtype=torch.int64, device=device))
 
     def generic_blocks_per_call(self) -> int:
         """Receiver blocks per call of the generic culled path: as many
@@ -1781,7 +1798,9 @@ class Engine(nn.Module):
             graph = on_card and chunked
         probe = tracing.probe(state.device)
         tracing.count(probe, "steps", n_steps)
-        with tracing.span(probe, "simulate", stream=False):
+        with tracing.span(probe, "simulate", stream=False), \
+                tracing.growth(probe, "field_pairs",
+                               self.field_pairs(state.device)):
             return self._simulate(state, n_steps, mode,
                                   not record and not record_forces,
                                   ChunkRunner if graph else None, probe)

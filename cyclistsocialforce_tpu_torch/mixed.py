@@ -335,7 +335,8 @@ class MixedEngine(eng.Engine):
         return eng.pair_kernel_dispatch(
             self.neighbors, nbr, valid, src_sorted, recv_sorted,
             fov=not self.full_fov, uniform=None,
-            priority_p2r=self.priority_p2r, mixed=True, count=count)
+            priority_p2r=self.priority_p2r, mixed=True, count=count,
+            field_pairs=self.field_pairs(src_sorted.device))
 
 
 def prepare_groups(engine: MixedEngine, state: AgentState) -> AgentState:

@@ -14,7 +14,10 @@ K3 `pair_forces_db.cu`) share one per-pair math (`pair_math.cuh`) and one
 CTA shape (`pair_groups.cuh`), compiled for receiver blocks of 64, 128
 and 256: a block of 128 is 8 groups of 64 threads (64: 8 groups of 32,
 256: 4 groups of 128), 2 receivers per thread, whose partial sums are
-added in a fixed order. K1 hands whole table slots to the groups; K2
+added in a fixed order. K1 hands whole table slots to the groups (in
+its FOV forms each warp then takes one receiver at a time against the
+slot's rows on its lanes, and evaluates the field only for the runs of
+rows whose vote finds a pair that needs it); K2
 stages a row's tiles in shared memory in rounds of 96 KB (any kb) and
 splits a round's rows evenly over the groups; K3 streams block-row tiles
 through a 4-slot ring, every group on its strip of each tile, the tile
@@ -67,8 +70,9 @@ def _declare(lib):
     field = [f] * 7                     # e_0, e_1, sigma_0..3, cos(hfov/2)
     # nbr, count, src, recv, out; n_blocks, kb, block; ...; device, stream
     head = [p] * 5 + [i] * 3
+    # ..., the field-pair counter (or None), device, stream
     lib.csf_pair_forces_twod.argtypes = [*head, i, i, i, i, i, i, i, f,
-                                         *field, i, p]
+                                         *field, p, i, p]
     lib.csf_pair_forces_unrolled.argtypes = [*head, i, i, i, i, i, *field,
                                              i, p]
     lib.csf_pair_forces_db.argtypes = [*head, i, i, i, f, i, p]

@@ -234,6 +234,87 @@ def pair_forces_neighbors_ref(nbr, valid, src_pack, recv_pack, *,
     return out.reshape(2, bcount * block)
 
 
+# K1's unit in its FOV forms: the source rows of a slot's tile (aligned
+# runs of FIELD_UNIT) whose field one receiver's warp evaluates or skips
+# together (a lane's first or second row in csrc/pair_forces.cu's cone
+# loop)
+FIELD_UNIT = 32
+
+
+def field_pairs_ref(nbr, valid, src_pack, recv_pack, *, block: int = 128,
+                    block_src: int = 0, uniform=None, fov: bool = True,
+                    priority_p2r: bool = False, mixed: bool = False,
+                    screen: bool = False, sub: int = 0,
+                    cutoff: float = float("inf"),
+                    chunk: int | None = None) -> int:
+    """The pairs whose field K1 evaluates in one call (the count it adds
+    to `field_pairs`), by its rule, in plain PyTorch; arguments as in
+    `pair_forces_neighbors_ref`, the packs in the kernel's float32.
+
+    The rows K1 walks are each valid slot's tile, less the strips the
+    screen skips. Without the FOV cone, and in the mixed form, it
+    evaluates every pair of them. In the FOV forms a unit is one active
+    receiver and an aligned run of FIELD_UNIT of the tile's rows, and
+    its walked rows are evaluated where one pair of it needs evaluating:
+    its contribution can be other than +-0, because it is tracked (rho2 >
+    0, in the cone, priority to the right) or because an input that the
+    field multiplies by the zero weight is not finite (rho2, the source's
+    heading columns, in the per-row form its field columns, the
+    receiver's heading). `chunk` as in `pair_forces_neighbors_ref`."""
+    n_src = src_pack.shape[0]
+    bcount, kb = nbr.shape
+    block_src = block_src or block
+    _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src)
+    _check_sub(block_src, sub)
+    strip = (sub or block_src) if screen else block_src
+    cutoff2 = cutoff_squared(cutoff)
+    cone = fov and not mixed
+    unit = FIELD_UNIT
+    if chunk is None:
+        chunk = 8 if src_pack.device.type == "cpu" else 64
+    n_units = -(-block_src // unit)
+    src_blocks = src_pack.reshape(n_src // block_src, block_src, SRC_COLS)
+    recv = recv_pack.reshape(RECV_ROWS, bcount, 1, 1, block)
+    total = 0
+    for lo in range(0, bcount, chunk):
+        hi = min(lo + chunk, bcount)
+        src = src_blocks[nbr[lo:hi].long()]                # [C, KB, S, 16]
+        r = recv[:, lo:hi]
+        dx = r[0] - src[..., _SX:_SX + 1]
+        dy = r[1] - src[..., _SY:_SY + 1]
+        rho2 = dx * dx + dy * dy                           # [C, KB, S, R]
+        rows = valid[lo:hi, :, None].expand(-1, -1, block_src)
+        if screen:
+            strips = rho2.reshape(*rho2.shape[:2], block_src // strip, -1)
+            admit = strips.amin(dim=-1) <= cutoff2
+            rows = rows & admit.repeat_interleave(strip, dim=-1)
+        if not cone:
+            total += int(rows.sum()) * block
+            continue
+        inv_rho = torch.rsqrt(torch.clamp(rho2, min=1e-30))
+        dxn, dyn = dx * inv_rho, dy * inv_rho
+        cs, ss = src[..., _SC:_SC + 1], src[..., _SS:_SS + 1]
+        chf = (uniform[6] if uniform is not None
+               else src[..., _CHF:_CHF + 1])
+        tracked = (rho2 > 0) & ((dxn * r[2] + dyn * r[3]) <= -chf)
+        if priority_p2r:
+            tracked &= (dyn * r[2] - dxn * r[3]) >= 0
+        cols = src[..., [_SC, _SS]] if uniform is not None else \
+            src[..., [_SC, _SS, _E0, _E1, _S0, _S1, _S2, _S3]]
+        bad_row = ~torch.isfinite(cols).all(dim=-1, keepdim=True)
+        bad_recv = ~(torch.isfinite(r[2]) & torch.isfinite(r[3]))
+        need = (tracked | ~torch.isfinite(rho2) | bad_row | bad_recv) \
+            & rows[..., None]
+        pad = n_units * unit - block_src
+        need = torch.nn.functional.pad(need, (0, 0, 0, pad))
+        rows = torch.nn.functional.pad(rows, (0, pad))
+        kept = need.reshape(*need.shape[:2], n_units, unit, block).any(3)
+        kept &= r[4].reshape(hi - lo, 1, 1, block) > 0
+        per_unit = rows.reshape(*rows.shape[:2], n_units, unit).sum(-1)
+        total += int((kept * per_unit[..., None]).sum())
+    return total
+
+
 def _check_shapes(nbr, valid, src_pack, recv_pack, block, block_src):
     bcount, kb = nbr.shape
     if valid.shape != nbr.shape:
@@ -351,18 +432,28 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
                           uniform=None, fov: bool = True,
                           priority_p2r: bool = False, mixed: bool = False,
                           screen: bool = False, sub: int = 0,
-                          cutoff: float = float("inf"), count=None):
+                          cutoff: float = float("inf"), count=None,
+                          field_pairs=None):
     """K1: block-sparse pair sum, one source tile at a time. The CUDA
     kernel on CUDA tensors, the plain version on CPU tensors; arguments
     and result as in `pair_forces_neighbors_ref`. `count` [B] int32, the
     valid entries per table row, saves the kernel's wrapper a reduction
-    of `valid` when the caller keeps it with the table.
+    of `valid` when the caller keeps it with the table. `field_pairs`, an
+    int64 [1] tensor on the card, has the pairs whose field the kernel
+    evaluated added to it (`field_pairs_ref`); the plain version adds
+    nothing.
 
     The kernel takes float32 packs, an int32 table and a block in
     `KERNEL_BLOCKS`. It splits each receiver block's table slots over its
-    thread groups (8 at block 128, two receivers per thread) and adds the
-    groups' sums in a fixed order, so a call gives the same result every
-    time. It decides every pair (FOV
+    thread groups (8 at block 128) and adds the groups' sums in a fixed
+    order, so a call gives the same result every time. In the FOV forms
+    (not `mixed`) each warp takes one receiver at a time against a
+    slot's rows (those whose cone can hold one of a chunk of 64 rows, by
+    a test of the chunk's bounding disk), decides their pairs, and
+    evaluates the field only for the runs of FIELD_UNIT rows in which
+    some pair needs it (tracked, or an input that is not finite); the
+    other forms evaluate every pair. It
+    decides every pair (FOV
     cone, priority to the right, the sign(sin phi) jump) with the plain
     version's rounding, and evaluates the smooth rest of the field with
     fused multiply-adds and the GPU's approximate exp2 and rsqrt: within
@@ -379,11 +470,18 @@ def pair_forces_neighbors(nbr, valid, src_pack, recv_pack, *,
             cutoff=cutoff)
     _check_kernel_inputs("pair_forces_neighbors", nbr, valid, src_pack,
                          recv_pack, block, block_src, count)
+    if field_pairs is not None and (
+            field_pairs.dtype != torch.int64
+            or field_pairs.device != nbr.device
+            or tuple(field_pairs.shape) != (1,)):
+        raise ValueError("pair_forces_neighbors: field_pairs must be an "
+                         "int64 [1] tensor on the table's device")
     out = _launch("pair_forces_neighbors", "csf_pair_forces_twod", nbr,
                   valid, count, src_pack, recv_pack, block, block_src,
                   is_uniform, int(mixed), int(fov), int(priority_p2r),
                   int(screen), (sub or block_src), cutoff_squared(cutoff),
-                  *field)
+                  *field, None if field_pairs is None
+                  else field_pairs.data_ptr())
     _count(pair_forces_neighbors)
     return out
 

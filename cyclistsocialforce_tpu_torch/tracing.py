@@ -43,7 +43,10 @@ Counters: `steps`, `rebuilds`, `captures` (`ChunkRunner` constructions);
 the tables' valid slots (a table's valid slots x block x block_src x the
 steps it serves); `table_overflow_rows`, the receiver blocks whose table
 overflowed (`NeighborConfig.kb` too small: the farthest source blocks
-were dropped), summed over the rebuilds.
+were dropped), summed over the rebuilds; `field_pairs`, the pairs whose
+field K1 evaluated on the card (`Engine.field_pairs`, a device count that
+only grows, of which `growth` takes a copy at both ends of each recorded
+`Engine.simulate`; the plain version on the CPU counts none).
 """
 
 from __future__ import annotations
@@ -277,6 +280,22 @@ def count(p: Probe | None, name: str, value, factor: int = 1):
     """Add to counter `name` where probe `p` records."""
     if p is not None:
         RECORDER.count(name, value, factor)
+
+
+@contextlib.contextmanager
+def growth(p: Probe | None, name: str, tensor):
+    """Add to counter `name` how far the device count `tensor` grows
+    inside the block, where probe `p` records and `tensor` is not None: a
+    copy at entry and a difference at exit, queued on the stream and read
+    at `report()`."""
+    if p is None or tensor is None:
+        yield
+        return
+    start = tensor.clone()
+    try:
+        yield
+    finally:
+        RECORDER.count(name, tensor - start)
 
 
 @contextlib.contextmanager

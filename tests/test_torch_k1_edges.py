@@ -326,6 +326,7 @@ FORMS = {
     "columns": (False, {}),
     "columns_p2r": (False, {"priority_p2r": True}),
     "columns_screen": (False, {"screen": True}),
+    "columns_strip": (False, {"screen": True, "sub": 32}),
     "mixed": (True, {"mixed": True}),
     "mixed_fov_off": (True, {"mixed": True, "fov": False}),
     "mixed_p2r": (True, {"mixed": True, "priority_p2r": True}),
@@ -527,6 +528,46 @@ def test_cuda_k1_decides_edges_as_plain(cuda_device, form, seed):
     kw = dict(block=BLOCK, block_src=BLOCK_SRC, cutoff=CUTOFF, **opts)
     check_cuda_edges(PF.pair_forces_neighbors,
                      torch_inputs(cuda_device, mixed, seed), kw, kw)
+
+
+# K1's forms that take its cone loop: the FOV cone on, one family
+CONE_FORMS = sorted(f for f, (mixed, opts) in FORMS.items()
+                    if not mixed and opts.get("fov", True))
+
+
+def edge_inputs_at(block, seed=0):
+    """`edge_inputs` regrouped into receiver blocks of `block`: at 64 each
+    block of 128 splits in two that keep its table (block 2's short
+    prefix too); at 256 two neighbouring clusters share one block, whose
+    table lists every source block."""
+    nbr, valid, src, recv, target = edge_inputs(seed)
+    if block == 64:
+        nbr, valid = nbr.repeat(2, axis=0), valid.repeat(2, axis=0)
+    elif block == 256:
+        nbr, valid = nbr[::2], np.ones(nbr[::2].shape, bool)
+    return nbr, valid, src, recv, target
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", CONE_FORMS)
+@pytest.mark.parametrize("block", [64, 128, 256])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_cuda_k1_cone_forms_decide_edges_at_each_block(cuda_device, form,
+                                                       block, seed):
+    """K1's cone loop in each of its forms (uniform and per-row
+    parameters, priority to the right, the tile and strip screens) at
+    every receiver block against the plain version on the edge inputs
+    (`check_cuda_edges`: every force within the bar, so every edge pair
+    decided alike, and the same bits on a second call), and its
+    `field_pairs` equal to `field_pairs_ref`."""
+    _, opts = FORMS[form]
+    arrays = edge_inputs_at(block, seed)[:4]
+    tensors = tuple(torch.as_tensor(a, device=cuda_device) for a in arrays)
+    kw = dict(block=block, block_src=BLOCK_SRC, cutoff=CUTOFF, **opts)
+    check_cuda_edges(PF.pair_forces_neighbors, tensors, kw, kw)
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    PF.pair_forces_neighbors(*tensors, **kw, field_pairs=counter)
+    assert int(counter) == PF.field_pairs_ref(*tensors, **kw) > 0
 
 
 @pytest.mark.cuda

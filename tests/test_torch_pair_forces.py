@@ -29,6 +29,9 @@ torch.set_num_threads(1)
 
 DEV = "cpu"   # the port's entry points default to the card
 BLOCK, BLOCK_SRC, KB = 128, 64, 16
+# the JAX package's float32 bar for its Pallas kernels against its plain
+# version (tests/test_neighbors.py): |kernel - plain| <= ATOL + RTOL |plain|
+ATOL, RTOL = 1e-4, 2e-4
 
 
 @pytest.fixture
@@ -197,6 +200,85 @@ def test_wrapper_on_cpu_runs_plain_and_rejects_unported_variants():
         PF.pair_forces_neighbors(tn, tv, ts[:100], tr, **kw)
 
 
+def line_inputs(n=1024, facing=(0.0, 1.0), block=BLOCK,
+                block_src=BLOCK_SRC, device=DEV):
+    """(nbr, valid, src, recv) packs of `n` riders on the x axis, 0.7 m
+    apart, every one heading `facing` (cos, sin): with the default
+    heading, straight across the line, no receiver sees a source inside its
+    FOV cone (the cone test's dot product is 0). Each receiver block's
+    table holds the source blocks within 120 m, a valid prefix."""
+    x = 0.7 * torch.arange(n, dtype=torch.float32)
+    src = torch.zeros((n, PF.SRC_COLS))
+    src[:, 0] = x
+    src[:, 2], src[:, 3] = facing
+    src[:, 4] = 7.0
+    src[:, 5:11] = torch.tensor((0.995, 0.7, 0.5, 5.0, 0.3, 4.9))
+    src[:, 11] = 0.5
+    src[:, 12] = src[:, 15] = 1.0
+    recv = torch.zeros((PF.RECV_ROWS, n))
+    recv[0] = x
+    recv[2], recv[3] = facing
+    recv[4] = 1.0
+    n_blocks, n_src_blocks = n // block, n // block_src
+    centre = 0.7 * (torch.arange(n_blocks) + 0.5) * block
+    src_centre = 0.7 * (torch.arange(n_src_blocks) + 0.5) * block_src
+    near = (centre[:, None] - src_centre[None, :]).abs() < 120.0
+    kb = int(near.sum(1).max())
+    order = torch.argsort((~near).to(torch.int8), dim=1, stable=True)
+    nbr = order[:, :kb].to(torch.int32).contiguous()
+    valid = torch.arange(kb)[None, :] < near.sum(1, keepdim=True)
+    return tuple(a.to(device) for a in (nbr, valid, src, recv))
+
+
+def with_shared_columns(src, uniform):
+    """`src` with every row's field columns (e_0, e_1, sigma_0..3,
+    cos(hfov / 2)) holding the shared constants `uniform`, and those
+    constants as the float32 values the columns hold."""
+    src = src.clone()
+    src[:, PF._E0:PF._CHF + 1] = torch.tensor(uniform, dtype=src.dtype)
+    return src, tuple(float(v) for v in src[0, PF._E0:PF._CHF + 1])
+
+
+def test_field_pairs_ref_counts_by_the_unit_rule():
+    """The plain count of K1's evaluated pairs: every walked pair without
+    the cone or in the mixed form; in the cone forms whole units of
+    FIELD_UNIT rows, none for a crowd that faces away from every source
+    or whose receivers are all inactive, every walked row of a receiver
+    whose heading is not finite, and the units of a source whose heading
+    column is not finite."""
+    st, teng = port_crowd(4096, DEV)
+    tn, tv, ts, tr = sorted_inputs(st, teng, torch.float32)
+    kw = dict(block=BLOCK, block_src=BLOCK_SRC, uniform=teng.uniform_pair)
+    walked = int(tv.sum()) * BLOCK * BLOCK_SRC
+    cone = PF.field_pairs_ref(tn, tv, ts, tr, **kw)
+    assert 0.3 * walked < cone < 0.6 * walked
+    assert cone % PF.FIELD_UNIT == 0
+    assert PF.field_pairs_ref(tn, tv, ts, tr, **kw, fov=False) == walked
+    cols = {**kw, "uniform": None}
+    assert PF.field_pairs_ref(tn, tv, ts, tr, **cols, mixed=True) == walked
+    assert PF.field_pairs_ref(tn, tv, ts, tr, **cols) == cone
+    assert PF.field_pairs_ref(tn, tv, ts, tr, **kw, priority_p2r=True) \
+        < cone
+    screened = PF.field_pairs_ref(tn, tv, ts, tr, **kw, screen=True,
+                                  sub=8, cutoff=20.0)
+    assert 0 < screened < cone
+    off = tr.clone()
+    off[4] = 0.0
+    assert PF.field_pairs_ref(tn, tv, ts, off, **kw) == 0
+    assert PF.field_pairs_ref(*line_inputs(), **kw) == 0
+    assert PF.field_pairs_ref(*line_inputs(), **kw, fov=False) > 0
+    # receiver 5's heading, then source row 9's heading column
+    r = 5
+    rows = int(tv[r // BLOCK].sum()) * BLOCK_SRC
+    bad = tr.clone()
+    bad[3, r] = float("nan")
+    gained = PF.field_pairs_ref(tn, tv, ts, bad, **kw) - cone
+    assert 0 < gained <= rows and gained % PF.FIELD_UNIT == 0
+    bad_src = ts.clone()
+    bad_src[9, 2] = float("inf")
+    assert PF.field_pairs_ref(tn, tv, bad_src, tr, **kw) > cone
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -214,12 +296,30 @@ def test_cuda_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert PF.pair_forces_neighbors.launches == before + 1
     want = PF.pair_forces_neighbors_ref(tn, tv, ts, tr, **kw)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=2e-4)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
     assert want.abs().max() > 1.0
+    # the mixed form on a twod pack is the per-source-column form: bit for
+    # bit where both walk every pair (no FOV cone), within the kernels'
+    # bar where the column form evaluates only the units its cone needs
+    # and sums in its own order
     cols = {**kw, "uniform": None}
-    torch.testing.assert_close(
-        PF.pair_forces_neighbors(tn, tv, ts, tr, **cols, mixed=True),
-        PF.pair_forces_neighbors(tn, tv, ts, tr, **cols), rtol=0, atol=0)
+    for fov in (False, True):
+        torch.testing.assert_close(
+            PF.pair_forces_neighbors(tn, tv, ts, tr, **cols, fov=fov,
+                                     mixed=True),
+            PF.pair_forces_neighbors(tn, tv, ts, tr, **cols, fov=fov),
+            rtol=RTOL if fov else 0, atol=ATOL if fov else 0)
+    # the cone loop's uniform form against its column form, every row's
+    # columns holding the shared constants: the same floats through the
+    # same loop, bit for bit (priority to the right off and on)
+    same, u = with_shared_columns(ts, teng.uniform_pair)
+    for p2r in (False, True):
+        torch.testing.assert_close(
+            PF.pair_forces_neighbors(tn, tv, ts, tr, **{**kw, "uniform": u},
+                                     priority_p2r=p2r),
+            PF.pair_forces_neighbors(tn, tv, same, tr, **cols,
+                                     priority_p2r=p2r),
+            rtol=0, atol=0)
     with pytest.raises(ValueError, match="mixed"):
         PF.pair_forces_neighbors(tn, tv, ts, tr, **kw, mixed=True)
     with pytest.raises(ValueError):
@@ -239,3 +339,87 @@ def test_cuda_simulate_launches_kernel_every_step(cuda_device):
     assert PF.pair_forces_neighbors.launches == 25
     assert torch.isfinite(final.s).all()
     assert not teng.neighbor_cache(final)[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [
+    {}, {"priority_p2r": True}, {"uniform": None}, {"fov": False},
+    {"screen": True, "sub": 32, "cutoff": 20.0},
+    {"uniform": None, "mixed": True}])
+def test_cuda_field_pairs_equal_the_plain_count(cuda_device, form):
+    """K1's `field_pairs` equals `field_pairs_ref` on a seeded crowd in
+    each form (the cone forms' units, every walked pair in the others),
+    adds up over calls, and leaves the forces as they are."""
+    st, teng = port_crowd(20_000, cuda_device)
+    tensors = sorted_inputs(st, teng, torch.float32)
+    kw = {**dict(block=BLOCK, block_src=BLOCK_SRC,
+                 uniform=teng.uniform_pair), **form}
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got = PF.pair_forces_neighbors(*tensors, **kw, field_pairs=counter)
+    want = PF.field_pairs_ref(*tensors, **kw)
+    walked = int(tensors[1].sum()) * BLOCK * BLOCK_SRC
+    assert int(counter) == want
+    assert (want < 0.6 * walked) == (kw.get("fov", True)
+                                     and not kw.get("mixed", False))
+    assert torch.equal(PF.pair_forces_neighbors(*tensors, **kw), got)
+    PF.pair_forces_neighbors(*tensors, **kw, field_pairs=counter)
+    assert int(counter) == 2 * want
+    with pytest.raises(ValueError, match="field_pairs"):
+        PF.pair_forces_neighbors(*tensors, **kw,
+                                 field_pairs=counter.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("uniform,p2r", [(True, False), (True, True),
+                                         (False, False), (False, True)])
+def test_cuda_non_finite_riders_poison_the_receivers_plain_does(
+        cuda_device, uniform, p2r):
+    """A source with a NaN position, one with an infinite heading column,
+    one (per-row form) with an infinite field column, and a receiver with
+    a NaN heading make the same active receivers non-finite in K1 as in
+    the plain version, however few of their pairs are tracked."""
+    st, teng = port_crowd(20_000, cuda_device)
+    tn, tv, ts, tr = sorted_inputs(st, teng, torch.float32)
+    ts, tr = ts.clone(), tr.clone()
+    ts[1000, 0] = float("nan")
+    ts[7000, 2] = float("inf")
+    ts[13000, 7] = float("inf")                 # sigma_0
+    tr[2, 16000] = float("nan")
+    kw = dict(block=BLOCK, block_src=BLOCK_SRC, priority_p2r=p2r,
+              uniform=teng.uniform_pair if uniform else None)
+    got = PF.pair_forces_neighbors(tn, tv, ts, tr, **kw)
+    want = PF.pair_forces_neighbors_ref(tn, tv, ts, tr, **kw)
+    active = tr[4] > 0
+    bad_got = ~torch.isfinite(got).all(0) & active
+    bad_want = ~torch.isfinite(want).all(0) & active
+    assert torch.equal(bad_got, bad_want)
+    assert int(bad_want.sum()) > 100
+    ok = active & ~bad_want
+    torch.testing.assert_close(got[:, ok], want[:, ok], atol=ATOL,
+                               rtol=RTOL)
+    # a receiver inactive: 0, whatever its pairs hold (the plain version's
+    # mask is a product there, which a non-finite input can make NaN)
+    assert torch.all(got[:, ~active] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_cuda_crowd_facing_away_gets_exactly_nothing(cuda_device, block):
+    """Riders on a line, every one heading across it: no source lies in
+    any receiver's cone, so K1's forces are exactly 0 and it evaluates no
+    pair; heading along the line they see each other, as in the plain
+    version."""
+    tensors = line_inputs(block=block, device=cuda_device)
+    kw = dict(block=block, block_src=64, uniform=(0.995, 0.7, 0.5, 5.0,
+                                                  0.3, 4.9, 0.5))
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got = PF.pair_forces_neighbors(*tensors, **kw, field_pairs=counter)
+    assert torch.equal(got, torch.zeros_like(got))
+    assert int(counter) == 0
+    along = line_inputs(block=block, facing=(1.0, 0.0), device=cuda_device)
+    got = PF.pair_forces_neighbors(*along, **kw, field_pairs=counter)
+    torch.testing.assert_close(
+        got, PF.pair_forces_neighbors_ref(*along, **kw), atol=ATOL,
+        rtol=RTOL)
+    assert got.abs().max() > 1.0
+    assert int(counter) == PF.field_pairs_ref(*along, **kw) > 0

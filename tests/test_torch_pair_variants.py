@@ -45,6 +45,8 @@ FORMS = {
     "k1_fov_off": ("k1", 64, "full_fov", {}),
     "k1_columns": ("k1", 64, "columns", {}),
     "k1_p2r": ("k1", 64, "uniform", {"priority_p2r": True}),
+    "k1_columns_p2r": ("k1", 64, "columns", {"priority_p2r": True}),
+    "k1_columns_sub32": ("k1", 64, "columns", {"screen": True, "sub": 32}),
     "k2_uniform": ("k2", 64, "uniform", {}),
     "k2_columns": ("k2", 64, "columns", {}),
     "k3": ("k3", 128, "columns", {}),
@@ -85,16 +87,17 @@ def port_params(population, n, seed=0):
         sigma_0=p.sigma_0 * torch.as_tensor(1 + 0.05 * rng.uniform(-1, 1, n)))
 
 
-def form_inputs(form, n, device, cutoff, kb=None, dtype=torch.float32):
+def form_inputs(form, n, device, cutoff, kb=None, dtype=torch.float32,
+                block=BLOCK):
     """(engine, sorted torch packs, kernel options) of one form on the
     port's bench-style crowd (0.02 /m^2, padded to the block). kb defaults
     to the number of source blocks, so the table never overflows."""
     kernel, block_src, population, opts = FORMS[form]
-    st = build_population(n, 0.02, 8, BLOCK, dtype, device)
+    st = build_population(n, 0.02, 8, block, dtype, device)
     kb = kb or st.n // block_src
     eng = TE.Engine.create(
         port_params(population, st.n), bicycle2d, rep_force="twod",
-        neighbors=TE.NeighborConfig(cutoff=cutoff, block=BLOCK,
+        neighbors=TE.NeighborConfig(cutoff=cutoff, block=block,
                                     block_src=block_src, kb=kb))
     cache = eng.neighbor_cache(st)
     assert not cache[3].any()
@@ -433,22 +436,71 @@ def test_cuda_form_matches_plain(cuda_device, form):
     assert want.abs().max() > 1.0
 
 
+# K1's forms that take its cone loop (the FOV cone on, one family)
+K1_CONE_FORMS = ("k1_screen", "k1_screen_sub32", "k1_columns", "k1_p2r",
+                 "k1_columns_p2r", "k1_columns_sub32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["k1_uniform", *K1_CONE_FORMS])
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_cuda_k1_cone_forms_match_plain_at_each_block(cuda_device, form,
+                                                      block):
+    """K1's cone loop in each of its forms (uniform and per-row, priority
+    to the right on and off, the strip and tile screens on and off) at
+    every receiver block, at 20k riders and the bench configuration's
+    cutoff: within the kernels' bar of the plain version, the same bits
+    on a second call, and `field_pairs` equal to `field_pairs_ref`."""
+    key = "k2_uniform" if form == "k1_uniform" else form
+    _, tensors, kw = form_inputs(key, 20_000, cuda_device, 50.0, kb=64,
+                                 block=block)
+    kw["block"] = block
+    counter = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got = PF.pair_forces_neighbors(*tensors, **kw, field_pairs=counter)
+    torch.cuda.synchronize()
+    want = PF.pair_forces_neighbors_ref(*tensors, **kw)
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+    assert want.abs().max() > 1.0
+    assert torch.equal(PF.pair_forces_neighbors(*tensors, **kw), got)
+    assert int(counter) == PF.field_pairs_ref(*tensors, **kw) > 0
+
+
 @pytest.mark.cuda
 def test_cuda_mixed_equals_columns_and_any_kb_is_taken(cuda_device):
     """`mixed` on an all-twod pack equals the per-column call bit for bit
-    in each kernel; `mixed` with uniform constants raises; K2 takes a
-    table of any length (it stages a long row in rounds)."""
+    in K2 and K3, and in K1 where both walk every pair (no FOV cone); with
+    the cone, K1's column form evaluates only the units the cone needs
+    and sums in its own order, within the kernels' bar of the mixed
+    form, and bit for bit its uniform form on columns that hold the
+    shared constants. `mixed` with uniform constants raises; K2 takes a table of any
+    length (it stages a long row in rounds)."""
     _, tensors, kw = form_inputs("k2_uniform", 20_000, cuda_device, 50.0,
                                  kb=40)
     _, db_tensors, db_kw = form_inputs("k3", 20_000, cuda_device, 50.0,
                                        kb=40)
     bs = {"block_src": kw["block_src"]}
-    for fn, t, fkw in ((PF.pair_forces_neighbors, tensors, bs),
+    for fn, t, fkw in ((PF.pair_forces_neighbors, tensors,
+                        {**bs, "fov": False}),
                        (PF.pair_forces_neighbors_unrolled, tensors, bs),
                        (PF.pair_forces_neighbors_db, db_tensors,
                         {"cutoff": db_kw["cutoff"]})):
         torch.testing.assert_close(fn(*t, **fkw, mixed=True), fn(*t, **fkw),
                                    rtol=0, atol=0)
+    k1 = PF.pair_forces_neighbors
+    torch.testing.assert_close(k1(*tensors, **bs, mixed=True),
+                               k1(*tensors, **bs), atol=ATOL, rtol=RTOL)
+    # K1's cone loop, uniform form against column form with every row's
+    # columns holding the shared constants: bit for bit, with the strip
+    # screen and without
+    nbr, valid, src, recv = tensors
+    same = src.clone()
+    same[:, PF._E0:PF._CHF + 1] = torch.tensor(kw["uniform"],
+                                               dtype=src.dtype)
+    u = tuple(float(v) for v in same[0, PF._E0:PF._CHF + 1])
+    for screen in ({}, {"screen": True, "sub": 32, "cutoff": 20.0}):
+        torch.testing.assert_close(
+            k1(nbr, valid, src, recv, **bs, **screen, uniform=u),
+            k1(nbr, valid, same, recv, **bs, **screen), rtol=0, atol=0)
     for fn in PF.KERNELS[:2]:
         with pytest.raises(ValueError, match="mixed"):
             fn(*tensors, mixed=True, uniform=kw["uniform"])

@@ -132,6 +132,30 @@ def test_table_overflow_rows_counts_the_overflowed_blocks():
     assert tracing.report()["counters"]["table_overflow_rows"] == want
 
 
+def test_growth_counts_only_the_recorded_blocks():
+    """`growth` adds how far a count grows inside a recorded block, none
+    of what it grows outside one, and nothing for a count of None (the
+    plain version's engine on the CPU: `Engine.field_pairs`)."""
+    count = torch.zeros(1, dtype=torch.int64)
+    with tracing.recording():
+        with tracing.growth(tracing.probe("cpu"), "grown", count):
+            count += 5
+    count += 100
+    with tracing.growth(tracing.probe("cpu"), "grown", count):
+        count += 7
+    with tracing.recording():
+        with tracing.growth(tracing.probe("cpu"), "grown", count):
+            count += 2
+        with tracing.growth(tracing.probe("cpu"), "grown", None):
+            count += 1
+    assert tracing.report()["counters"]["grown"] == 7
+    eng = make_engine()
+    assert eng.field_pairs("cpu") is None
+    with tracing.recording():
+        eng.simulate(crowd(), K, record=False)
+    assert "field_pairs" not in tracing.report()["counters"]
+
+
 def test_off_records_nothing_and_changes_nothing(monkeypatch):
     """With no profiler and no `recording()`, `simulate` enters no
     record function, makes no span or CUDA event and adds to no
@@ -320,6 +344,34 @@ def test_cuda_replays_have_stream_times_within_the_chunk(cuda_device):
     for name in ("csf::chunk", "csf::sync", "csf::simulate"):
         assert rep["spans"][name]["stream_ms"] is None
         assert rep["spans"][name]["host_ms"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_field_pairs_cover_the_recorded_steps(cuda_device):
+    """K1 adds its evaluated pairs to the engine's counter in every graphed
+    and eager step; a recording reports what the counter grew by in its
+    own `simulate` calls, no more than the tables' walked pairs, and the
+    unrecorded call between them adds nothing to the report."""
+    eng, st = make_engine(), crowd(4096, cuda_device)
+    scen = Scenario(eng, st, chunk=4 * K)
+    scen.step_chunk(record=False)           # the capture
+    counter = eng.field_pairs(cuda_device)
+    torch.cuda.synchronize()
+    tracing.clear()
+    before = int(counter)
+    with tracing.recording():
+        scen.step_chunk(record=False)
+    torch.cuda.synchronize()
+    first = int(counter) - before
+    scen.step_chunk(record=False)
+    with tracing.recording():
+        eng.simulate(scen.state, 3, record=False, graph=False)
+    torch.cuda.synchronize()
+    counters = tracing.report()["counters"]
+    assert counters["steps"] == 4 * K + 3
+    assert 0 < first < counters["field_pairs"]
+    assert counters["field_pairs"] < 0.6 * counters["table_pairs"]
+    assert counters["field_pairs"] % 32 == 0
 
 
 @pytest.mark.cuda
